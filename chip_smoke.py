@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the Morpheus simulator on one NVIDIA card.
+"""Drive the PyTorch/CUDA port of the Morpheus simulator and its serving
+page pool on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero and prints no result):
 
   1. device and build: the card's name and power limit, then ``nvcc`` of
-     the kernels from ``src/repro_torch/kernels/csrc`` with its ``-Xptxas
-     -v`` report (registers, shared memory, spills);
+     the kernel sources of ``src/repro_torch/kernels/csrc`` (one process
+     each, all started together) with their ``-Xptxas -v`` reports
+     (registers, shared memory, spills);
   2. kernel vs plain: batches of 16 ``cfd`` traces of 120 000 requests
      under predictor {BLOOM, NONE, PERFECT} x compression {off, on} and a
-     conventional-only config (BL); each CUDA kernel against its plain
-     PyTorch version on the same tensors (integer Stats and state rows
-     identical, float sums within 1e-3 relative), and a 4-epoch
+     conventional-only config (BL); each engine-scan kernel against its
+     plain PyTorch version on the same tensors (integer Stats and state
+     rows identical, float sums within 1e-3 relative), and a 4-epoch
      ``advance_packed`` partition identical to one run;
   3. golden: integer Stats of three full-width cells against the JAX
      reference's values in ``tests/data/torch_golden_stats.json``;
@@ -21,7 +23,35 @@ Phases (one line each; any failure exits non-zero and prints no result):
      the launch counts of that run, its best splits against the
      reference's (same file), points/s, and host (trace generation +
      ``pack``) against device (scan kernels, CUDA events) time;
-  5. the ported kernels with their launches, errors, times and bounds.
+  5. pool kernels vs plain at large shapes: ``tag_lookup`` on (51200, 8)
+     and (51200, 32), ``bloom_query`` on 4096 queries, ``bdi_compress`` of
+     65 536 blocks of every level and the decompress round trip, and the
+     block read (plain and fused with decompression) of 4096 rows of
+     (4096, 32, 32), each equal to its plain version (tolerance 0), with
+     times;
+  6. golden pool: the serving pool on the card replays the three cells
+     of ``tests/data/torch_golden_pool.json``; stats and crcs of plans,
+     pages read and final state equal the reference's;
+  7. serving path, engine traffic (the main path): the reference serving
+     engine's own pool (64 conventional sets and 4 x 32 extended sets of
+     4 ways) consulted as ``Engine.run`` does, one page key
+     ``page_key(prefix hash, 0, page)`` a call, for 900 chat prompts that
+     share Zipf-popular system prompts and continue earlier
+     conversations; a fetch installs the prefix's blake2b digest, every
+     hit must read back what was installed; the working set exceeds the
+     pool, so pages are evicted; launches, keys per second, hit rate,
+     evictions, and a profiled window of host against device time;
+  8. full-scale pool: 51 200 conventional sets (50 MiB of 128-byte
+     blocks) and 4 x 12 800 extended sets of 4 x 8 BDI slots under a
+     batched synthetic mix (128 rounds of 512 keys from 32 sequences x 36
+     layers x 16 pages, payloads of every BDI level), with the same
+     checks; it evicts nothing and stands for no user's traffic: it runs
+     the kernels at the full store's shapes with the state on the card;
+  9. every pool-kernel call of phases 7 and 8, one per input shape,
+     replayed against its plain version (tolerance 0), and the most
+     frequent and the largest shape of each timed with its bound;
+  10. the ported kernels with their launches (phase 4 for the engine
+     scans, phase 7 for the pool), errors, times and bounds.
 
 The last lines are the card (``nvidia-smi``), the ``{"kernels": ...}``
 record, and ``{"ok": true, "device": ...}``.  Needs one CUDA card, the
@@ -29,18 +59,24 @@ CUDA toolkit and this checkout; imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import subprocess
 import sys
 import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 GOLDEN = ROOT / "tests" / "data" / "torch_golden_stats.json"
+GOLDEN_POOL = ROOT / "tests" / "data" / "torch_golden_pool.json"
+SOURCES = ("engine_scan", "pool")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (guide table)
 PEAK_OPS_PER_S = 67e12           # H100 SXM float32 outside tensor cores
@@ -73,9 +109,11 @@ class Env:
     def __init__(self):
         sys.path.insert(0, str(SRC))
         from repro_torch.core import cache_sim, controller, engine, policy
-        from repro_torch.kernels import _build, engine_scan
+        from repro_torch.kernels import _build, engine_scan, ops, pool
+        from repro_torch.serving import paged_kv
         self.cs, self.ctl, self.engine = cache_sim, controller, engine
         self.policy, self.build, self.scan = policy, _build, engine_scan
+        self.ops, self.pool, self.kv = ops, pool, paged_kv
 
 
 def timed_cuda(fn, reps: int) -> float:
@@ -91,6 +129,51 @@ def timed_cuda(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled(fn) -> tuple:
+    """(host wall seconds, {kernel or copy name: device microseconds})
+    of ``fn()`` under ``torch.profiler``; the dict is empty when the
+    profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    us = {e.key: float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+          for e in prof.key_averages()}
+    return wall, {k: v for k, v in us.items() if v > 0}
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of ``fn()``: ``reps`` calls
+    captured in one CUDA graph and replayed between CUDA events, so the
+    host's launch time drops out.  ``fn`` must not synchronise."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                    # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return timed_cuda(graph.replay, 3) / reps
+
+
+def times(kernel, plain, reps: int, plain_reps: int, library=None,
+          plain_on_graph: bool = True) -> dict:
+    """Device ms per call of a kernel's wrapper, its plain version and a
+    library call (``device_ms``), and the kernel's ms per call back to
+    back (CUDA events: the host's launch time shows where it is the
+    longer).  A plain version that synchronises (the engine scans' Python
+    loops) is timed back to back instead."""
+    return dict(ms=device_ms(kernel, reps), call_ms=timed_cuda(kernel, reps),
+                plain_ms=(device_ms if plain_on_graph else timed_cuda)(
+                    plain, plain_reps),
+                library_ms=device_ms(library, reps) if library else None)
 
 
 def compare(kernel, plain, ctx: str) -> float:
@@ -170,15 +253,15 @@ def phase_kernels(env: Env, dev) -> dict:
             b_s_c = pt.conv_tag.shape[0] * pt.conv_tag.shape[1]
             b_s_e = pt.ext_tag.shape[0] * pt.ext_tag.shape[1]
             timing["conv_scan"] = dict(
-                ms=timed_cuda(lambda: scan.conv_scan(*conv_args), 20),
-                plain_ms=timed_cuda(lambda: scan.conv_scan_plain(*conv_args),
-                                    2),
+                **times(lambda: scan.conv_scan(*conv_args),
+                        lambda: scan.conv_scan_plain(*conv_args), 20, 2,
+                        plain_on_graph=False),
                 bound=bound_ms("conv", pt, b_s_c, cfg.conv_ways),
                 shape=list(pt.conv_tag.shape))
             timing["ext_scan"] = dict(
-                ms=timed_cuda(lambda: scan.ext_scan(*ext_args), 20),
-                plain_ms=timed_cuda(lambda: scan.ext_scan_plain(*ext_args),
-                                    2),
+                **times(lambda: scan.ext_scan(*ext_args),
+                        lambda: scan.ext_scan_plain(*ext_args), 20, 2,
+                        plain_on_graph=False),
                 bound=bound_ms("ext", pt, b_s_e, cfg.ext_max_ways),
                 shape=list(pt.ext_tag.shape))
             epoch_check(env, cfg, traces, dev)
@@ -308,6 +391,577 @@ def small_check(env: Env, dev) -> None:
             fail(f"best_split {app}/{system}: card {g} != cpu {c}")
 
 
+# ------------------------------------------------------------- serving pool
+
+POOL_SERVING = dict(conv_sets=51200, ext_sets_per_chip=12800,
+                    num_cache_chips=4, ways=8, compression=True,
+                    predictor="bloom")
+ROUNDS, ROUND_KEYS = 128, 512
+PROFILED_ROUNDS = 4
+POOL_WRAPPERS = ("tag_lookup", "bloom_query", "bdi_compress",
+                 "gather_blocks", "cached_block_read")
+POOL_KERNELS = ("tag_lookup_kernel", "bloom_query_kernel",
+                "bdi_compress_kernel", "block_read_kernel")
+
+
+def pool_payload(keys: np.ndarray, words: int = 32) -> np.ndarray:
+    """Page payloads of ``keys`` (as ``tests/torch_parity.pool_payload``,
+    which made the golden pool file): a HIGH, LOW or UNCOMP block
+    (``key % 3``) around a key-derived base, wrapping mod 2^32."""
+    k = np.asarray(keys, np.int64)[:, None]
+    i = np.arange(words, dtype=np.int64)[None, :]
+    base = (k * 0x9E3779B1) & 0xFFFFFFFF
+    step = np.asarray([1, 1000, 0x01000193])[k % 3]
+    return ((base + (i - words // 2) * step) % (1 << 32)).astype(np.uint32)
+
+
+def exact(kernel, plain, ctx: str) -> int:
+    """Kernel outputs vs plain outputs, identical; returns the max abs
+    difference (0)."""
+    kernel = kernel if isinstance(kernel, tuple) else (kernel,)
+    plain = plain if isinstance(plain, tuple) else (plain,)
+    for i, (k, p) in enumerate(zip(kernel, plain)):
+        if k.dtype != p.dtype or not torch.equal(k, p):
+            bad = (k != p).nonzero()[:5].tolist()
+            fail(f"{ctx}: output {i} differs from the plain version at {bad}")
+    return max(int((k.long() - p.long()).abs().max()) if k.numel() else 0
+               for k, p in zip(kernel, plain))
+
+
+def bytes_bound(n_bytes: float, n_ops: float) -> tuple:
+    """(least ms, what bounds it): bytes over the memory rate against
+    operations over the float32 peak, the larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pool_bound(name: str, shapes) -> tuple:
+    """``bytes_bound`` of one call of pool wrapper ``name`` on inputs of
+    ``shapes``: each input read once and each output written once (the
+    block reads count only the selected row of each set, the Bloom query
+    one filter row and one mask row a query), against about 4 operations
+    a way, 6 a hash or segment and 1-2 a word read."""
+    if name == "tag_lookup":
+        s, w = shapes[0]
+        return bytes_bound(s * w * (4 + 1 + 4 + 4) + s * 12, 4 * s * w)
+    if name == "bloom_query":
+        q, words = shapes[0]
+        return bytes_bound(q * (words * 8 + 8), q * 3 * 6)
+    if name == "bdi_compress":
+        n = shapes[0][0]
+        return bytes_bound(n * (128 + 136), n * 32 * 6)
+    if name == "bdi_decompress":               # level, base, payload
+        n, words = shapes[2]
+        return bytes_bound(n * (8 + 8 * words), n * words * 2)
+    s, _, words = shapes[0]
+    if name == "gather_blocks":
+        return bytes_bound(s * (4 + 8 * words), s * words)
+    return bytes_bound(s * (12 + 8 * words), s * words * 2)
+
+
+def u32(rng, shape, dev, hi=1 << 32) -> torch.Tensor:
+    a = rng.integers(0, hi, size=shape, dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(a.view(np.int32)).to(dev)
+
+
+def bdi_blocks(rng, n: int, dev) -> torch.Tensor:
+    """n blocks of all three levels, with the boundary deltas and bases
+    near 2^32."""
+    base = rng.integers(0, 1 << 32, size=(n, 1), dtype=np.int64)
+    base[::4] = (1 << 32) - 2
+    step = np.asarray([1, 1000, 1 << 24])[rng.integers(0, 3, size=(n, 1))]
+    x = base + rng.integers(-127, 128, size=(n, 32)) * step // 127
+    x[:, 0] = base[:, 0]
+    edge = np.asarray([-129, -128, 127, 128, -32769, -32768, 32767, 32768])
+    m = 8 * (n // 8)
+    x[:m, 5] = base[:m, 0] + np.tile(edge, n // 8)
+    a = (x % (1 << 32)).astype(np.uint32)
+    return torch.from_numpy(a.view(np.int32)).to(dev)
+
+
+def phase_pool_kernels(env: Env, dev) -> dict:
+    """Phase 5: each pool kernel vs its plain version at full-scale
+    shapes, and its time against its plain version's and its bound."""
+    kp = env.pool
+    rng = np.random.default_rng(0)
+    out = {}
+    # tag lookup over the serving pool's conventional store (W = 8), and
+    # W = 32 (one set per warp)
+    for w in (8, 32):
+        s = POOL_SERVING["conv_sets"]
+        valid = torch.from_numpy(rng.random((s, w)) < 0.7).to(dev)
+        lru = u32(rng, (s, w), dev, hi=1 << 12)
+        lru[:, 0] = 0
+        lru[::3, -1] = 0xFFF
+        req = u32(rng, (s,), dev, hi=6)
+        req[::5] = 7                                 # certain misses
+        args = (u32(rng, (s, w), dev, hi=6), valid, lru, req)
+        err = exact(kp.tag_lookup(*args), kp.tag_lookup_plain(*args),
+                    f"tag_lookup ({s}, {w})")
+        if w == 8:
+            out["tag_lookup"] = dict(
+                err=err, shape=[s, w],
+                **times(lambda: kp.tag_lookup(*args),
+                        lambda: kp.tag_lookup_plain(*args), 50, 5),
+                bound=pool_bound("tag_lookup", [args[0].shape]))
+    # bloom query, 4096 queries of 8-word filters, half of them members
+    q, words = 4096, 8
+    filters = u32(rng, (q, words), dev) & u32(rng, (q, words), dev)
+    tags = u32(rng, (q,), dev)
+    filters[::2] |= kp.bloom_query_plain(filters, tags)[1][::2]
+    err = exact(kp.bloom_query(filters, tags),
+                kp.bloom_query_plain(filters, tags), "bloom_query")
+    out["bloom_query"] = dict(
+        err=err, shape=[q, words],
+        **times(lambda: kp.bloom_query(filters, tags),
+                lambda: kp.bloom_query_plain(filters, tags), 50, 5),
+        bound=pool_bound("bloom_query", [filters.shape]))
+    # BDI: 65 536 blocks of every level, and the round trip
+    n = 65536
+    blocks = bdi_blocks(rng, n, dev)
+    comp = kp.bdi_compress(blocks)
+    err = exact(comp, kp.bdi_compress_plain(blocks), "bdi_compress")
+    levels = sorted(set(comp[0].tolist()))
+    if levels != [0, 1, 2]:
+        fail(f"bdi_compress: levels {levels}, expected all three")
+    back = kp.bdi_decompress(*comp)
+    err_d = exact(back, kp.bdi_decompress_plain(*comp), "bdi_decompress")
+    exact(back, blocks, "bdi round trip")
+    out["bdi_compress"] = dict(
+        err=err, shape=[n, 32],
+        **times(lambda: kp.bdi_compress(blocks),
+                lambda: kp.bdi_compress_plain(blocks), 50, 5),
+        bound=pool_bound("bdi_compress", [blocks.shape]))
+    out["bdi_decompress"] = dict(
+        err=err_d, shape=[n, 32],
+        **times(lambda: kp.bdi_decompress(*comp),
+                lambda: kp.bdi_decompress_plain(*comp), 50, 5),
+        bound=pool_bound("bdi_decompress", [c.shape for c in comp]))
+    # block read: 4096 rows of (4096, 32, 32), plain and fused
+    s, w = 4096, 32
+    data = u32(rng, (s, w, 32), dev)
+    way = torch.from_numpy(rng.integers(0, w, size=s).astype(np.int32)
+                           ).to(dev)
+    level = torch.from_numpy(rng.integers(0, 3, size=s).astype(np.int32)
+                             ).to(dev)
+    base = u32(rng, (s,), dev)
+    err = exact(kp.gather_blocks(data, way), kp.gather_blocks_plain(data, way),
+                "gather_blocks")
+    fargs = (data, way, level, base)
+    err_f = exact(kp.cached_block_read(*fargs),
+                  kp.cached_block_read_plain(*fargs), "cached_block_read")
+    rows = torch.arange(s, device=dev)
+    out["gather_blocks"] = dict(
+        err=max(err, err_f), shape=[s, w, 32],
+        **times(lambda: kp.gather_blocks(data, way),
+                lambda: kp.gather_blocks_plain(data, way), 50, 5,
+                library=lambda: data[rows, way]),
+        bound=pool_bound("gather_blocks", [data.shape]),
+        fused_ms=device_ms(lambda: kp.cached_block_read(*fargs), 50),
+        fused_plain_ms=device_ms(
+            lambda: kp.cached_block_read_plain(*fargs), 5),
+        fused_bound=pool_bound("cached_block_read", [data.shape]))
+    log("phase 5: pool kernels == plain (tolerance 0): " + ", ".join(
+        f"{k} {v['shape']} {v['ms']:.5f} ms on the card, {v['call_ms']:.4f} "
+        f"ms a call (plain {v['plain_ms']:.4f} ms, bound "
+        f"{v['bound'][0]:.5f} ms)" for k, v in out.items())
+        + f"; fused read {out['gather_blocks']['fused_ms']:.5f} ms, "
+        f"library gather {out['gather_blocks']['library_ms']:.5f} ms")
+    return out
+
+
+def replay_golden_cell(env: Env, cell: dict, dev) -> dict:
+    """``tests/test_torch_golden_pool.py``'s procedure on the card."""
+    kv = env.kv
+    pool = kv.MorpheusPagePool(kv.PoolConfig(**cell["config"]), dev)
+    plans = reads = 0
+    for keys in cell["batches"]:
+        keys = np.asarray(keys, np.uint32)
+        plan = pool.lookup_batch(keys)
+        plans = zlib.crc32(b"".join(np.ascontiguousarray(x, np.int32)
+                                    .tobytes() for x in plan), plans)
+        fetched = keys[plan.tier == 2]
+        for k, pay in zip(fetched, pool_payload(fetched,
+                                                pool.cfg.page_words)):
+            pool.write_page(int(k), pay)
+        got = pool.read_pages(plan).cpu().numpy().view(np.uint32)
+        reads = zlib.crc32(np.ascontiguousarray(got).tobytes(), reads)
+    st = kv.pool_to_numpy(pool)
+    state = 0
+    for name in kv.STATE_FIELDS:
+        state = zlib.crc32(np.ascontiguousarray(st[name]).tobytes(), state)
+    return {"stats": dict(pool.stats._asdict()), "plans_crc": plans,
+            "reads_crc": reads, "state_crc": state}
+
+
+def phase_golden_pool(env: Env, dev) -> None:
+    cells = json.loads(GOLDEN_POOL.read_text())["cells"]
+    for cell in cells:
+        got = replay_golden_cell(env, cell, dev)
+        want = {k: cell[k] for k in got}
+        if got != want:
+            fail(f"golden pool {cell['name']}: {got} != {want}")
+    log(f"phase 6: golden pool: {len(cells)} cells replayed on the card "
+        f"equal the reference's stats and plan/read/state crcs")
+
+
+class PathCalls:
+    """While entered, wraps the pool wrappers under the names the serving
+    pool calls them by (``kernels.ops``): counts each call by its input
+    shapes and keeps a copy of the inputs of the first call of each
+    shape, so the calls the path made can be replayed against the plain
+    versions afterwards.  The wrappers still count their own launches."""
+
+    def __init__(self, ops, names=POOL_WRAPPERS):
+        self.ops, self.names = ops, names
+        self.calls = {}         # (name, input shapes) -> calls
+        self.inputs = {}        # (name, input shapes) -> first call's inputs
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.ops, n) for n in self.names}
+        for n, fn in self.saved.items():
+            setattr(self.ops, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.ops, n, fn)
+
+    def _wrap(self, name, fn):
+        def call(*args):
+            key = (name, tuple(tuple(a.shape) for a in args))
+            if key not in self.calls:
+                self.inputs[key] = tuple(a.clone() for a in args)
+                self.calls[key] = 0
+            self.calls[key] += 1
+            return fn(*args)
+        return call
+
+
+def drive(env: Env, ctx: str, serve) -> dict:
+    """Run ``serve()`` (one serving cell) with every pool count set to 0
+    just before and read just after; fail unless each wrapper of the path
+    launched its kernel and no plain version ran."""
+    kp = env.pool
+    with PathCalls(env.ops) as calls:
+        torch.cuda.synchronize()
+        kp.reset_launches()
+        t0 = time.perf_counter()
+        serve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, plain = dict(kp.launches), dict(kp.plain_runs)
+    for name in POOL_WRAPPERS:
+        if counts[name] <= 0:
+            fail(f"{ctx}: kernel {name} was not launched")
+    if any(plain.values()):
+        fail(f"{ctx}: plain versions ran {plain}")
+    return {"wall_s": wall, "launches": counts, "calls": calls}
+
+
+def profiled_window(serve) -> dict:
+    """Host wall seconds and device milliseconds (``torch.profiler``: the
+    pool kernels, and all kernels and copies) of ``serve()``."""
+    wall, us = profiled(serve)
+    pool_us = sum(v for k, v in us.items()
+                  if any(n in k for n in POOL_KERNELS))
+    return {"wall_s": wall, "pool_kernels_ms": pool_us / 1e3,
+            "device_busy_ms": sum(us.values()) / 1e3, "measured": bool(us)}
+
+
+def window_text(w: dict, what: str) -> str:
+    if not w["measured"]:
+        return (f"profiled window of {what}: host {w['wall_s']:.3f} s, "
+                f"device time not measured (torch.profiler recorded no "
+                f"device activity)")
+    return (f"profiled window of {what}: host {w['wall_s']:.3f} s, device "
+            f"{w['pool_kernels_ms']:.3f} ms in the pool kernels and "
+            f"{w['device_busy_ms']:.3f} ms in all kernels and copies")
+
+
+# The reference serving engine's pool and access pattern
+# (``src/repro/serving/engine.py``: ``Engine.__init__`` builds this pool,
+# ``Engine.run`` consults it one page key at a time).
+ENGINE_POOL = dict(conv_sets=64, ext_sets_per_chip=32, num_cache_chips=4,
+                   ways=4)
+PAGE_TOKENS = 16
+SYSTEM_PROMPTS, SYSTEM_PAGES = 32, 4     # shared prefixes, Zipf-popular
+TURN_PAGES, MAX_TURNS, LIVE_CHATS = 4, 8, 64
+ENGINE_REQUESTS, ENGINE_PROFILED = 900, 40
+
+
+def prefix_hash(tokens) -> int:
+    """The engine's prefix hash: blake2b-64 of the int32 token bytes."""
+    h = hashlib.blake2b(np.asarray(tokens, np.int32).tobytes(),
+                        digest_size=8).digest()
+    return int.from_bytes(h, "little")
+
+
+def digest_page(prefix) -> np.ndarray:
+    """The engine's page payload: two salted 64-byte blake2b digests of
+    the prefix's ``repr`` (32 words, almost always BDI ``UNCOMP``)."""
+    raw = bytes(repr(prefix), "utf8")
+    d = (hashlib.blake2b(raw, digest_size=64, salt=b"pg0").digest()
+         + hashlib.blake2b(raw, digest_size=64, salt=b"pg1").digest())
+    return np.frombuffer(d, dtype=np.uint32).copy()
+
+
+def chat_prompts(n: int, seed: int = 0):
+    """``n`` prompts of a chat service: each starts with one of
+    ``SYSTEM_PROMPTS`` system prompts (Zipf-popular) and either opens a
+    conversation with a new user turn or continues one of the
+    ``LIVE_CHATS`` most recent conversations (its previous prompt plus a
+    reply and a new turn) until it reaches ``MAX_TURNS`` turns."""
+    rng = np.random.default_rng(seed)
+    vocab = 151_936                                  # qwen3's vocabulary
+    systems = [rng.integers(0, vocab, SYSTEM_PAGES * PAGE_TOKENS).tolist()
+               for _ in range(SYSTEM_PROMPTS)]
+    pop = 1.0 / np.arange(1, SYSTEM_PROMPTS + 1)
+    pop /= pop.sum()
+    chats = []                                       # [prompt, turns]
+    for _ in range(n):
+        turn = rng.integers(0, vocab, TURN_PAGES * PAGE_TOKENS).tolist()
+        if chats and rng.random() < 0.6:
+            i = int(rng.integers(max(0, len(chats) - LIVE_CHATS),
+                                 len(chats)))
+            prompt, turns = chats.pop(i)
+            prompt = prompt + turn
+            turns += 1
+        else:
+            prompt, turns = systems[rng.choice(SYSTEM_PROMPTS, p=pop)] + turn, 1
+        if turns < MAX_TURNS:
+            chats.append((prompt, turns))
+        yield prompt
+
+
+def serve_request(pool, page_key, prompt, installed: dict, ctx: str) -> None:
+    """``Engine.run``'s page-cache consultation for one prompt: one
+    ``lookup_batch`` per page key ``page_key(prefix hash, 0, page)``; a
+    backing fetch installs the prefix's digest; a hit is read back and
+    held to what was installed under its key."""
+    for pg in range(len(prompt) // PAGE_TOKENS):
+        prefix = prompt[: (pg + 1) * PAGE_TOKENS]
+        key = page_key(prefix_hash(prefix), 0, pg)
+        plan = pool.lookup_batch(np.asarray([key], np.uint32))
+        if plan.tier[0] == 2:
+            installed[key] = digest_page(prefix)
+            pool.write_page(key, installed[key])
+            continue
+        got = pool.read_pages(plan).cpu().numpy().view(np.uint32)[0]
+        if not np.array_equal(got, installed[key]):
+            fail(f"{ctx}: key {key} (tier {int(plan.tier[0])}) read back "
+                 f"another page")
+
+
+def phase_engine_serving(env: Env, dev) -> dict:
+    """Phase 7: the serving path as its one caller in the repository
+    drives it, through the kernels; this is the main path whose launches
+    the kernels line reports."""
+    kv = env.kv
+    prompts = list(chat_prompts(ENGINE_REQUESTS + ENGINE_PROFILED))
+    pool = kv.MorpheusPagePool(kv.PoolConfig(**ENGINE_POOL), dev)
+    rec = pool.attach_recorder(kv.TraceRecorder(1 << 20))
+    installed = {}
+    lookups = sum(len(p) // PAGE_TOKENS for p in prompts[:ENGINE_REQUESTS])
+
+    def serve():
+        for i, prompt in enumerate(prompts[:ENGINE_REQUESTS]):
+            serve_request(pool, kv.page_key, prompt, installed,
+                          f"engine request {i}")
+    run = drive(env, "engine serving path", serve)
+    stats, events, hit_rate = pool.stats, rec.counts(), pool.hit_rate()
+    distinct = len(installed)
+    cap = (ENGINE_POOL["conv_sets"] * ENGINE_POOL["ways"]
+           + pool.ext_tags.shape[0] * pool.ext_tags.shape[1])
+    if not (stats.conv_hits and stats.ext_hits and events["evict"]):
+        fail(f"engine serving path: no hit on a tier or no eviction "
+             f"({stats}, {events})")
+    if stats.lookups != lookups:
+        fail(f"engine serving path: {stats.lookups} lookups, expected "
+             f"{lookups}")
+    window = profiled_window(lambda: [
+        serve_request(pool, kv.page_key, p, installed, "profiled request")
+        for p in prompts[ENGINE_REQUESTS:]])
+    keys_s = lookups / run["wall_s"]
+    log(f"phase 7: engine traffic: {ENGINE_REQUESTS} chat prompts, "
+        f"{lookups} page lookups one key a call, {distinct} distinct "
+        f"pages against {cap} slots, in {run['wall_s']:.3f} s "
+        f"({keys_s:.1f} keys/s); hit rate {hit_rate:.4f} ({stats}); "
+        f"events {json.dumps(events)}; launches {json.dumps(run['launches'])}"
+        f", plain runs 0; "
+        + window_text(window, f"{ENGINE_PROFILED} more prompts"))
+    return dict(run, keys_per_s=keys_s, lookups=lookups,
+                distinct=distinct, slots=cap,
+                hit_rate=hit_rate, stats=stats._asdict(),
+                events=events, window=window)
+
+
+def serve_round(pool, keys: np.ndarray, pages: np.ndarray,
+                index: dict, ctx: str) -> None:
+    """One round: route the keys, install every fetched page, read every
+    hit back and hold it to what was installed."""
+    plan = pool.lookup_batch(keys)
+    rows = np.asarray([index[int(k)] for k in keys])
+    fetched = plan.tier == 2
+    for k, r in zip(keys[fetched], rows[fetched]):
+        pool.write_page(int(k), pages[r])
+    if not fetched.all():
+        got = pool.read_pages(plan).cpu().numpy().view(np.uint32)
+        bad = np.nonzero((got != pages[rows]).any(axis=1) & ~fetched)[0]
+        if bad.size:
+            fail(f"{ctx}: key {int(keys[bad[0]])} read back another page "
+                 f"({bad.size} of {int((~fetched).sum())} hits)")
+
+
+def phase_full_scale(env: Env, dev) -> dict:
+    """Phase 8: the pool's state at full scale (a conventional tier the
+    size of the H100's L2) under a batched synthetic mix, through the
+    kernels.  The mix fills the pool only in part and evicts nothing, so
+    its keys/s is no user's workload; the cell is there to run every
+    kernel at the full store's shapes with the state on the card."""
+    kv = env.kv
+    cfg = kv.PoolConfig(**POOL_SERVING)
+    universe = np.asarray([kv.page_key(seq, layer, page)
+                           for seq in range(32) for layer in range(36)
+                           for page in range(16)], np.uint32)
+    pages = pool_payload(universe)
+    index = {int(k): i for i, k in enumerate(universe)}
+    rng = np.random.default_rng(0)
+    traffic = [universe[rng.integers(0, len(universe), size=ROUND_KEYS)]
+               for _ in range(ROUNDS + PROFILED_ROUNDS)]
+    pool = kv.MorpheusPagePool(cfg, dev)
+
+    def serve():
+        for i, keys in enumerate(traffic[:ROUNDS]):
+            serve_round(pool, keys, pages, index, f"full-scale round {i}")
+    run = drive(env, "full-scale pool", serve)
+    stats, hit_rate = pool.stats, pool.hit_rate()
+    if not (stats.conv_hits and stats.ext_hits):
+        fail(f"full-scale pool: a tier never hit ({stats})")
+    window = profiled_window(lambda: [
+        serve_round(pool, keys, pages, index, "profiled round")
+        for keys in traffic[ROUNDS:]])
+    keys_s = ROUNDS * ROUND_KEYS / run["wall_s"]
+    log(f"phase 8: full-scale pool, batched mix: {ROUNDS} x {ROUND_KEYS} "
+        f"keys in {run['wall_s']:.3f} s ({keys_s:.1f} keys/s), hit rate "
+        f"{hit_rate:.4f} ({stats}); launches "
+        f"{json.dumps(run['launches'])}, plain runs 0; "
+        + window_text(window, f"{PROFILED_ROUNDS} more rounds"))
+    return dict(run, keys_per_s=keys_s, hit_rate=hit_rate,
+                stats=stats._asdict(), window=window)
+
+
+def replay_path(env: Env, cell: str, calls: PathCalls, dev) -> dict:
+    """Replay every (wrapper, shapes) call a serving cell made against the
+    plain version on the same inputs (tolerance 0), and time the most
+    frequent and the largest shape of each wrapper."""
+    kp = env.pool
+    out = {}
+    for (name, shapes), args in calls.inputs.items():
+        if not args[0].numel():
+            continue
+        err = exact(getattr(kp, name)(*args),
+                    getattr(kp, name + "_plain")(*args),
+                    f"{cell}: {name} {shapes}")
+        row = out.setdefault(name, {"err": 0, "shapes": 0, "timed": []})
+        row["err"] = max(row["err"], err)
+        row["shapes"] += 1
+    for name, row in out.items():
+        keys = [k for k in calls.inputs if k[0] == name
+                and calls.inputs[k][0].numel()]
+        top = max(keys, key=lambda k: calls.calls[k])
+        big = max(keys, key=lambda k: calls.inputs[k][0].numel())
+        for key in dict.fromkeys((top, big)):
+            args = calls.inputs[key]
+            kernel = getattr(kp, name)
+            plain = getattr(kp, name + "_plain")
+            library = None
+            if name == "gather_blocks":
+                rows = torch.arange(args[0].shape[0], device=dev)
+                library = (lambda a=args, r=rows: a[0][r, a[1]])
+            t = times(lambda a=args: kernel(*a), lambda a=args: plain(*a),
+                      50, 5, library=library)
+            row["timed"].append(dict(
+                cell=cell, shape=[list(s) for s in key[1]],
+                launches=calls.calls[key], **t,
+                bound=pool_bound(name, key[1])))
+    return out
+
+
+def phase_path_shapes(env: Env, dev, cells: dict) -> dict:
+    """Phase 9: each pool kernel against its plain version at the shapes
+    the serving cells gave it."""
+    out = {c: replay_path(env, c, run["calls"], dev)
+           for c, run in cells.items()}
+    log("phase 9: pool kernels == plain at the serving path's shapes "
+        "(tolerance 0): " + "; ".join(
+            f"{c}: " + ", ".join(
+                f"{name} {row['shapes']} shapes" + "".join(
+                    f" [{t['shape'][0]} x{t['launches']}: {t['ms']:.5f} ms "
+                    f"on the card, plain {t['plain_ms']:.5f} ms, bound "
+                    f"{t['bound'][0]:.3g} ms]" for t in row["timed"])
+                for name, row in rows.items())
+            for c, rows in out.items()))
+    return out
+
+
+def pool_kernel_rows(pk: dict, cells: dict, paths: dict) -> list:
+    """The pool kernels' entries of the kernels line: launches and times
+    at the shape the engine-traffic cell (the main path) launched most,
+    the other shapes timed on the path, and the large shapes of phase 5."""
+    src = "src/repro_torch/kernels/csrc/pool.cu"
+    rows = {  # name: (replaces, kernel, wrappers on the path)
+        "tag_lookup": ("src/repro/kernels/tag_lookup.py:26",
+                       "tag_lookup_kernel", ("tag_lookup",)),
+        "bloom_query": ("src/repro/kernels/bloom_query.py:33",
+                        "bloom_query_kernel", ("bloom_query",)),
+        "bdi_compress": ("src/repro/kernels/bdi.py:28",
+                         "bdi_compress_kernel", ("bdi_compress",)),
+        "bdi_decompress": ("src/repro/kernels/bdi.py:45",
+                           "block_read_kernel",
+                           ("cached_block_read", "bdi_decompress")),
+        "gather_blocks": ("src/repro/kernels/gather_blocks.py:26",
+                          "block_read_kernel",
+                          ("gather_blocks", "cached_block_read")),
+    }
+    notes = {"bdi_decompress": "on the serving path the decompression runs "
+             "fused into cached_block_read's block read; the path's numbers "
+             "are cached_block_read's",
+             "gather_blocks": "cached_block_read (gather + decompress) is "
+             "the same kernel with level/base"}
+    out = []
+    for name, (replaces, kernel, wrappers) in rows.items():
+        head = paths["engine"][wrappers[0]]["timed"][0]
+        timed = [dict(wrapper=w, **{k: v for k, v in t.items()
+                                    if k != "bound"},
+                      bound_ms=t["bound"][0], bound_by=t["bound"][1])
+                 for c in paths for w in wrappers if w in paths[c]
+                 for t in paths[c][w]["timed"]]
+        large = pk[name]
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "kernel": kernel,
+            "launches": sum(cells["engine"]["launches"][w]
+                            for w in wrappers),
+            "launches_by_wrapper": {c: {w: cells[c]["launches"][w]
+                                        for w in wrappers} for c in cells},
+            "max_abs_err": max([large["err"]] + [
+                paths[c][w]["err"] for c in paths for w in wrappers
+                if w in paths[c]]),
+            "ms": head["ms"], "call_ms": head["call_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
+            "bound_by": head["bound"][1], "library_ms": head["library_ms"],
+            "shape": head["shape"], "path_shapes": timed,
+            "large": {"shape": large["shape"], "ms": large["ms"],
+                      "call_ms": large["call_ms"],
+                      "plain_ms": large["plain_ms"],
+                      "bound_ms": large["bound"][0],
+                      "library_ms": large["library_ms"]},
+            **({"note": notes[name]} if name in notes else {})})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: no CUDA card")
@@ -319,16 +973,24 @@ def main() -> int:
     env = Env()
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    env.build.build("engine_scan")
-    report = [ln.strip() for ln in env.build.build_log("engine_scan")
-              .splitlines() if "registers" in ln or "spill" in ln
-              or "Compiling entry" in ln]
-    log(f"phase 1: built engine_scan in {time.perf_counter() - t0:.1f} s; "
-        f"ptxas: {' | '.join(report)}")
+    with ThreadPoolExecutor(len(SOURCES)) as ex:     # one nvcc per source
+        list(ex.map(env.build.build, SOURCES))
+    log(f"phase 1: built {', '.join(SOURCES)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in SOURCES:
+        report = [ln.strip() for ln in env.build.build_log(name).splitlines()
+                  if "registers" in ln or "spill" in ln
+                  or "Compiling entry" in ln]
+        log(f"phase 1: ptxas {name}: {' | '.join(report)}")
 
     k = phase_kernels(env, dev)
     phase_golden(env, dev)
     main_path = phase_main(env, dev)
+    pk = phase_pool_kernels(env, dev)
+    phase_golden_pool(env, dev)
+    cells = {"engine": phase_engine_serving(env, dev),
+             "full_scale": phase_full_scale(env, dev)}
+    paths = phase_path_shapes(env, dev, cells)
 
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("the port imported jax or repro")
@@ -346,14 +1008,17 @@ def main() -> int:
             "also_replaces": replaces[name][1],
             "launches": main_path["launches"][name],
             "max_abs_err": k["err"][name],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "call_ms": t["call_ms"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": None, "shape_BSL": t["shape"],
         })
-    log("phase 5: kernels " + ", ".join(
+    kernels += pool_kernel_rows(pk, cells, paths)
+    log("phase 10: kernels " + ", ".join(
         f"{x['name']} matched plain (max abs err {x['max_abs_err']:.3g}), "
-        f"{x['ms']:.3f} ms vs plain {x['plain_ms']:.1f} ms, bound "
-        f"{x['bound_ms']:.4f} ms ({x['bound_by']})" for x in kernels))
+        f"{x['ms']:.4g} ms on the card ({x['call_ms']:.4g} ms a call) vs "
+        f"plain {x['plain_ms']:.4g} ms, bound {x['bound_ms']:.4g} ms "
+        f"({x['bound_by']}), {x['launches']} launches" for x in kernels))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Latency and energy constants of the paper's GPU (copy of
-``repro.core.energy``'s ``TierCosts`` and ``PaperGPU``).
+"""Latency and energy constants (copy of ``repro.core.energy``'s
+``TierCosts``, ``PaperGPU`` and ``TPUv5e``).
 
 All latencies in ns, energies in pJ/B, bandwidths in B/s.
 """
@@ -38,3 +38,23 @@ class PaperGPU:
     # GPU-level power model (W) for perf/W: rough RTX 3080 components
     core_power_W: float = 3.2          # per active SM
     static_power_W: float = 60.0
+
+
+@dataclass(frozen=True)
+class TPUv5e:
+    """The reference's serving-tier cost model (``repro.core.energy``).
+
+    These are inputs of the reference's modeled costs, not measurements
+    of any chip: ``serving.paged_kv`` sums ``local_hbm``/``remote_hbm``
+    latencies into ``PoolStats.time_ns``, so the port carries the same
+    values for its Stats to equal the reference's."""
+
+    peak_flops_bf16: float = 197e12
+    hbm_Bps: float = 819e9
+    ici_Bps_per_link: float = 50e9
+    # two-tier KV cache analogue costs
+    local_hbm: TierCosts = TierCosts(1_000.0, 5_000.0, 819e9, 4.0)
+    remote_hbm: TierCosts = TierCosts(4_000.0, 9_000.0, 50e9, 12.0)
+    host_offload: TierCosts = TierCosts(50_000.0, 50_000.0, 8e9, 60.0)
+    vmem_bytes: int = 128 * 1024 * 1024
+    hbm_bytes: int = 16 * (1 << 30)

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels from the repository's sources.
+"""Build the port's CUDA kernels from the repository's sources, and the
+checks every kernel wrapper makes before it hands pointers to one.
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, at first use, into
@@ -15,7 +16,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -77,3 +80,43 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(str(build(name)))
         return _loaded[name]
+
+
+def supported() -> Tuple[bool, str]:
+    """Whether the CUDA kernels can run on this host, and how."""
+    if not torch.cuda.is_available():
+        return False, "torch.cuda.is_available() is False"
+    return True, ("hand-written sm_90a kernels on "
+                  f"{torch.cuda.get_device_name(0)}")
+
+
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
+          device: torch.device) -> None:
+    """Raise unless ``t`` has the dtype, shape and device a kernel takes
+    and is contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """A tensor's device pointer for ctypes (None: a null pointer)."""
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``device``."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def raise_on(err: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error (a refused launch never
+    runs, and a later synchronize does not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

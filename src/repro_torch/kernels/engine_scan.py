@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ._build import supported  # noqa: F401  (engine.backend_status)
 from ..core import controller as ctl
 from ..core.controller import ConvRow, ExtRow, MorpheusConfig, Predictor, Stats
 from ..core.compression import BLOCK_BYTES
@@ -82,14 +83,6 @@ def vecs_to_stats(ints: torch.Tensor, flts: torch.Tensor) -> Stats:
     return Stats(**vals)
 
 
-def supported() -> Tuple[bool, str]:
-    """Whether the CUDA kernels can run on this host, and how."""
-    if not torch.cuda.is_available():
-        return False, "torch.cuda.is_available() is False"
-    return True, ("hand-written sm_90a kernels on "
-                  f"{torch.cuda.get_device_name(0)}")
-
-
 def _costs(cfg: MorpheusConfig):
     """The per-request cost constants as float32, rounded where the
     reference's float32 arithmetic rounds them."""
@@ -105,19 +98,6 @@ def _costs(cfg: MorpheusConfig):
 
 # ------------------------------------------------------------- checks
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
-           device: torch.device) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 def _check_columns(cols: Dict[str, Tuple[torch.Tensor, torch.dtype]]):
     """The packed (B, S, L) request columns; returns (B, S, L, device)."""
     first = next(iter(cols.values()))[0]
@@ -125,24 +105,20 @@ def _check_columns(cols: Dict[str, Tuple[torch.Tensor, torch.dtype]]):
         raise ValueError(f"request columns must be (B, S, L), got "
                          f"{tuple(first.shape)}")
     for name, (t, dt) in cols.items():
-        _check(name, t, dt, first.shape, first.device)
+        _build.check(name, t, dt, first.shape, first.device)
     b, s, length = first.shape
     return b, s, length, first.device
 
 
 def _check_rows(row, template, b: int, s: int, device: torch.device):
     for name, t, ref in zip(row._fields, row, template):
-        _check(f"state.{name}", t, ref.dtype, (b, s) + tuple(ref.shape),
-               device)
+        _build.check(f"state.{name}", t, ref.dtype,
+                     (b, s) + tuple(ref.shape), device)
 
 
 def _zero_vecs(b: int, s: int, dev: torch.device):
     return (torch.zeros((b, s, _NI), dtype=torch.int32, device=dev),
             torch.zeros((b, s, _NF), dtype=torch.float32, device=dev))
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
 
 
 def _select(a: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
@@ -209,18 +185,16 @@ def conv_scan(cfg: MorpheusConfig, tag: torch.Tensor, write: torch.Tensor,
     out = (ConvRow(*[torch.empty_like(x) for x in
                      ctl.conv_row_zero(cfg, (b, s), dev)])
            if keep_state else None)
+    ptr = _build.ptr
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().conv_scan_launch(
-            _ptr(tag), _ptr(write), _ptr(active), _ptr(mask),
+            ptr(tag), ptr(write), ptr(active), ptr(mask),
             b * s, length, cfg.conv_ways, _costs(cfg),
-            *[_ptr(x) for x in (state or (None,) * 4)],
-            _ptr(ints), _ptr(flts),
-            *[_ptr(x) for x in (out or (None,) * 4)],
-            ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"conv_scan kernel launch failed: CUDA error "
-                           f"{err}")
+            *[ptr(x) for x in (state or (None,) * 4)],
+            ptr(ints), ptr(flts),
+            *[ptr(x) for x in (out or (None,) * 4)],
+            _build.stream(dev))
+    _build.raise_on(err, "conv_scan")
     launches["conv_scan"] += 1
     return ints, flts, out
 
@@ -277,20 +251,18 @@ def ext_scan(cfg: MorpheusConfig, tag: torch.Tensor, write: torch.Tensor,
     out = (ExtRow(*[torch.empty_like(x) for x in
                     ctl.ext_row_zero(cfg, (b, s), dev)])
            if keep_state else None)
+    ptr = _build.ptr
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().ext_scan_launch(
-            _ptr(tag), _ptr(write), _ptr(level), _ptr(active),
-            _ptr(mask), b * s, length, cfg.ext_max_ways,
+            ptr(tag), ptr(write), ptr(level), ptr(active),
+            ptr(mask), b * s, length, cfg.ext_max_ways,
             cfg.ext_budget_bytes, cfg.ext_ways,
             _PRED_CODE[cfg.predictor], int(cfg.compression), _costs(cfg),
-            *[_ptr(x) for x in (state or (None,) * 9)],
-            _ptr(ints), _ptr(flts),
-            *[_ptr(x) for x in (out or (None,) * 9)],
-            ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"ext_scan kernel launch failed: CUDA error "
-                           f"{err}")
+            *[ptr(x) for x in (state or (None,) * 9)],
+            ptr(ints), ptr(flts),
+            *[ptr(x) for x in (out or (None,) * 9)],
+            _build.stream(dev))
+    _build.raise_on(err, "ext_scan")
     launches["ext_scan"] += 1
     return ints, flts, out
 

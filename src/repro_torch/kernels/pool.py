@@ -1,0 +1,332 @@
+"""The serving pool's mechanism kernels: hand-written CUDA kernels of
+``csrc/pool.cu`` and their plain PyTorch versions.
+
+  * ``tag_lookup`` (paper Algorithm 1) replaces ``_tag_lookup_kernel`` of
+    ``src/repro/kernels/tag_lookup.py`` (:26, called at :57).  For every
+    set ``s``: ``hit[s]`` is whether a valid way holds ``req[s]``,
+    ``way[s]`` the first such way (0 on a miss, as ``argmax`` of an
+    all-false row gives), and the new LRU row sets the hit way to
+    ``LRU_MAX`` and decrements every other way, saturating at 0, on hit
+    rows only.  ``tag_lookup_kernel`` puts the ways of a set on the lanes
+    of a warp: the hit is a ballot and the way ``__ffs`` of it.  A set of
+    W <= 32 ways takes next_pow2(W) lanes, so a warp serves several
+    narrow sets; a wider set loops over 32-way chunks.
+  * ``bloom_query`` replaces ``_query_kernel`` of
+    ``src/repro/kernels/bloom_query.py`` (:33, called at :69).  Query
+    ``q`` hashes ``tags[q]`` with the ``NUM_HASHES`` multiply-shift hashes
+    of ``core.bloom`` into bits of its (already gathered) filter row
+    ``filters[q]``: ``pred[q]`` is whether all those bits are set, and
+    ``masks[q]`` the row with exactly those bits set (an insert's
+    OR-mask).  ``bloom_query_kernel`` gives one thread to one query.
+  * ``bdi_compress`` (paper §4.3.1) replaces ``_compress_kernel`` of
+    ``src/repro/kernels/bdi.py`` (:28, called at :67).  A block is 32
+    four-byte segments; segment 0 is the base and the mod-2^32 deltas of
+    every segment from it give the level: ``HIGH`` when all fit int8 (as
+    unsigned values, ``d <= 127`` or ``d >= 2^32 - 128``), ``LOW`` when
+    they fit int16, else ``UNCOMP``; the payload is the deltas, or the raw
+    block when ``UNCOMP``.  ``bdi_compress_kernel`` maps one block onto
+    one warp: the base comes from lane 0 by ``__shfl_sync`` and the fit
+    tests are ``__all_sync`` votes.
+  * ``gather_blocks``, the Indirect-MOV (§4.3.2), replaces
+    ``_gather_kernel`` of ``src/repro/kernels/gather_blocks.py`` (:26,
+    called at :47): the row ``way[s]`` of each set's (W, words) tile; a
+    way outside [0, W) reads zeros, as the reference's one-hot select
+    does.  ``cached_block_read`` is the reference's
+    ``kernels/ops.py::cached_block_read`` (gather, then decompress) fused
+    into one pass, and ``bdi_decompress`` (``_decompress_kernel``,
+    ``bdi.py:45``, called at :87: ``base + payload`` mod 2^32, or the
+    payload when ``UNCOMP``) is the same read over 1-way sets.  All three
+    run ``block_read_kernel``: one warp an output row, lane = word, which
+    reads only the selected row and, given a level and base, restores it
+    on the way out.
+
+Every kernel moves each byte once and is bound by device-memory bytes.
+The reference tiles 256 sets (``tag_lookup``), 512 queries
+(``bloom_query``), 256 blocks (BDI) and 64 sets (``gather_blocks``) per
+program and asserts that the size is at most one tile or a multiple of
+it; the kernels take any size (a bounds-checked grid), so parity inputs
+keep to the sizes the reference accepts.
+
+Dtypes: tags, LRU counters, requests, filter words, masks, blocks, bases
+and payloads are int32 tensors holding the uint32 bit pattern; valid bits
+are bool; ways and levels int32.  On CUDA tensors each wrapper launches
+its kernel (and adds one to its entry of ``launches``) or raises; on CPU
+tensors it runs its plain version (and adds one to ``plain_runs``).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from . import _build
+from ._build import supported  # noqa: F401
+from .. import _u32
+from ..core import bloom
+from ..core.compression import HIGH, LOW, UNCOMP
+from ..core.tag_store import LRU_MAX
+
+SEGMENTS = 32
+WRAPPERS = ("tag_lookup", "bloom_query", "bdi_compress", "bdi_decompress",
+            "gather_blocks", "cached_block_read")
+
+# Launches of each wrapper's kernel since the last ``reset_launches``,
+# and runs of each plain version (which never count as launches).
+launches: Dict[str, int] = dict.fromkeys(WRAPPERS, 0)
+plain_runs: Dict[str, int] = dict.fromkeys(WRAPPERS, 0)
+
+
+def reset_launches() -> None:
+    for k in WRAPPERS:
+        launches[k] = plain_runs[k] = 0
+
+
+def _cuda(dev: torch.device, name: str) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+
+
+# ------------------------------------------------------------ tag lookup
+
+def tag_lookup_plain(tags: torch.Tensor, valid: torch.Tensor,
+                     lru: torch.Tensor, req: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``tag_lookup`` (same arguments)."""
+    plain_runs["tag_lookup"] += 1
+    match = valid & (tags == req[:, None])
+    hit = match.any(dim=1)
+    way = match.to(torch.int32).argmax(dim=1).to(torch.int32)  # first index
+    ways = torch.arange(tags.shape[1], device=tags.device)
+    onehot = (ways == way[:, None]) & hit[:, None]
+    new_lru = torch.where(onehot, LRU_MAX,
+                          torch.where(hit[:, None], _u32.sat_dec(lru), lru))
+    return hit.to(torch.int32), way, new_lru
+
+
+def tag_lookup(tags: torch.Tensor, valid: torch.Tensor, lru: torch.Tensor,
+               req: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """tags/valid/lru (S, W), req (S,) -> (hit (S,) int32, way (S,) int32,
+    new_lru (S, W) int32)."""
+    if tags.dim() != 2 or tags.shape[1] < 1:
+        raise ValueError(f"tags must be (S, W) with W >= 1, got "
+                         f"{tuple(tags.shape)}")
+    s, w = tags.shape
+    dev = tags.device
+    _build.check("tags", tags, torch.int32, (s, w), dev)
+    _build.check("valid", valid, torch.bool, (s, w), dev)
+    _build.check("lru", lru, torch.int32, (s, w), dev)
+    _build.check("req", req, torch.int32, (s,), dev)
+    if dev.type == "cpu":
+        return tag_lookup_plain(tags, valid, lru, req)
+    _cuda(dev, "tag_lookup")
+    hit = torch.empty((s,), dtype=torch.int32, device=dev)
+    way = torch.empty((s,), dtype=torch.int32, device=dev)
+    new_lru = torch.empty((s, w), dtype=torch.int32, device=dev)
+    if s == 0:                      # nothing to look up: no launch
+        return hit, way, new_lru
+    seg_log2 = min(5, (w - 1).bit_length())   # next_pow2(W) lanes a set
+    ptr = _build.ptr
+    with torch.cuda.device(dev):
+        err = _lib().tag_lookup_launch(
+            ptr(tags), ptr(valid), ptr(lru), ptr(req), s, w, seg_log2,
+            ptr(hit), ptr(way), ptr(new_lru), _build.stream(dev))
+    _build.raise_on(err, "tag_lookup")
+    launches["tag_lookup"] += 1
+    return hit, way, new_lru
+
+
+# ------------------------------------------------------------ Bloom query
+
+def bloom_query_plain(filters: torch.Tensor, tags: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``bloom_query`` (same arguments)."""
+    plain_runs["bloom_query"] += 1
+    words = filters.shape[1]
+    bits = bloom._hash_bits(tags, words * 32)
+    pred = bloom._test(filters, bits).to(torch.int32)
+    return pred, bloom._bit_mask(bits, words)
+
+
+def bloom_query(filters: torch.Tensor, tags: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """filters (Q, words), tags (Q,) -> (pred (Q,) int32, insert masks
+    (Q, words) int32)."""
+    if filters.dim() != 2 or filters.shape[1] < 1:
+        raise ValueError(f"filters must be (Q, words) with words >= 1, got "
+                         f"{tuple(filters.shape)}")
+    q, words = filters.shape
+    dev = filters.device
+    _build.check("filters", filters, torch.int32, (q, words), dev)
+    _build.check("tags", tags, torch.int32, (q,), dev)
+    if dev.type == "cpu":
+        return bloom_query_plain(filters, tags)
+    _cuda(dev, "bloom_query")
+    pred = torch.empty((q,), dtype=torch.int32, device=dev)
+    masks = torch.empty((q, words), dtype=torch.int32, device=dev)
+    if q == 0:                      # nothing to query: no launch
+        return pred, masks
+    ptr = _build.ptr
+    with torch.cuda.device(dev):
+        err = _lib().bloom_query_launch(ptr(filters), ptr(tags), q, words,
+                                        ptr(pred), ptr(masks),
+                                        _build.stream(dev))
+    _build.raise_on(err, "bloom_query")
+    launches["bloom_query"] += 1
+    return pred, masks
+
+
+# ------------------------------------------------------------ BDI
+
+def bdi_compress_plain(blocks: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``bdi_compress`` (same arguments)."""
+    plain_runs["bdi_compress"] += 1
+    x = _u32.to_u(blocks)
+    d = (x - x[:, :1]) & _u32.MASK
+    fits8 = ((d <= 127) | (d >= (1 << 32) - 128)).all(dim=1)
+    fits16 = ((d <= 32767) | (d >= (1 << 32) - 32768)).all(dim=1)
+    level = torch.where(fits8, HIGH, torch.where(fits16, LOW, UNCOMP)
+                        ).to(torch.int32)
+    payload = torch.where((level == UNCOMP)[:, None], blocks, _u32.to_i32(d))
+    return level, blocks[:, 0].clone(), payload
+
+
+def bdi_compress(blocks: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """blocks (N, 32) -> (level (N,) int32, base (N,), payload (N, 32))."""
+    if blocks.dim() != 2 or blocks.shape[1] != SEGMENTS:
+        raise ValueError(f"blocks must be (N, {SEGMENTS}), got "
+                         f"{tuple(blocks.shape)}")
+    n = blocks.shape[0]
+    dev = blocks.device
+    _build.check("blocks", blocks, torch.int32, (n, SEGMENTS), dev)
+    if dev.type == "cpu":
+        return bdi_compress_plain(blocks)
+    _cuda(dev, "bdi_compress")
+    level = torch.empty((n,), dtype=torch.int32, device=dev)
+    base = torch.empty((n,), dtype=torch.int32, device=dev)
+    payload = torch.empty((n, SEGMENTS), dtype=torch.int32, device=dev)
+    if n == 0:                      # nothing to compress: no launch
+        return level, base, payload
+    ptr = _build.ptr
+    with torch.cuda.device(dev):
+        err = _lib().bdi_compress_launch(ptr(blocks), n, ptr(level),
+                                         ptr(base), ptr(payload),
+                                         _build.stream(dev))
+    _build.raise_on(err, "bdi_compress")
+    launches["bdi_compress"] += 1
+    return level, base, payload
+
+
+def _restore(level, base, payload) -> torch.Tensor:
+    restored = _u32.to_i32(_u32.to_u(base)[:, None] + _u32.to_u(payload))
+    return torch.where((level == UNCOMP)[:, None], payload, restored)
+
+
+def bdi_decompress_plain(level: torch.Tensor, base: torch.Tensor,
+                         payload: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``bdi_decompress`` (same arguments)."""
+    plain_runs["bdi_decompress"] += 1
+    return _restore(level, base, payload)
+
+
+def bdi_decompress(level: torch.Tensor, base: torch.Tensor,
+                   payload: torch.Tensor) -> torch.Tensor:
+    """level (N,) int32, base (N,), payload (N, words) -> (N, words)."""
+    if payload.dim() != 2:
+        raise ValueError(f"payload must be (N, words), got "
+                         f"{tuple(payload.shape)}")
+    return _read("bdi_decompress", payload.unsqueeze(1), None, level, base)
+
+
+# ------------------------------------------------------------ block read
+
+def _gather(data: torch.Tensor, way: torch.Tensor) -> torch.Tensor:
+    s, w, _ = data.shape
+    way = way.to(torch.int64)
+    ok = (way >= 0) & (way < w)
+    rows = data[torch.arange(s, device=data.device), way.clamp(0, w - 1)]
+    return torch.where(ok[:, None], rows, 0)
+
+
+def gather_blocks_plain(data: torch.Tensor, way: torch.Tensor
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of ``gather_blocks`` (same arguments)."""
+    plain_runs["gather_blocks"] += 1
+    return _gather(data, way)
+
+
+def cached_block_read_plain(data, way, level, base) -> torch.Tensor:
+    """Plain PyTorch version of ``cached_block_read`` (same arguments)."""
+    plain_runs["cached_block_read"] += 1
+    return _restore(level, base, _gather(data, way))
+
+
+def gather_blocks(data: torch.Tensor, way: torch.Tensor) -> torch.Tensor:
+    """data (S, W, words), way (S,) -> (S, words): row ``way[s]`` of each
+    set."""
+    return _read("gather_blocks", data, way, None, None)
+
+
+def cached_block_read(data: torch.Tensor, way: torch.Tensor,
+                      level: torch.Tensor, base: torch.Tensor
+                      ) -> torch.Tensor:
+    """Extended-tier read: ``bdi_decompress(level, base,
+    gather_blocks(data, way))`` in one pass of one kernel."""
+    return _read("cached_block_read", data, way, level, base)
+
+
+_PLAIN_READS = {
+    "gather_blocks": lambda d, w, l, b: gather_blocks_plain(d, w),
+    "cached_block_read": cached_block_read_plain,
+    "bdi_decompress": lambda d, w, l, b: bdi_decompress_plain(l, b, d[:, 0]),
+}
+
+
+def _read(name: str, data: torch.Tensor, way: Optional[torch.Tensor],
+          level: Optional[torch.Tensor], base: Optional[torch.Tensor]
+          ) -> torch.Tensor:
+    """The three block-read wrappers: check data (S, W, words) int32 and,
+    where given, (S,) int32 way, level and base on data's device; run the
+    plain version on the CPU, else launch ``block_read_kernel``."""
+    if data.dim() != 3 or data.shape[1] < 1:
+        raise ValueError(f"data must be (S, W, words) with W >= 1, got "
+                         f"{tuple(data.shape)}")
+    (s, w, words), dev = data.shape, data.device
+    _build.check("data", data, torch.int32, (s, w, words), dev)
+    if way is not None:
+        _build.check("way", way, torch.int32, (s,), dev)
+    if level is not None:
+        _build.check("level", level, torch.int32, (s,), dev)
+        _build.check("base", base, torch.int32, (s,), dev)
+    if dev.type == "cpu":
+        return _PLAIN_READS[name](data, way, level, base)
+    _cuda(dev, name)
+    out = torch.empty((s, words), dtype=torch.int32, device=dev)
+    if s == 0 or words == 0:        # nothing to read: no launch
+        return out
+    ptr = _build.ptr
+    with torch.cuda.device(dev):
+        err = _lib().block_read_launch(ptr(data), ptr(way), ptr(level),
+                                       ptr(base), s, w, words, ptr(out),
+                                       _build.stream(dev))
+    _build.raise_on(err, name)
+    launches[name] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The built ``csrc/pool.cu`` with its four launchers declared."""
+    lib = _build.load("pool")
+    p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn, args in (("tag_lookup_launch", [p] * 4 + [n, i, i] + [p] * 4),
+                     ("bloom_query_launch", [p, p, n, i, p, p, p]),
+                     ("bdi_compress_launch", [p, n, p, p, p, p]),
+                     ("block_read_launch", [p] * 4 + [n, i, i, p, p])):
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = i
+    return lib

@@ -1,6 +1,8 @@
-"""The engine-scan kernels' wrappers (``repro_torch.kernels.engine_scan``):
-argument checks on the CPU, and, on a CUDA card only (marker ``gpu``),
-each CUDA kernel against its plain PyTorch version.  This file imports no
+"""The CUDA kernels' wrappers (``repro_torch.kernels.engine_scan`` and
+the serving pool's ``repro_torch.kernels.pool``): argument checks on the
+CPU, and, on a CUDA card only (marker ``gpu``), each CUDA kernel against
+its plain PyTorch version (the pool's integer kernels bit for bit) and
+the pool on the card against the pool on the CPU.  This file imports no
 JAX, so it runs on a card host that has none:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels.py
@@ -16,6 +18,11 @@ from repro_torch.core import address_separation as asep  # noqa: E402
 from repro_torch.core import controller as ctl  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.kernels import engine_scan as scan  # noqa: E402
+from repro_torch.kernels import pool as pool_ops  # noqa: E402
+from repro_torch.kernels.pool import (  # noqa: E402
+    bdi_compress_plain, bdi_decompress_plain, bloom_query_plain,
+    cached_block_read_plain, gather_blocks_plain, tag_lookup_plain)
+from repro_torch.serving import paged_kv  # noqa: E402
 
 
 def _cfg(ways=4, conv_sets=16, chips=3, sets_per_chip=5, **kw):
@@ -166,3 +173,141 @@ def test_empty_input_launches_nothing(cuda_device):
                                z.bool(), state=rows, keep_state=True)
     assert scan.launches["conv_scan"] == 0
     assert not i.any() and not f.any() and torch.equal(out.lru, rows.lru)
+
+
+# ------------------------------------------- pool kernels, on the card only
+
+def _u32(rng, shape, hi=1 << 32):
+    """Random uint32 values as an int32 bit-pattern tensor."""
+    a = rng.integers(0, hi, size=shape, dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(a.view(np.int32))
+
+
+def _equal(kernel, plain, ctx):
+    for i, (k, p) in enumerate(zip(kernel, plain)):
+        assert k.dtype == p.dtype and torch.equal(k, p), f"{ctx} output {i}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,w", [(1000, 4), (513, 8), (300, 32), (77, 40),
+                                 (9, 1), (100, 12)])
+def test_tag_lookup_kernel_matches_plain(cuda_device, s, w):
+    rng = np.random.default_rng(s * w)
+    tags = _u32(rng, (s, w), hi=5)
+    valid = torch.from_numpy(rng.random((s, w)) < 0.7)
+    lru = _u32(rng, (s, w), hi=1 << 12)
+    lru[:, 0] = 0
+    lru[::3, -1] = 0xFFF
+    req = _u32(rng, (s,), hi=5)
+    req[::5] = 7                                    # certain misses
+    args = [x.to(cuda_device) for x in (tags, valid, lru, req)]
+    pool_ops.reset_launches()
+    out = pool_ops.tag_lookup(*args)
+    assert pool_ops.launches["tag_lookup"] == 1
+    _equal(out, tag_lookup_plain(*args), f"tag_lookup {s}x{w}")
+    hit = out[0].bool()
+    assert hit.any() and not hit.all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,words", [(4097, 8), (1, 8), (300, 3)])
+def test_bloom_query_kernel_matches_plain(cuda_device, q, words):
+    rng = np.random.default_rng(q + words)
+    filters = (_u32(rng, (q, words)) & _u32(rng, (q, words))).to(cuda_device)
+    tags = _u32(rng, (q,)).to(cuda_device)
+    _, masks = bloom_query_plain(filters, tags)
+    filters[::2] |= masks[::2]                      # half are members
+    _equal(pool_ops.bloom_query(filters, tags),
+           bloom_query_plain(filters, tags), f"bloom_query {q}x{words}")
+
+
+def _bdi_blocks(rng, n):
+    """Blocks of every level, boundary deltas and bases near 2^32."""
+    base = rng.integers(0, 1 << 32, size=(n, 1), dtype=np.int64)
+    base[::4] = (1 << 32) - 2
+    step = np.asarray([1, 1000, 1 << 24])[rng.integers(0, 3, size=(n, 1))]
+    x = base + rng.integers(-127, 128, size=(n, 32)) * step // 127
+    x[:, 0] = base[:, 0]
+    edge = np.asarray([-129, -128, 127, 128, -32769, -32768, 32767, 32768])
+    x[: 8 * (n // 8), 5] = base[: 8 * (n // 8), 0] + np.tile(edge, n // 8)
+    a = (x % (1 << 32)).astype(np.uint32)
+    return torch.from_numpy(a.view(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 1000, 4096])
+def test_bdi_kernels_match_plain_and_round_trip(cuda_device, n):
+    blocks = _bdi_blocks(np.random.default_rng(n), n).to(cuda_device)
+    comp = pool_ops.bdi_compress(blocks)
+    _equal(comp, bdi_compress_plain(blocks), f"bdi_compress {n}")
+    if n >= 1000:
+        assert set(comp[0].tolist()) == {0, 1, 2}
+    back = pool_ops.bdi_decompress(*comp)
+    assert torch.equal(back, bdi_decompress_plain(*comp))
+    assert torch.equal(back, blocks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,w,words", [(999, 4, 32), (64, 32, 32),
+                                       (1, 1, 32), (50, 8, 40)])
+def test_block_read_kernel_matches_plain(cuda_device, s, w, words):
+    rng = np.random.default_rng(s + w + words)
+    data = _u32(rng, (s, w, words)).to(cuda_device)
+    way = torch.from_numpy(rng.integers(-1, w + 1, size=s).astype(np.int32)
+                           ).to(cuda_device)            # some out of range
+    level = torch.from_numpy(rng.integers(0, 3, size=s).astype(np.int32)
+                             ).to(cuda_device)
+    base = _u32(rng, (s,)).to(cuda_device)
+    assert torch.equal(pool_ops.gather_blocks(data, way),
+                       gather_blocks_plain(data, way))
+    assert torch.equal(pool_ops.cached_block_read(data, way, level, base),
+                       cached_block_read_plain(data, way, level, base))
+
+
+@pytest.mark.gpu
+def test_pool_kernels_launch_nothing_on_empty_inputs(cuda_device):
+    z = torch.zeros((0, 4), dtype=torch.int32, device=cuda_device)
+    e = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
+    pool_ops.reset_launches()
+    pool_ops.tag_lookup(z, z.bool(), z, e)
+    pool_ops.bloom_query(z, e)
+    level, base, payload = pool_ops.bdi_compress(
+        torch.zeros((0, 32), dtype=torch.int32, device=cuda_device))
+    pool_ops.bdi_decompress(level, base, payload)
+    data = torch.zeros((0, 4, 32), dtype=torch.int32, device=cuda_device)
+    pool_ops.gather_blocks(data, e)
+    pool_ops.cached_block_read(data, e, e, e)
+    assert set(pool_ops.launches.values()) == {0}
+    assert set(pool_ops.plain_runs.values()) == {0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [dict(conv_sets=64, ext_sets_per_chip=32,
+                                     ways=4),
+                                dict(predictor="none", compression=False)])
+def test_pool_on_the_card_matches_the_cpu(cuda_device, kw):
+    """The pool on the card (kernels) replays a stream exactly as on the
+    CPU (plain versions): plans, stats, pages read and state."""
+    cfg = paged_kv.PoolConfig(**kw)
+    card = paged_kv.MorpheusPagePool(cfg, cuda_device)
+    cpu = paged_kv.MorpheusPagePool(cfg, "cpu")
+    rng = np.random.default_rng(3)
+    total = cfg.amap.total_sets
+    pool_ops.reset_launches()
+    for b in range(4):
+        keys = rng.integers(0, 3 * total, size=96).astype(np.uint32)
+        plans = [p.lookup_batch(keys) for p in (card, cpu)]
+        for a, c in zip(*plans):
+            assert np.array_equal(a, c), b
+        for k in keys[plans[0].tier == 2]:
+            pay = rng.integers(0, 1 << 16, size=32).astype(np.uint32)
+            card.write_page(int(k), pay)
+            cpu.write_page(int(k), pay)
+        assert torch.equal(card.read_pages(plans[0]).cpu(),
+                           cpu.read_pages(plans[1]))
+        assert card.stats == cpu.stats
+    a, c = paged_kv.pool_to_numpy(card), paged_kv.pool_to_numpy(cpu)
+    for name in paged_kv.STATE_FIELDS:
+        assert np.array_equal(a[name], c[name]), name
+    runs = pool_ops.launches
+    assert runs["tag_lookup"] and runs["bloom_query"] and runs["gather_blocks"]

@@ -59,3 +59,34 @@ def assert_stats_equal(ref, port, ctx="", i=None):
             tol = 1e-3 * np.maximum(np.abs(a.astype(np.float64)), 1.0)
             assert np.all(np.abs(a.astype(np.float64) - b) <= tol), \
                 f"{ctx} {f}: reference={a} port={b}"
+
+
+def pool_payload(key: int, words: int = 32) -> np.ndarray:
+    """The page payload of ``key`` that the pool tests and the golden
+    pool file install (``chip_smoke.py`` repeats the rule): a block that
+    BDI compresses to HIGH, LOW or UNCOMP (``key % 3``) around a
+    key-derived base, wrapping mod 2^32."""
+    i = np.arange(words, dtype=np.int64)
+    base = (int(key) * 0x9E3779B1) & 0xFFFFFFFF
+    step = (1, 1000, 0x01000193)[int(key) % 3]
+    return ((base + (i - words // 2) * step) % (1 << 32)).astype(np.uint32)
+
+
+def pool_stream(total_sets: int, conv_sets: int, n_batches=3, seed=0,
+                size=32):
+    """Batches of page keys for a pool with these sets: random keys over
+    a span a few times the sets, repeats of earlier keys, a duplicate
+    within the batch, a tag-0 key (below ``total_sets``) and six keys of
+    one conventional set (more than the 4 rounds a batch serves)."""
+    rng = np.random.default_rng(seed)
+    seen = []
+    for _ in range(n_batches):
+        keys = list(rng.integers(total_sets, 5 * total_sets, size=size - 10))
+        if seen:
+            keys += list(rng.choice(seen, size=2))
+        keys += [keys[0], int(rng.integers(0, total_sets))]
+        s = int(rng.integers(0, conv_sets))
+        keys += [s + j * total_sets for j in range(1, 7)]
+        keys = np.asarray(keys, np.uint32)
+        seen += list(keys)
+        yield keys
