@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the Morpheus simulator and its serving
-page pool on one NVIDIA card.
+"""Drive the PyTorch/CUDA port of the Morpheus simulator, its serving
+page pool and its serving engine on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero and prints no result):
 
-  1. device and build: the card's name and power limit, then ``nvcc`` of
+  1. device and build: the card's name and power limit, the float32
+     matmul settings (TF32 off, precision "highest"), then ``nvcc`` of
      the kernel sources of ``src/repro_torch/kernels/csrc`` (one process
      each, all started together) with their ``-Xptxas -v`` reports
      (registers, shared memory, spills);
@@ -18,11 +19,12 @@ Phases (one line each; any failure exits non-zero and prints no result):
      ``advance_packed`` partition identical to one run;
   3. golden: integer Stats of three full-width cells against the JAX
      reference's values in ``tests/data/torch_golden_stats.json``;
-  4. main path: ``policy.table3`` for IBL / Morpheus-Basic / Morpheus-ALL
-     x cfd / kmeans / spmv at 120 000 requests through the kernels, with
-     the launch counts of that run, its best splits against the
-     reference's (same file), points/s, and host (trace generation +
-     ``pack``) against device (scan kernels, CUDA events) time;
+  4. main path of the simulator: ``policy.table3`` for IBL /
+     Morpheus-Basic / Morpheus-ALL x cfd / kmeans / spmv at 120 000
+     requests through the kernels, with the launch counts of that run,
+     its best splits against the reference's (same file), points/s, and
+     host (trace generation + ``pack``) against device (scan kernels,
+     CUDA events) time;
   5. pool kernels vs plain at large shapes: ``tag_lookup`` on (51200, 8)
      and (51200, 32), ``bloom_query`` on 4096 queries, ``bdi_compress`` of
      65 536 blocks of every level and the decompress round trip, and the
@@ -32,7 +34,7 @@ Phases (one line each; any failure exits non-zero and prints no result):
   6. golden pool: the serving pool on the card replays the three cells
      of ``tests/data/torch_golden_pool.json``; stats and crcs of plans,
      pages read and final state equal the reference's;
-  7. serving path, engine traffic (the main path): the reference serving
+  7. main path of the pool, engine traffic: the reference serving
      engine's own pool (64 conventional sets and 4 x 32 extended sets of
      4 ways) consulted as ``Engine.run`` does, one page key
      ``page_key(prefix hash, 0, page)`` a call, for 900 chat prompts that
@@ -50,8 +52,28 @@ Phases (one line each; any failure exits non-zero and prints no result):
   9. every pool-kernel call of phases 7 and 8, one per input shape,
      replayed against its plain version (tolerance 0), and the most
      frequent and the largest shape of each timed with its bound;
-  10. the ported kernels with their launches (phase 4 for the engine
-     scans, phase 7 for the pool), errors, times and bounds.
+  10. attention kernels vs plain at large shapes: decode with B = 8,
+     H = 32, KV = 8, hd = 128, T = 1088 and flash with B = 8, S = T =
+     1024, causal, in f32 and bf16, plus the reference test's variants
+     (softcap, ragged S, cross-attention with hdv != hd, window), within
+     the reference's tolerances, with times, bounds and SDPA's time;
+  11. golden LM: the port's LM on the card (qwen3-4b at full width, 2
+     layers) replays ``tests/data/torch_golden_lm.json`` teacher-forced;
+  12. main path of the serving engine: qwen3-4b at full width and depth
+     (36 layers, d_model 2560, float32, weights from a CUDA generator
+     with seed 0) served by ``Engine`` with its own pool: 8 prompts of
+     1024 tokens and 32 new tokens cold, the same prompts again, and 8
+     prompts sharing their first 512 tokens with those; Morpheus off
+     must give round 1's tokens; both attention kernels launch 36 times
+     per prefill and per decode step, and no plain version runs;
+     prefill seconds, decode ms a step, tokens/s, page hits, the decode
+     step's bytes bound, and the attention kernels' device share of a
+     profiled prefill and decode step;
+  13. every attention call of phase 12, one per input shape, replayed
+     against its plain version and timed with its bound and SDPA's time;
+  14. the ported kernels with their launches (phase 4 for the engine
+     scans, phase 7 for the pool, phase 12 for attention), errors, times
+     and bounds.
 
 The last lines are the card (``nvidia-smi``), the ``{"kernels": ...}``
 record, and ``{"ok": true, "device": ...}``.  Needs one CUDA card, the
@@ -59,6 +81,7 @@ CUDA toolkit and this checkout; imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import math
@@ -76,10 +99,12 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 GOLDEN = ROOT / "tests" / "data" / "torch_golden_stats.json"
 GOLDEN_POOL = ROOT / "tests" / "data" / "torch_golden_pool.json"
-SOURCES = ("engine_scan", "pool")
+GOLDEN_LM = ROOT / "tests" / "data" / "torch_golden_lm.json"
+SOURCES = ("engine_scan", "pool", "attention")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (guide table)
 PEAK_OPS_PER_S = 67e12           # H100 SXM float32 outside tensor cores
+PEAK_BF16_PER_S = 989e12         # H100 SXM bf16 on the tensor cores, dense
 LENGTH = 120_000
 BATCH = 16
 FLOAT_RTOL = 1e-3
@@ -108,12 +133,18 @@ class Env:
 
     def __init__(self):
         sys.path.insert(0, str(SRC))
+        from repro_torch import configs
+        from repro_torch import models
         from repro_torch.core import cache_sim, controller, engine, policy
-        from repro_torch.kernels import _build, engine_scan, ops, pool
+        from repro_torch.kernels import (_build, attention, engine_scan, ops,
+                                         pool)
+        from repro_torch.serving import engine as serving_engine
         from repro_torch.serving import paged_kv
         self.cs, self.ctl, self.engine = cache_sim, controller, engine
         self.policy, self.build, self.scan = policy, _build, engine_scan
         self.ops, self.pool, self.kv = ops, pool, paged_kv
+        self.att, self.configs, self.models = attention, configs, models
+        self.serving = serving_engine
 
 
 def timed_cuda(fn, reps: int) -> float:
@@ -609,9 +640,10 @@ def phase_golden_pool(env: Env, dev) -> None:
 class PathCalls:
     """While entered, wraps the pool wrappers under the names the serving
     pool calls them by (``kernels.ops``): counts each call by its input
-    shapes and keeps a copy of the inputs of the first call of each
-    shape, so the calls the path made can be replayed against the plain
-    versions afterwards.  The wrappers still count their own launches."""
+    shapes (and keyword arguments) and keeps a copy of the inputs of the
+    first call of each, so the calls the path made can be replayed against
+    the plain versions afterwards.  The wrappers still count their own
+    launches."""
 
     def __init__(self, ops, names=POOL_WRAPPERS):
         self.ops, self.names = ops, names
@@ -629,13 +661,14 @@ class PathCalls:
             setattr(self.ops, n, fn)
 
     def _wrap(self, name, fn):
-        def call(*args):
-            key = (name, tuple(tuple(a.shape) for a in args))
+        def call(*args, **kwargs):
+            key = (name, tuple(tuple(a.shape) for a in args),
+                   tuple(sorted(kwargs.items())))
             if key not in self.calls:
                 self.inputs[key] = tuple(a.clone() for a in args)
                 self.calls[key] = 0
             self.calls[key] += 1
-            return fn(*args)
+            return fn(*args, **kwargs)
         return call
 
 
@@ -660,24 +693,25 @@ def drive(env: Env, ctx: str, serve) -> dict:
     return {"wall_s": wall, "launches": counts, "calls": calls}
 
 
-def profiled_window(serve) -> dict:
+def profiled_window(serve, kernels=POOL_KERNELS) -> dict:
     """Host wall seconds and device milliseconds (``torch.profiler``: the
-    pool kernels, and all kernels and copies) of ``serve()``."""
+    named ``kernels``, and all kernels and copies) of ``serve()``."""
     wall, us = profiled(serve)
-    pool_us = sum(v for k, v in us.items()
-                  if any(n in k for n in POOL_KERNELS))
-    return {"wall_s": wall, "pool_kernels_ms": pool_us / 1e3,
+    k_us = sum(v for k, v in us.items() if any(n in k for n in kernels))
+    return {"wall_s": wall, "kernels_ms": k_us / 1e3,
             "device_busy_ms": sum(us.values()) / 1e3, "measured": bool(us)}
 
 
-def window_text(w: dict, what: str) -> str:
+def window_text(w: dict, what: str, kernels: str = "the pool kernels"
+                ) -> str:
     if not w["measured"]:
         return (f"profiled window of {what}: host {w['wall_s']:.3f} s, "
                 f"device time not measured (torch.profiler recorded no "
                 f"device activity)")
-    return (f"profiled window of {what}: host {w['wall_s']:.3f} s, device "
-            f"{w['pool_kernels_ms']:.3f} ms in the pool kernels and "
-            f"{w['device_busy_ms']:.3f} ms in all kernels and copies")
+    share = 100 * w["kernels_ms"] / max(w["device_busy_ms"], 1e-9)
+    return (f"profiled window of {what}: host {w['wall_s']:.4f} s, device "
+            f"{w['device_busy_ms']:.3f} ms in all kernels and copies, "
+            f"{w['kernels_ms']:.3f} ms ({share:.2f} %) in {kernels}")
 
 
 # The reference serving engine's pool and access pattern
@@ -858,7 +892,7 @@ def replay_path(env: Env, cell: str, calls: PathCalls, dev) -> dict:
     frequent and the largest shape of each wrapper."""
     kp = env.pool
     out = {}
-    for (name, shapes), args in calls.inputs.items():
+    for (name, shapes, _), args in calls.inputs.items():
         if not args[0].numel():
             continue
         err = exact(getattr(kp, name)(*args),
@@ -903,6 +937,483 @@ def phase_path_shapes(env: Env, dev, cells: dict) -> dict:
                     f"{t['bound'][0]:.3g} ms]" for t in row["timed"])
                 for name, row in rows.items())
             for c, rows in out.items()))
+    return out
+
+
+# ------------------------------------------------------------- attention
+
+ATT_WRAPPERS = ("decode_attention", "flash_attention")
+ATT_KERNELS = ("flash_kernel", "decode_partial_kernel",
+               "decode_combine_kernel")
+# the reference test's tolerances (decode, flash) by input dtype
+ATT_TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (2e-2, 3e-2)}
+
+
+def att_tol(name: str, dtype: torch.dtype) -> float:
+    return ATT_TOL[dtype][0 if name == "decode_attention" else 1]
+
+
+def att_close(got, want, tol: float, ctx: str) -> float:
+    """Kernel output vs plain output within ``tol`` (relative and
+    absolute, as ``assert_allclose``); returns the max abs error."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{ctx}: output {tuple(got.shape)} not finite or not of the "
+             f"plain version's shape {tuple(want.shape)}")
+    err = (got - want).abs()
+    if not bool((err <= tol + tol * want.abs()).all()):
+        fail(f"{ctx}: differs from the plain version by up to "
+             f"{float(err.max())} (tolerance {tol})")
+    return float(err.max())
+
+
+def attended_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks let through, per (batch, head)."""
+    i = torch.arange(s)[:, None]
+    j = torch.arange(t)[None, :]
+    mask = (j <= i) if causal else torch.ones((s, t), dtype=torch.bool)
+    if window:
+        mask = mask & (i - j < window)
+    return int(mask.sum())
+
+
+def attention_bound(name: str, args, kwargs) -> tuple:
+    """Least time for one call: the bytes the function must move (q, the
+    keys and values it attends to, the mask and the output, each once)
+    over the memory rate, against its FLOPs (2 a multiply-add of QK^T and
+    of PV over the pairs the masks let through) over the card's peak for
+    the input type: f32 on the CUDA cores, bf16 on the tensor cores."""
+    q = args[0]
+    es = q.element_size()
+    if name == "flash_attention":
+        _, k, v = args
+        b, s, h, hd = q.shape
+        t, hdv = k.shape[1], v.shape[3]
+        pairs = b * h * attended_pairs(s, t, kwargs.get("causal", True),
+                                       kwargs.get("window", 0))
+        n_bytes = (q.numel() + k.numel() + v.numel() + b * s * h * hdv) * es
+        flops = 2 * pairs * (hd + hdv)
+    else:
+        _, k, v, valid = args
+        b, h, hd = q.shape
+        kvh = k.shape[2]
+        n_valid = int(valid.sum())
+        n_bytes = ((q.numel() + 2 * n_valid * kvh * hd) * es + valid.numel()
+                   + b * h * hd * 4)
+        flops = 4 * n_valid * h * hd
+    peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_OPS_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_call(name: str, args, kwargs):
+    """One ``torch.nn.functional.scaled_dot_product_attention`` call on
+    the same inputs (heads moved to dim 1 beforehand), timed as the
+    library's time and never called by the port; None for a soft cap,
+    which SDPA does not take."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if name == "decode_attention":
+        q, k, v, valid = args
+        qt = q[:, :, None].contiguous()
+        kt, vt = (a.transpose(1, 2).contiguous() for a in (k, v))
+        mask = valid[:, None, None, :]
+        return lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    if kwargs.get("softcap"):
+        return None
+    q, k, v = (a.transpose(1, 2).contiguous() for a in args)
+    s, t = q.shape[2], k.shape[2]
+    causal, window = kwargs.get("causal", True), kwargs.get("window", 0)
+    if window or (causal and s != t):
+        i = torch.arange(s, device=q.device)[:, None]
+        j = torch.arange(t, device=q.device)[None, :]
+        mask = (j <= i) if causal else torch.ones_like(i - j, dtype=bool)
+        if window:
+            mask = mask & (i - j < window)
+        return lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+    return lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+
+
+def att_randn(rng, shape, dtype, dev) -> torch.Tensor:
+    return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        dev, dtype)
+
+
+def phase_attention_kernels(env: Env, dev) -> dict:
+    """Phase 10: both attention kernels against their plain versions at
+    the serving shapes and the reference test's variants, in f32 and
+    bf16; the two large shapes timed with their bounds and SDPA's time."""
+    att = env.att
+    rng = np.random.default_rng(0)
+    cases = []                      # (wrapper, label, args, kwargs, timed)
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        valid = torch.from_numpy(rng.random((8, 1088)) < 0.9).to(dev)
+        valid[3] = False                        # a row with no valid key
+        cases.append(("decode_attention", f"decode {tag} B8 H32/8 T1088",
+                      (att_randn(rng, (8, 32, 128), dt, dev),
+                       att_randn(rng, (8, 1088, 8, 128), dt, dev),
+                       att_randn(rng, (8, 1088, 8, 128), dt, dev), valid),
+                      {}, True))
+        cases.append(("flash_attention", f"flash {tag} B8 S=T1024 H32/8",
+                      tuple(att_randn(rng, s, dt, dev) for s in
+                            ((8, 1024, 32, 128), (8, 1024, 8, 128),
+                             (8, 1024, 8, 128))),
+                      {"causal": True}, True))
+    for b, h, kvh, hd, t in ((2, 8, 8, 64, 1024), (2, 8, 2, 64, 1024),
+                             (1, 16, 4, 128, 2048)):
+        valid = torch.from_numpy(rng.random((b, t)) < 0.9).to(dev)
+        cases.append(("decode_attention", f"decode ({b}, {h}/{kvh}, {hd}, "
+                      f"{t})", tuple(att_randn(rng, s, torch.float32, dev)
+                                     for s in ((b, h, hd), (b, t, kvh, hd),
+                                               (b, t, kvh, hd))) + (valid,),
+                      {}, False))
+    for b, s, t, h, kv, hd, hdv, causal, window, cap in (
+            (2, 256, 256, 4, 2, 64, 64, True, 0, 0.0),
+            (1, 200, 200, 4, 4, 32, 32, True, 0, 50.0),
+            (2, 128, 384, 2, 1, 64, 32, False, 0, 0.0),
+            (1, 256, 256, 8, 2, 64, 64, True, 96, 0.0)):
+        cases.append(("flash_attention", f"flash ({b}, {s}, {t}, {h}/{kv}, "
+                      f"{hd}/{hdv}, causal={int(causal)}, window={window}, "
+                      f"softcap={cap})",
+                      tuple(att_randn(rng, sh, torch.float32, dev) for sh in
+                            ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hdv))),
+                      {"causal": causal, "window": window, "softcap": cap},
+                      False))
+    out = {"err": dict.fromkeys(ATT_WRAPPERS, 0.0), "large": {}}
+    for name, label, args, kw, timed in cases:
+        kernel = getattr(att, name)
+        plain = getattr(att, name + "_plain")
+        err = att_close(kernel(*args, **kw), plain(*args, **kw),
+                        att_tol(name, args[0].dtype), label)
+        out["err"][name] = max(out["err"][name], err)
+        if timed:
+            out["large"][label] = dict(
+                wrapper=name, err=err, shape=[list(a.shape) for a in args],
+                dtype=str(args[0].dtype).replace("torch.", ""),
+                **times(lambda: kernel(*args, **kw),
+                        lambda: plain(*args, **kw), 20, 3,
+                        library=sdpa_call(name, args, kw)),
+                bound=attention_bound(name, args, kw))
+    log(f"phase 10: attention kernels == plain within the reference's "
+        f"tolerances on {len(cases)} cases (max abs err "
+        f"{json.dumps(out['err'])}); " + "; ".join(
+            f"{k}: {v['ms']:.4f} ms on the card, plain {v['plain_ms']:.4f} "
+            f"ms, SDPA {v['library_ms']:.4f} ms, bound {v['bound'][0]:.4f} "
+            f"ms ({v['bound'][1]})" for k, v in out["large"].items()))
+    return out
+
+
+# ------------------------------------------------------------ golden LM
+
+def golden_lm_config(env: Env, cell: dict):
+    cfg = env.configs.get(cell["arch"])
+    return dataclasses.replace(cfg, name=f"{cfg.name}-{cell['num_layers']}l",
+                               num_layers=cell["num_layers"])
+
+
+def check_golden_rows(rows: np.ndarray, want: list) -> float:
+    """``tests/test_torch_golden_lm.py``'s check: top logits within 1e-3 x
+    max |logit| of the row, well-separated ranks in the reference's order,
+    greedy token, sum and sum of squares; returns the max abs error."""
+    worst = 0.0
+    for i, (r, w) in enumerate(zip(rows, want)):
+        tol = 1e-3 * w["max_abs"]
+        idx, ref = np.asarray(w["top_idx"]), np.asarray(w["top_val"])
+        err = np.abs(r[idx] - ref)
+        worst = max(worst, float(err.max()))
+        if not (err <= tol).all():
+            fail(f"golden LM row {i}: logits off by {err.max()} > {tol}")
+        order = np.argsort(-r, kind="stable")[:len(idx)]
+        gaps = -np.diff(ref)
+        for k in range(len(idx) - 1):
+            lo = gaps[k - 1] if k else np.inf
+            if lo > tol and gaps[k] > tol and order[k] != idx[k]:
+                fail(f"golden LM row {i}: rank {k} is {order[k]}, "
+                     f"reference {idx[k]}")
+        if gaps[0] > tol and int(np.argmax(r)) != w["greedy"]:
+            fail(f"golden LM row {i}: greedy {int(np.argmax(r))} != "
+                 f"{w['greedy']}")
+        r64 = r.astype(np.float64)
+        if abs(r64.sum() - w["sum"]) > tol or \
+                abs((r64 ** 2).sum() - w["sumsq"]) > 1e-3 * w["sumsq"]:
+            fail(f"golden LM row {i}: sum or sum of squares off")
+    return worst
+
+
+def phase_golden_lm(env: Env, dev) -> dict:
+    """Phase 11: the LM on the card (both attention kernels) replays the
+    reference's golden logits at qwen3-4b's full width, 2 layers."""
+    golden = json.loads(GOLDEN_LM.read_text())
+    cell = golden["cell"]
+    cfg = golden_lm_config(env, cell)
+    t0 = time.perf_counter()
+    model = env.models.LM(cfg, device=dev)
+    env.models.params_from_numpy(
+        model, env.models.seeded_numpy_params(cfg, cell["seed"]))
+    rng = np.random.default_rng(cell["input_seed"])
+    prompts = rng.integers(0, cfg.vocab_size, (cell["batch"], cell["prompt"]))
+    teacher = rng.integers(0, cfg.vocab_size, (cell["steps"], cell["batch"]))
+    caches = model.init_caches(cell["batch"], cell["prompt"] + cell["steps"])
+    logits, caches = model.prefill(
+        {"tokens": torch.from_numpy(prompts.astype(np.int32)).to(dev)},
+        caches)
+    rows = [logits]
+    for t, tok in enumerate(teacher):
+        logits, caches = model.decode_step(
+            torch.from_numpy(tok.astype(np.int32)).to(dev), caches,
+            cell["prompt"] + t)
+        rows.append(logits)
+    rows = torch.cat(rows).float().cpu().numpy()
+    if rows.shape != (len(golden["rows"]), cfg.padded_vocab()) or \
+            not np.isfinite(rows).all():
+        fail(f"golden LM: logits {rows.shape} not finite or not of the "
+             f"golden's shape")
+    err = check_golden_rows(rows, golden["rows"])
+    log(f"phase 11: golden LM ({cfg.name}, {cfg.param_count()[0]} "
+        f"parameters) on the card matches the reference's logits: "
+        f"{len(rows)} rows, max abs err {err:.3g} on the stored top-"
+        f"{cell['top']}, {time.perf_counter() - t0:.1f} s")
+    del model, caches
+    torch.cuda.empty_cache()
+    return {"err": err, "rows": len(rows)}
+
+
+# ------------------------------------------------ serving at full width
+
+SERVE_ARCH = "qwen3-4b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SHARED = 8, 1024, 32, 512
+
+
+class StepTimer:
+    """While entered, times ``model.prefill`` and ``model.decode_step``
+    (host clock around each call, synchronised before and after: the
+    engine reads the result back right after each anyway)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.prefill_s = self.decode_s = 0.0
+        self.prefills = self.steps = 0
+
+    def _wrap(self, fn, kind):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if kind == "prefill":
+                self.prefill_s += dt
+                self.prefills += 1
+            else:
+                self.decode_s += dt
+                self.steps += 1
+            return out
+        return call
+
+    def __enter__(self):
+        m = self.model
+        m.prefill = self._wrap(type(m).prefill.__get__(m), "prefill")
+        m.decode_step = self._wrap(type(m).decode_step.__get__(m), "decode")
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.prefill, self.model.decode_step
+
+    def reset(self):
+        self.prefill_s = self.decode_s = 0.0
+        self.prefills = self.steps = 0
+
+
+def phase_serving(env: Env, dev) -> dict:
+    """Phase 12: qwen3-4b at full width and depth served by the port's
+    ``Engine`` through both attention kernels; the main path of the
+    attention kernels, whose launches the kernels line reports."""
+    att, kp, se = env.att, env.pool, env.serving
+    cfg = env.configs.get(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = env.models.LM(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    if len(model.layers) != 36 or cfg.d_model != 2560 or \
+            model.dtype != torch.float32:
+        fail(f"serving: not qwen3-4b at full width and depth ({cfg})")
+    max_len = SERVE_PROMPT + SERVE_NEW + 32
+    rng = np.random.default_rng(0)
+    r1 = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+    r3 = r1.copy()
+    r3[:, SERVE_SHARED:] = rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT - SERVE_SHARED))
+    eng = se.Engine(model, max_len=max_len)
+    off = se.Engine(model, max_len=max_len, morpheus=False)
+    rounds = [("cold", eng, r1), ("warm", eng, r1),
+              ("shared prefix", eng, r3), ("morpheus off", off, r1)]
+    results = []
+    with StepTimer(model) as timer, PathCalls(env.ops, ATT_WRAPPERS) as calls:
+        torch.cuda.synchronize()
+        att.reset_launches()
+        kp.reset_launches()
+        for name, e, prompts in rounds:
+            reqs = [se.Request(i, p.tolist(), SERVE_NEW)
+                    for i, p in enumerate(prompts)]
+            before = (e.pages_reused, e.pages_fetched)
+            timer.reset()
+            t0 = time.perf_counter()
+            rep = e.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            results.append(dict(
+                round=name, wall_s=wall, prefill_s=timer.prefill_s,
+                decode_ms_step=1e3 * timer.decode_s / max(timer.steps, 1),
+                steps=rep.steps, generated=rep.generated,
+                tokens_per_s=rep.generated / wall,
+                pool_s=wall - timer.prefill_s - timer.decode_s,
+                pages_reused=e.pages_reused - before[0],
+                pages_fetched=e.pages_fetched - before[1],
+                hit_rate=rep.page_hit_rate, pred_miss=rep.pred_miss,
+                false_pos=rep.false_pos, modeled_time_ns=rep.modeled_time_ns,
+                tokens=[r.out_tokens for r in reqs]))
+        torch.cuda.synchronize()
+        counts, plain = dict(att.launches), dict(att.plain_runs)
+        pool_counts, pool_plain = dict(kp.launches), dict(kp.plain_runs)
+    steps = sum(r["steps"] for r in results)
+    n_layers = len(model.layers)
+    want = {"flash_attention": n_layers * len(rounds),
+            "decode_attention": n_layers * steps}
+    if counts != want:
+        fail(f"serving: attention launches {counts}, expected {want}")
+    if any(plain.values()) or any(pool_plain.values()):
+        fail(f"serving: plain versions ran ({plain}, {pool_plain})")
+    if not pool_counts["tag_lookup"]:
+        fail("serving: the pool's tag lookup never launched")
+    tok = {r["round"]: r["tokens"] for r in results}
+    vocab = cfg.padded_vocab()
+    for r in results:
+        if any(len(t) != SERVE_NEW or min(t) < 0 or max(t) >= vocab
+               for t in r["tokens"]):
+            fail(f"serving round {r['round']}: tokens out of range or short")
+    if tok["morpheus off"] != tok["cold"]:
+        fail("serving: tokens differ with Morpheus off")
+    if tok["warm"] != tok["cold"]:
+        fail("serving: the same prompts gave other tokens on a second run")
+    cold, warm, shared = results[:3]
+    if cold["pages_fetched"] != SERVE_BATCH * SERVE_PROMPT // 16 or \
+            warm["pages_reused"] == 0 or shared["pages_reused"] == 0:
+        fail(f"serving: page accounting off ({results[:3]})")
+
+    # one profiled prefill and decode step, after the counted run
+    caches = model.init_caches(SERVE_BATCH, max_len)
+    toks = torch.from_numpy(r1.astype(np.int32)).to(dev)
+    box = {}
+    pre_w = profiled_window(lambda: box.update(
+        out=model.prefill({"tokens": toks}, caches)), ATT_KERNELS)
+    cur = box["out"][0].argmax(-1).to(torch.int32)
+    dec_w = profiled_window(
+        lambda: model.decode_step(cur, caches, SERVE_PROMPT), ATT_KERNELS)
+    del caches, box
+    kv_bytes = (n_layers * SERVE_BATCH * (SERVE_PROMPT + SERVE_NEW)
+                * cfg.num_kv_heads * cfg.resolved_head_dim * 4 * 2)
+    bound_w = weight_bytes / HBM_BYTES_PER_S * 1e3
+    bound_kv = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"phase 12: serving {cfg.name}: {len(model.layers)} layers, d_model "
+        f"{cfg.d_model}, {n_params} parameters ({weight_bytes / 1e9:.2f} GB "
+        f"float32, drawn on the card in {init_s:.2f} s), batch "
+        f"{SERVE_BATCH} x {SERVE_PROMPT}-token prompts, {SERVE_NEW} new "
+        f"tokens; " + "; ".join(
+            f"{r['round']}: {r['wall_s']:.3f} s, prefill "
+            f"{r['prefill_s']:.3f} s, decode {r['decode_ms_step']:.3f} ms a "
+            f"step x {r['steps']}, pool and host {r['pool_s']:.3f} s, "
+            f"{r['tokens_per_s']:.1f} tokens/s, pages reused "
+            f"{r['pages_reused']} fetched {r['pages_fetched']}, hit rate "
+            f"{r['hit_rate']:.4f}, predicted misses {r['pred_miss']}, false "
+            f"positives {r['false_pos']}" for r in results)
+        + f"; Morpheus off gave the same tokens; attention launches "
+        f"{json.dumps(counts)}, pool launches {json.dumps(pool_counts)}, "
+        f"plain runs 0; pool stats {json.dumps(eng.pool.stats._asdict())}; "
+        f"decode step bytes bound {bound_w:.3f} ms (weights) / "
+        f"{bound_kv:.3f} ms (weights + KV at the last step) at 3.35 TB/s; "
+        + window_text(pre_w, "one prefill", "the attention kernels") + "; "
+        + window_text(dec_w, "one decode step", "the attention kernels"))
+    for r in results:
+        del r["tokens"]
+    del model, eng, off
+    torch.cuda.empty_cache()
+    return {"launches": counts, "pool_launches": pool_counts,
+            "rounds": results, "calls": calls, "init_s": init_s,
+            "params": n_params, "bound_ms": [bound_w, bound_kv],
+            "prefill_window": pre_w, "decode_window": dec_w}
+
+
+def phase_attention_path(env: Env, calls: PathCalls) -> dict:
+    """Phase 13: every attention call of the serving phase, one per input
+    shape, against its plain version, timed with its bound and SDPA's
+    time."""
+    att = env.att
+    out = {}
+    for key, args in calls.inputs.items():
+        name, shapes, kw = key
+        kwargs = dict(kw)
+        kernel = getattr(att, name)
+        plain = getattr(att, name + "_plain")
+        err = att_close(kernel(*args, **kwargs), plain(*args, **kwargs),
+                        att_tol(name, args[0].dtype),
+                        f"serving path {name} {shapes}")
+        out.setdefault(name, []).append(dict(
+            shape=[list(s) for s in shapes], kwargs=kwargs,
+            dtype=str(args[0].dtype).replace("torch.", ""),
+            launches=calls.calls[key], err=err,
+            **times(lambda: kernel(*args, **kwargs),
+                    lambda: plain(*args, **kwargs), 20, 3,
+                    library=sdpa_call(name, args, kwargs)),
+            bound=attention_bound(name, args, kwargs)))
+    for name in ATT_WRAPPERS:
+        if name not in out:
+            fail(f"serving path: {name} was never called")
+    log("phase 13: attention kernels == plain at the serving path's shapes: "
+        + "; ".join(
+            f"{name} {t['shape']} x{t['launches']}: {t['ms']:.4f} ms on the "
+            f"card ({t['call_ms']:.4f} ms a call), plain {t['plain_ms']:.4f} "
+            f"ms, SDPA {t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} "
+            f"ms ({t['bound'][1]}), max abs err {t['err']:.3g}"
+            for name, rows in out.items() for t in rows))
+    return out
+
+
+def attention_kernel_rows(ak: dict, serving: dict, path: dict,
+                          golden_err: float) -> list:
+    """The attention kernels' entries of the kernels line: launches of the
+    serving phase, times at the path's most frequent shape, and the
+    large shapes of phase 10."""
+    src = "src/repro_torch/kernels/csrc/attention.cu"
+    rows = {"decode_attention": ("src/repro/kernels/decode_attn.py:26",
+                                 "decode_partial_kernel + "
+                                 "decode_combine_kernel"),
+            "flash_attention": ("src/repro/kernels/flash_attn.py:47",
+                                "flash_kernel")}
+    out = []
+    for name, (replaces, kernel) in rows.items():
+        head = max(path[name], key=lambda t: t["launches"])
+        large = {k: {f: v[f] for f in ("shape", "dtype", "ms", "call_ms",
+                                       "plain_ms", "library_ms")}
+                 | {"bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
+                 for k, v in ak["large"].items() if v["wrapper"] == name}
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "kernel": kernel,
+            "launches": serving["launches"][name],
+            "max_abs_err": max([ak["err"][name]]
+                               + [t["err"] for t in path[name]]),
+            "golden_lm_max_abs_err": golden_err,
+            "ms": head["ms"], "call_ms": head["call_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
+            "bound_by": head["bound"][1], "library_ms": head["library_ms"],
+            "library": "torch.nn.functional.scaled_dot_product_attention",
+            "shape": head["shape"], "dtype": head["dtype"],
+            "large": large})
     return out
 
 
@@ -968,8 +1479,15 @@ def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
     card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False      # full f32 products
+    torch.set_float32_matmul_precision("highest")
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        fail("float32 matmuls are not in full precision")
     log(f"phase 1: card {card}; torch {torch.__version__} cuda "
-        f"{torch.version.cuda}")
+        f"{torch.version.cuda}; matmul allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, float32 matmul precision "
+        f"{torch.get_float32_matmul_precision()!r}")
     env = Env()
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -991,6 +1509,10 @@ def main() -> int:
     cells = {"engine": phase_engine_serving(env, dev),
              "full_scale": phase_full_scale(env, dev)}
     paths = phase_path_shapes(env, dev, cells)
+    ak = phase_attention_kernels(env, dev)
+    golden_lm = phase_golden_lm(env, dev)
+    serving = phase_serving(env, dev)
+    att_path = phase_attention_path(env, serving["calls"])
 
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("the port imported jax or repro")
@@ -1014,7 +1536,8 @@ def main() -> int:
             "library_ms": None, "shape_BSL": t["shape"],
         })
     kernels += pool_kernel_rows(pk, cells, paths)
-    log("phase 10: kernels " + ", ".join(
+    kernels += attention_kernel_rows(ak, serving, att_path, golden_lm["err"])
+    log("phase 14: kernels " + ", ".join(
         f"{x['name']} matched plain (max abs err {x['max_abs_err']:.3g}), "
         f"{x['ms']:.4g} ms on the card ({x['call_ms']:.4g} ms a call) vs "
         f"plain {x['plain_ms']:.4g} ms, bound {x['bound_ms']:.4g} ms "

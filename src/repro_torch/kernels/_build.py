@@ -90,6 +90,13 @@ def supported() -> Tuple[bool, str]:
                   f"{torch.cuda.get_device_name(0)}")
 
 
+def require_cuda(dev: torch.device, name: str) -> None:
+    """Raise unless ``dev`` is a CUDA device: a wrapper given tensors on
+    any device but the CPU (plain version) and the card has no kernel."""
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+
+
 def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
           device: torch.device) -> None:
     """Raise unless ``t`` has the dtype, shape and device a kernel takes

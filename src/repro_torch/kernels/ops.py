@@ -1,12 +1,16 @@
-"""The serving pool's kernels under the names of the reference's
-``repro.kernels.ops``: ``tag_lookup``, ``bloom_query``, ``bdi_compress``,
-``bdi_decompress``, ``gather_blocks`` and the fused ``cached_block_read``
-(all in ``kernels/pool.py``, with their launch counts).
+"""The port's kernels under the names of the reference's
+``repro.kernels.ops``: the serving pool's ``tag_lookup``,
+``bloom_query``, ``bdi_compress``, ``bdi_decompress``, ``gather_blocks``
+and the fused ``cached_block_read`` (all in ``kernels/pool.py``), and the
+two attention kernels ``decode_attention`` and ``flash_attention``
+(``kernels/attention.py``), each with its launch counts in its module.
 
 Each takes its device from its tensors, as ``engine_scan`` does: CUDA
-tensors launch the hand-written kernel of ``csrc/pool.cu`` or raise, CPU
-tensors run the plain PyTorch version.  The reference's two attention
-wrappers have no counterpart yet (they come with the model substrates).
+tensors launch the hand-written kernel of ``csrc/pool.cu`` or
+``csrc/attention.cu`` or raise, CPU tensors run the plain PyTorch
+version.  The reference's ``interpret`` and ``t_block`` arguments select
+a Pallas mode and tile and have no counterpart.
 """
+from .attention import decode_attention, flash_attention  # noqa: F401
 from .pool import (bdi_compress, bdi_decompress, bloom_query,  # noqa: F401
                    cached_block_read, gather_blocks, tag_lookup)

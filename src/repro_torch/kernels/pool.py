@@ -83,11 +83,6 @@ def reset_launches() -> None:
         launches[k] = plain_runs[k] = 0
 
 
-def _cuda(dev: torch.device, name: str) -> None:
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {dev}")
-
-
 # ------------------------------------------------------------ tag lookup
 
 def tag_lookup_plain(tags: torch.Tensor, valid: torch.Tensor,
@@ -121,7 +116,7 @@ def tag_lookup(tags: torch.Tensor, valid: torch.Tensor, lru: torch.Tensor,
     _build.check("req", req, torch.int32, (s,), dev)
     if dev.type == "cpu":
         return tag_lookup_plain(tags, valid, lru, req)
-    _cuda(dev, "tag_lookup")
+    _build.require_cuda(dev, "tag_lookup")
     hit = torch.empty((s,), dtype=torch.int32, device=dev)
     way = torch.empty((s,), dtype=torch.int32, device=dev)
     new_lru = torch.empty((s, w), dtype=torch.int32, device=dev)
@@ -163,7 +158,7 @@ def bloom_query(filters: torch.Tensor, tags: torch.Tensor
     _build.check("tags", tags, torch.int32, (q,), dev)
     if dev.type == "cpu":
         return bloom_query_plain(filters, tags)
-    _cuda(dev, "bloom_query")
+    _build.require_cuda(dev, "bloom_query")
     pred = torch.empty((q,), dtype=torch.int32, device=dev)
     masks = torch.empty((q, words), dtype=torch.int32, device=dev)
     if q == 0:                      # nothing to query: no launch
@@ -205,7 +200,7 @@ def bdi_compress(blocks: torch.Tensor
     _build.check("blocks", blocks, torch.int32, (n, SEGMENTS), dev)
     if dev.type == "cpu":
         return bdi_compress_plain(blocks)
-    _cuda(dev, "bdi_compress")
+    _build.require_cuda(dev, "bdi_compress")
     level = torch.empty((n,), dtype=torch.int32, device=dev)
     base = torch.empty((n,), dtype=torch.int32, device=dev)
     payload = torch.empty((n, SEGMENTS), dtype=torch.int32, device=dev)
@@ -304,7 +299,7 @@ def _read(name: str, data: torch.Tensor, way: Optional[torch.Tensor],
         _build.check("base", base, torch.int32, (s,), dev)
     if dev.type == "cpu":
         return _PLAIN_READS[name](data, way, level, base)
-    _cuda(dev, name)
+    _build.require_cuda(dev, name)
     out = torch.empty((s, words), dtype=torch.int32, device=dev)
     if s == 0 or words == 0:        # nothing to read: no launch
         return out

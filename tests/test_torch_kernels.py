@@ -1,9 +1,11 @@
-"""The CUDA kernels' wrappers (``repro_torch.kernels.engine_scan`` and
-the serving pool's ``repro_torch.kernels.pool``): argument checks on the
-CPU, and, on a CUDA card only (marker ``gpu``), each CUDA kernel against
-its plain PyTorch version (the pool's integer kernels bit for bit) and
-the pool on the card against the pool on the CPU.  This file imports no
-JAX, so it runs on a card host that has none:
+"""The CUDA kernels' wrappers (``repro_torch.kernels.engine_scan``, the
+serving pool's ``repro_torch.kernels.pool`` and the attention kernels'
+``repro_torch.kernels.attention``): argument checks on the CPU, and, on a
+CUDA card only (marker ``gpu``), each CUDA kernel against its plain
+PyTorch version (the pool's integer kernels bit for bit, attention within
+the reference's tolerances), the pool on the card against the pool on
+the CPU, and the LM on the card against the LM on the CPU.  This file
+imports no JAX, so it runs on a card host that has none:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels.py
 """
@@ -14,14 +16,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import address_separation as asep  # noqa: E402
 from repro_torch.core import controller as ctl  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
+from repro_torch.kernels import attention as att  # noqa: E402
 from repro_torch.kernels import engine_scan as scan  # noqa: E402
 from repro_torch.kernels import pool as pool_ops  # noqa: E402
 from repro_torch.kernels.pool import (  # noqa: E402
     bdi_compress_plain, bdi_decompress_plain, bloom_query_plain,
     cached_block_read_plain, gather_blocks_plain, tag_lookup_plain)
+from repro_torch.models import LM, params_from_numpy  # noqa: E402
+from repro_torch.models import seeded_numpy_params  # noqa: E402
 from repro_torch.serving import paged_kv  # noqa: E402
 
 
@@ -89,6 +95,8 @@ def test_stats_vectors_round_trip():
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
+    torch.set_float32_matmul_precision("highest")
     return torch.device("cuda")
 
 
@@ -311,3 +319,123 @@ def test_pool_on_the_card_matches_the_cpu(cuda_device, kw):
         assert np.array_equal(a[name], c[name]), name
     runs = pool_ops.launches
     assert runs["tag_lookup"] and runs["bloom_query"] and runs["gather_blocks"]
+
+
+# ------------------------------------- attention kernels, on the card only
+
+ATT_TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (2e-2, 3e-2)}
+
+
+def _randn(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        dev, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,hd,t", [
+    (8, 32, 8, 128, 1088), (2, 8, 2, 64, 77), (3, 7, 1, 16, 300),
+    (1, 16, 16, 256, 129), (2, 12, 4, 96, 1),
+])
+def test_decode_attention_kernel_matches_plain(cuda_device, dtype, b, h,
+                                               kvh, hd, t):
+    rng = np.random.default_rng(b * h + t)
+    q = _randn(rng, (b, h, hd), dtype, cuda_device)
+    k = _randn(rng, (b, t, kvh, hd), dtype, cuda_device)
+    v = _randn(rng, (b, t, kvh, hd), dtype, cuda_device)
+    valid = torch.from_numpy(rng.random((b, t)) < 0.8).to(cuda_device)
+    valid[0] = False                          # a row with no valid key
+    att.reset_launches()
+    got = att.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert att.launches["decode_attention"] == 1
+    want = att.decode_attention_plain(q, k, v, valid)
+    tol = ATT_TOL[dtype][0]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    # valid as a broadcast view of a (T,) mask
+    row = valid[-1]
+    got = att.decode_attention(q, k, v, row[None].expand(b, t))
+    want = att.decode_attention_plain(q, k, v, row[None].expand(b, t))
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,hd,hdv,causal,window,cap", [
+    (2, 256, 256, 4, 2, 64, 64, True, 0, 0.0),
+    (1, 200, 200, 4, 4, 32, 32, True, 0, 50.0),
+    (2, 128, 384, 2, 1, 64, 32, False, 0, 0.0),
+    (1, 256, 256, 8, 2, 64, 64, True, 96, 0.0),
+    (2, 300, 300, 32, 8, 128, 128, True, 0, 0.0),
+    (1, 77, 130, 7, 1, 16, 16, False, 9, 0.0),
+    (1, 8, 4, 2, 1, 16, 16, True, 2, 0.0),       # rows with no key
+    (1, 65, 65, 2, 2, 256, 256, True, 0, 0.0),
+    (1, 70, 90, 4, 4, 192, 128, True, 0, 0.0),   # MLA's head dims
+])
+def test_flash_attention_kernel_matches_plain(cuda_device, dtype, b, s, t,
+                                              h, kv, hd, hdv, causal, window,
+                                              cap):
+    rng = np.random.default_rng(s * h + t)
+    q = _randn(rng, (b, s, h, hd), dtype, cuda_device)
+    k = _randn(rng, (b, t, kv, hd), dtype, cuda_device)
+    v = _randn(rng, (b, t, kv, hdv), dtype, cuda_device)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    att.reset_launches()
+    got = att.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert att.launches["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == (b, s, h, hdv)
+    tol = ATT_TOL[dtype][1]
+    torch.testing.assert_close(got, att.flash_attention_plain(q, k, v, **kw),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_attention_kernels_launch_nothing_on_empty_batches(cuda_device):
+    att.reset_launches()
+    q = torch.zeros((0, 8, 64), device=cuda_device)
+    k = torch.zeros((0, 16, 2, 64), device=cuda_device)
+    valid = torch.zeros((0, 16), dtype=torch.bool, device=cuda_device)
+    assert att.decode_attention(q, k, k, valid).shape == (0, 8, 64)
+    q4 = torch.zeros((0, 5, 8, 64), device=cuda_device)
+    assert att.flash_attention(q4, k, k).shape == (0, 5, 8, 64)
+    q4 = torch.zeros((2, 0, 8, 64), device=cuda_device)
+    k2 = torch.zeros((2, 16, 2, 64), device=cuda_device)
+    assert att.flash_attention(q4, k2, k2).shape == (2, 0, 8, 64)
+    assert set(att.launches.values()) == {0}
+    assert set(att.plain_runs.values()) == {0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("local", [False, True])
+def test_lm_on_the_card_matches_the_cpu(cuda_device, local):
+    """The reduced qwen3 (and a LOCAL-window variant) through both
+    attention kernels on the card against the plain versions on the CPU:
+    prefill and 6 decode steps, logits within 1e-4, same greedy tokens."""
+    import dataclasses
+    cfg = configs.get("qwen3-4b").reduced()
+    if local:
+        cfg = dataclasses.replace(cfg, block_pattern=(configs.LOCAL,
+                                                      configs.GLOBAL),
+                                  num_layers=2, window=8)
+    tree = seeded_numpy_params(cfg, 0)
+    models = [LM(cfg, device=d) for d in (cuda_device, "cpu")]
+    for m in models:
+        params_from_numpy(m, tree)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32))
+    att.reset_launches()
+    outs = []
+    for m in models:
+        caches = m.init_caches(2, 24)
+        logits, caches = m.prefill({"tokens": tokens}, caches)
+        rows, cur = [logits.cpu()], logits.argmax(-1).to(torch.int32)
+        for t in range(6):
+            logits, caches = m.decode_step(cur, caches, 12 + t)
+            rows.append(logits.cpu())
+            cur = logits.argmax(-1).to(torch.int32)
+        outs.append(torch.stack(rows))
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+    assert torch.equal(outs[0].argmax(-1), outs[1].argmax(-1))
+    n = len(models[0].layers)
+    assert att.launches == {"flash_attention": n, "decode_attention": 6 * n}
