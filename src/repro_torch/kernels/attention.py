@@ -8,18 +8,38 @@
     KV head h // G, H = KV * G), causal ``kpos <= qpos``, a sliding window
     ``qpos - kpos < window``, a tanh soft cap ``softcap * tanh(x /
     softcap)`` after the scale (``hd ** -0.5`` by default), and hdv != hd.
-    The output is (B, S, H, hdv) in q's dtype.  ``flash_kernel`` gives a
-    block to (b, KV head, 64 / G query positions), so each K/V tile is
-    read once for the G heads that share it, walks the K/V tiles in a loop
-    (the Pallas grid's sequential axis) and skips the tiles the masks
-    remove.
+    The output is (B, S, H, hdv) in q's dtype.  Bound by operations.  One
+    entry point, two designs: bf16 runs ``flash_kernel_bf16`` on the
+    tensor cores (``wgmma.mma_async`` bf16 -> f32: S = Q K^T with both
+    operands in swizzled shared tiles, O += P V with P from registers and
+    V through the transposed descriptor; the softmax in the accumulator
+    registers, P rounded to bf16 there; two warpgroups of 64 rows a
+    block, K and V double-buffered); f32 runs ``flash_kernel_f32`` on the
+    CUDA cores in full f32 (TF32 would not hold the f32 tolerances),
+    register-tiled like an SGEMM (8 rows x 4 keys of scores and 8 rows x
+    hd/16 columns of output a thread, 16-byte shared loads) against its
+    shared-memory bandwidth.  Both give a block the G heads of one KV head
+    for a run of query positions, so each K/V tile is read once for the
+    group, bring K and V in by 16-byte ``cp.async`` while the products
+    run, and skip the tiles the masks remove.
   * ``decode_attention`` replaces ``_decode_kernel`` of
     ``src/repro/kernels/decode_attn.py`` (:26, called at :87): one query
     token per sequence, q (B, H, hd) against k/v (B, T, KV, hd) under a
     (B, T) validity mask, scale ``hd ** -0.5``, no soft cap, output (B, H,
-    hd) f32.  Flash-decoding: ``decode_partial_kernel`` gives a block to
-    (b, KV head, ``DECODE_CHUNK`` keys) and ``decode_combine_kernel``
-    merges the chunks and divides by ``max(l, 1e-30)``.
+    hd) f32.  Bound by device-memory bytes.  Flash-decoding:
+    ``decode_partial_kernel`` gives a block to (b, KV head, ``decode_chunk``
+    keys) and streams the chunk's K tiles, then its V tiles, through a
+    ring of 16-byte ``cp.async`` copies with two tiles always in flight
+    (tens of KB an SM); in bf16 with G <= 16 and hd a multiple of 64
+    both products run on the tensor cores (``decode_partial_kernel_tc``,
+    ``mma.sync``), otherwise on the CUDA cores (a few lanes a key for the
+    logits of all G heads, a thread 4 value columns of every head for
+    P V); ``decode_combine_kernel`` merges the chunks and divides by
+    ``max(l, 1e-30)``.
+
+Head dims that are not a multiple of 16 are zero-padded to one before a
+launch (``pad_head_dim``; a zero column changes no dot product) and the
+output is sliced back: a layout step around the kernel, not a fallback.
 
 Masked logits are -2e38, as in the reference, so a row with no valid key
 gets the mean of v over all T keys, as the reference's softmax gives.
@@ -46,9 +66,10 @@ from . import _build
 from ._build import supported  # noqa: F401
 
 NEG = -2.0e38
-DECODE_CHUNK = 128          # keys a decode block (pass 1) reads
 MAX_HEAD_DIM = 256
-MAX_GROUP = 64              # query heads per KV head a flash block holds
+MAX_GROUP = 64              # query heads per KV head a kernel block holds
+HEAD_ALIGN = 16             # head dims the kernels take are multiples
+DECODE_MAX_CHUNK = 256      # keys a decode block takes at most, as in C
 WRAPPERS = ("decode_attention", "flash_attention")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -88,6 +109,35 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check("v", v, q.dtype, (b, t, kvh, v.shape[3]), dev)
 
 
+def pad_head_dim(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its last (head) dim zero-padded to a multiple of
+    ``HEAD_ALIGN``, contiguous; ``x`` itself if it is one already."""
+    pad = -x.shape[-1] % HEAD_ALIGN
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return x.contiguous()
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it when its storage does not start on the 16
+    bytes the kernels' vector copies need (a view with an offset)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def decode_chunk(t: int, pairs: int, group: int, sms: int) -> int:
+    """Keys a ``decode_partial_kernel`` block takes: T split into enough
+    chunks that the ``pairs`` = B * KV (batch, KV head) pairs give at
+    least 2 blocks on each of the card's ``sms`` multiprocessors (each
+    block keeps 2 tiles of 32 keys of K or V in flight, 16 KB in f32 at hd
+    128, so an SM holds 32 KB or more), at most ``DECODE_MAX_CHUNK`` keys and
+    at most 32 KB of the chunk's logits for the ``group`` = G heads; a
+    multiple of 16, at least 16."""
+    cap = max(16, min(DECODE_MAX_CHUNK, 8192 // max(group, 1) // 16 * 16))
+    per_pair = -(-2 * sms // max(pairs, 1))
+    chunk = -(-t // per_pair) // 16 * 16
+    return max(16, min(cap, chunk))
+
+
 # ------------------------------------------------------------ decode
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -125,23 +175,34 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type == "cpu":
         return decode_attention_plain(q, k, v, valid)
     _build.require_cuda(dev, "decode_attention")
+    if h // kvh > MAX_GROUP:
+        raise ValueError(f"{h // kvh} query heads per KV head; the kernel "
+                         f"takes at most {MAX_GROUP}")
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
     if b == 0 or h == 0:            # nothing to attend: no launch
         return out
+    scale = hd ** -0.5
+    q, k, v = (_aligned(pad_head_dim(x)) for x in (q, k, v))
+    hdp = q.shape[-1]
     g = h // kvh
-    chunks = -(-t // DECODE_CHUNK)
+    chunk = decode_chunk(t, b * kvh, g, _sms(dev))
+    chunks = -(-t // chunk)
     m = torch.empty((b, kvh, chunks, g), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
-    acc = torch.empty((b, kvh, chunks, g, hd), dtype=torch.float32,
+    acc = torch.empty((b, kvh, chunks, g, hdp), dtype=torch.float32,
                       device=dev)
+    res = out if hdp == hd else torch.empty((b, h, hdp),
+                                            dtype=torch.float32, device=dev)
     ptr = _build.ptr
     with torch.cuda.device(dev):
         err = _lib().decode_attention_launch(
             ptr(q), ptr(k), ptr(v), ptr(valid), _DTYPES[q.dtype], b, t, h,
-            kvh, hd, DECODE_CHUNK, hd ** -0.5, ptr(m), ptr(l), ptr(acc),
-            ptr(out), _build.stream(dev))
+            kvh, hdp, chunk, scale, ptr(m), ptr(l), ptr(acc), ptr(res),
+            _build.stream(dev))
     _build.raise_on(err, "decode_attention")
     launches["decode_attention"] += 1
+    if res is not out:
+        out.copy_(res[..., :hd])
     return out
 
 
@@ -197,25 +258,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, s, h, hdv), dtype=q.dtype, device=dev)
     if b == 0 or s == 0:            # nothing to attend: no launch
         return out
+    scale = hd ** -0.5 if scale is None else float(scale)
+    q, k, v = (_aligned(pad_head_dim(x)) for x in (q, k, v))
+    hdp, hdvp = q.shape[-1], v.shape[-1]
+    res = out if hdvp == hdv else torch.empty((b, s, h, hdvp),
+                                              dtype=q.dtype, device=dev)
     ptr = _build.ptr
     with torch.cuda.device(dev):
         err = _lib().flash_attention_launch(
-            ptr(q), ptr(k), ptr(v), ptr(out), _DTYPES[q.dtype], b, s, t, h,
-            kvh, hd, hdv, int(causal), int(window), float(softcap),
-            hd ** -0.5 if scale is None else float(scale),
+            ptr(q), ptr(k), ptr(v), ptr(res), _DTYPES[q.dtype], b, s, t, h,
+            kvh, hdp, hdvp, int(causal), int(window), float(softcap), scale,
             _build.stream(dev))
     _build.raise_on(err, "flash_attention")
     launches["flash_attention"] += 1
+    if res is not out:
+        out.copy_(res[..., :hdv])
     return out
 
 
 @functools.lru_cache(maxsize=None)
+def _sms(dev: torch.device) -> int:
+    """Streaming multiprocessors of the card ``dev``."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """The built ``csrc/attention.cu`` with its two launchers declared."""
+    """The built ``csrc/attention.cu`` with its two launchers declared;
+    raises if its chunk cap is not ``DECODE_MAX_CHUNK``."""
     lib = _build.load("attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 10 + [f, f, p]
     lib.decode_attention_launch.argtypes = [p] * 4 + [i] * 7 + [f] + [p] * 5
-    for fn in (lib.flash_attention_launch, lib.decode_attention_launch):
+    lib.decode_max_chunk.argtypes = []
+    for fn in (lib.flash_attention_launch, lib.decode_attention_launch,
+               lib.decode_max_chunk):
         fn.restype = i
+    if lib.decode_max_chunk() != DECODE_MAX_CHUNK:
+        raise RuntimeError(f"attention.cu takes chunks of at most "
+                           f"{lib.decode_max_chunk()} keys, the wrapper "
+                           f"{DECODE_MAX_CHUNK}")
     return lib

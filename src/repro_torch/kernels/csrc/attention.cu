@@ -1,46 +1,95 @@
 // The two attention kernels for Hopper (sm_90a): the hand-written CUDA
 // counterparts of the Pallas kernels of src/repro/kernels/.
 //
-//   flash_kernel<T, DV>          <- _flash_kernel (flash_attn.py:47)
-//   decode_partial_kernel<T>     <- _decode_kernel (decode_attn.py:26),
-//   decode_combine_kernel           split over T chunks (flash-decoding)
+//   flash_kernel_bf16<D>      <- _flash_kernel (flash_attn.py:47, called
+//   flash_kernel_f32<D>          at :128): one entry point, two designs
+//   decode_partial_kernel<..> <- _decode_kernel (decode_attn.py:26, called
+//   decode_combine_kernel        at :87), split over chunks of T
 //
-// Both keep the reference's online softmax in f32: a masked logit is
-// NEG = -2e38 (never -inf), so a row whose every key is masked averages
-// v uniformly, as the reference's softmax does, and a row with one valid
-// key wipes the masked ones out (exp(NEG - m) == 0 in f32).  Keys past the
-// end of the sequence (a ragged last tile) are left out altogether.
+// Semantics (all kernels, as the reference): online softmax in f32; a
+// masked logit is NEG = -2e38 (never -inf), so a row whose every key is
+// masked averages v uniformly, and a row with one valid key wipes the
+// masked ones out (exp(NEG - m) == 0 in f32); keys past the end of the
+// sequence are left out altogether.  GQA: query head h reads KV head h / G
+// (H = KV * G).  The softmax runs in base 2: a logit becomes x * log2(e)
+// (after the scale and the soft cap) and 2^x replaces e^x, which leaves
+// every ratio as it is; the denominator is max(l, 1e-30).
 //
-// GQA: query head h reads KV head h / G (H = KV * G), the order of
-// q.reshape(B, S, KV, G, hd) in the reference.
+// Both flash designs give a block the rows (query position, head) of the
+// G heads of one KV head for BM / G positions, so each K/V tile is read
+// once for the group; walk the K/V tiles of BK = 64 keys in a loop (the
+// Pallas grid's sequential axis); skip the tiles the causal and window
+// masks remove for every row (unless some row of the block has no key: it
+// then averages all T keys, as the reference does); mask only the tiles
+// that cross a boundary; order the blocks longest first (under a causal
+// mask the last positions have the most keys); and copy K and V in by
+// 16-byte cp.async, whose addresses step linearly from offsets computed
+// once.  Head dims are compile-time ceilings D in {64, 128, 256}; the copy
+// zero-fills the columns past hd (hdv), so the d loops have fixed bounds.
+// The wrapper pads head dims to a multiple of 16 (a zero column changes no
+// dot product).
 //
-// flash_kernel: one block per (b, KV head, tile of query positions); the
-// block's rows are the G heads of that KV head for bq = 64 / G positions,
-// so every K/V tile is read once for the whole group.  A loop inside the
-// block walks the K/V tiles of 64 keys (the Pallas grid's sequential ik
-// axis); the running max, denominator and output accumulator stay in
-// shared memory and registers across it.  Tiles that the causal and
-// window masks remove for every row are skipped, unless some row of the
-// block has no key at all (it then averages all T keys, as the reference
-// does).  Scores and the P.V product are CUDA-core FMAs from shared-memory
-// tiles: 4 rows x 4 keys a thread for the scores, 4 rows x DV columns for
-// the accumulator.  Bound: at S = T = 1024, hd = 128 the causal product is
-// ~69 GFLOP a layer against ~67 MB of q/k/v/out, far above the card's
-// ridge, so the kernel is bound by operations; CUDA-core f32 is 67 TFLOP/s
-// and a kernel on the tensor cores (wgmma) is later work.
+// flash_kernel_bf16<D>: bound by operations on the tensor cores (989
+// TFLOP/s dense bf16; the serving shape's causal S = T = 1024 is 69 GFLOP
+// against 34 MB).  Two warpgroups of 64 rows (BM = 128), two blocks an SM
+// up to D = 128.  S = Q K^T is wgmma.mma_async m64n64k16 with Q and K
+// from shared memory (K-major descriptors); O += P V is m64nDk16 with P
+// from registers and V from shared memory through the MN-major
+// (transposed) descriptor; f32 accumulators.  Tiles are stored in 64-column
+// blocks with the 128-byte swizzle the descriptors name.  K and V have two
+// buffers each: tile t + 1 is copied in while tile t is multiplied.  The
+// online softmax runs on the accumulator fragments in registers (row max
+// and sum over the lane quad by shuffles, 2^x on the special-function
+// unit, the scale folded into its FMA on unmasked tiles), and P is
+// rounded to bf16 in registers, where two n8 score tiles already form the
+// A fragment of the next product.  Rounding P to bf16 is the usual
+// tensor-core choice; its relative error, 2^-9 an element, stays far
+// inside the bf16 tolerance 3e-2 (the sum l is taken over the f32 P).
+// Copies are cp.async, not TMA, and the warpgroups are not specialised:
+// both are later work.
 //
-// decode: pass 1 gives one block to (b, KV head, chunk of keys) and
-// computes the G heads' partial (max, sum, accumulator) over its chunk;
-// pass 2 merges the chunks of each head and divides by max(l, 1e-30), as
-// _fin does.  One query token reads the whole K/V cache once, so the
-// kernel is bound by device-memory bytes; splitting T over blocks puts
-// B * KV * chunks blocks in flight instead of B * KV.
+// flash_kernel_f32<D>: full f32 on the CUDA cores (TF32 would not hold the
+// f32 tolerances), bound by operations at 67 TFLOP/s.  A CUDA-core tile
+// loop is bound by shared-memory bandwidth per FMA, so the design is
+// register tiling as in an SGEMM: 16 x 16 threads (8 x 16 at D = 256),
+// each owning 8 rows x 4 keys of the score tile and 8 rows x D/16 value
+// columns of the accumulator, read by 16-byte shared loads (Q rows padded
+// by 4 floats every 8 rows, K rows by 4 floats: no bank conflicts); each
+// loaded value feeds 4 or 8 FMAs.  One K and one V buffer, their copies
+// offset by half a tile (K of tile t + 1 lands during P.V of tile t, V of
+// tile t + 1 during the scores of tile t + 1).  The 16 threads that share
+// a row sit in one half-warp, so the row max and sum are shuffles and P
+// goes through a per-warp shared tile.
 //
-// Types: q, k, v (and flash's output) are float or bf16 (T); everything
-// is accumulated in f32; decode's output is f32.  Plain C interface
-// (loaded with ctypes): each launcher returns cudaGetLastError() (or
+// decode: flash-decoding, bound by device-memory bytes (one query token
+// reads its whole K/V once).  A partial kernel gives a block to (b, KV
+// head, chunk of keys; attention.py::decode_chunk picks the chunk so that
+// there are 2 blocks an SM or more) and streams the chunk's K tiles, then
+// its V tiles, through a 3-stage ring of 16-byte cp.async copies, so two
+// tiles are always in flight a block (16 KB in f32 at hd 128); invalid
+// keys of a chunk with a valid key are not read at all (their weight is
+// exp(NEG - m) == 0).  The chunk keeps all its logits, so its softmax is
+// taken once between the K and the V tiles.  Two designs:
+//   decode_partial_kernel<T, GB, Cfg> (CUDA cores; f32, and bf16 where the
+//     tensor-core one does not apply): PARTS neighbouring lanes a key, each
+//     loaded K element feeding a pass of GB <= 8 heads, the parts summed
+//     by log2(PARTS) shuffles (no 5-step reduction a key and head); in P.V
+//     a thread owns 4 value columns of every head of the pass for a slice
+//     of the keys, the slices summed through shared memory.  256 threads
+//     a block in f32, 128 in bf16 (the faster of those measured).
+//   decode_partial_kernel_tc<Cfg> (bf16, G <= 16, hd a multiple of 64):
+//     both products as mma.sync m16n8k16 with q padded to 16 rows, K and
+//     V fragments by ldmatrix (.trans for V) from the ring; per byte this
+//     takes a fraction of the CUDA-core design's instructions, which
+//     bound bf16 when K/V sit in L2.
+// decode_combine_kernel merges the chunks and divides by max(l, 1e-30).
+//
+// Types: q, k, v (and flash's output) are float or bf16; everything is
+// accumulated in f32; decode's output is f32.  Plain C interface (loaded
+// with ctypes): each launcher returns cudaGetLastError() (or
 // cudaErrorInvalidValue for a shape it does not take) and launches on the
-// caller's stream.
+// caller's stream.  Pointers must be 16-byte aligned and head dims
+// multiples of 16 (the wrapper pads and aligns).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -48,17 +97,16 @@
 
 namespace {
 
+typedef __nv_bfloat16 bf16;
+
 constexpr float NEG = -2.0e38f;
-constexpr uint32_t FULL = 0xffffffffu;
-
-constexpr int FL_THREADS = 256;
-constexpr int FL_ROWS = 64;        // (query position, head) rows a block
-constexpr int FL_BK = 64;          // keys a tile
-constexpr int FL_LDP = FL_BK + 1;  // row stride of the score tile
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr int MAX_HEAD_DIM = 256;
+constexpr int MAX_SMEM = 232448;   // a block's shared memory on sm_90
+constexpr int BK = 64;             // keys a flash tile
 
-constexpr int DEC_THREADS = 128;
-constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int MAX_GROUP = 64;      // query heads a KV head, at most
+constexpr int COMBINE_THREADS = 128;
 constexpr int DEC_GB = 8;          // heads a pass over v
 constexpr int DEC_MAX_CHUNK = 256;
 
@@ -66,263 +114,839 @@ template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) {
   return x;
 }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-    __nv_bfloat16 x) {
+template <> __device__ __forceinline__ float to_f<bf16>(bf16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
+// ------------------------------------------------------- async copies
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with full == false nothing is read and the
+// 16 bytes are zero-filled (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------- flash, both designs
+
+// The keys [k_lo, k_hi] any row of the block attends to, and whether
+// some row has none (the block then walks and masks every key).  Row qp
+// sees [max(0, qp - window + 1), causal ? min(T - 1, qp) : T - 1]; both
+// ends are nondecreasing in qp and a row is empty only past T + window,
+// so the last row decides.
+struct KeyRange {
+  int lo, hi;
+  bool all;
+};
+
+__device__ __forceinline__ KeyRange key_range(int q0, int q_last, int Tk,
+                                              int causal, int window) {
+  const int lo_last = window > 0 ? max(0, q_last - window + 1) : 0;
+  const int hi_last = causal ? min(Tk - 1, q_last) : Tk - 1;
+  if (lo_last > hi_last) return {0, Tk - 1, true};
+  return {window > 0 ? max(0, q0 - window + 1) : 0, hi_last, false};
+}
+
+// Whether tile [k0, k0 + BK) needs the masks for some row of the block.
+__device__ __forceinline__ bool tile_masked(const KeyRange& kr, int k0,
+                                            int q0, int q_last, int Tk,
+                                            int causal, int window) {
+  return kr.all || k0 + BK > Tk || (causal && k0 + BK - 1 > q0) ||
+         (window > 0 && k0 <= q_last - window);
+}
+
+// 2^x by the special-function unit (relative error ~2^-22; 2^-inf = 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A raw score's way into the base-2 domain: s * scale * log2(e), or with
+// a soft cap softcap * log2(e) * tanh(s * scale / softcap).
+struct LogitScale {
+  float mul, cap, inv;
+};
+__host__ __device__ inline LogitScale logit_scale(float scale,
+                                                  float softcap) {
+  if (softcap > 0.f) return {0.f, softcap * LOG2E, scale / softcap};
+  return {scale * LOG2E, 0.f, 0.f};
+}
+
+// One logit in the base-2 domain, then the masks (masked: NEG; past T:
+// -inf, left out).
+__device__ __forceinline__ float logit2(float s, const LogitScale& ls,
+                                        bool masked, int qp, int kp, int Tk,
+                                        int causal, int window) {
+  const float x = ls.cap > 0.f ? ls.cap * tanhf(s * ls.inv) : s * ls.mul;
+  if (masked) {
+    if (kp >= Tk) return -INFINITY;
+    bool ok = true;
+    if (causal) ok = kp <= qp;
+    if (window > 0) ok = ok && qp - kp < window;
+    if (!ok) return NEG;
+  }
   return x;
 }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
+
+// Rows [0, BM) of a block <- q rows (b, q0 + r / G, kvh * G + r % G), D
+// columns of which the first hd are real; dst(r, chunk) gives the shared
+// address of a row's 16-byte chunk.
+template <typename T, int D, int BM, int NT, typename Dst>
+__device__ __forceinline__ void load_q(const T* q, int b, int S, int H,
+                                       int kvh, int G, int hd, int q0,
+                                       int rows, Dst dst) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CPR = D / VEC;
+  for (int e = threadIdx.x; e < BM * CPR; e += NT) {
+    const int r = e / CPR, c = e % CPR;
+    const int qp = q0 + r / G;
+    const bool ok = r < rows && qp < S && c * VEC < hd;
+    const T* src =
+        ok ? q + ((static_cast<long long>(b) * S + qp) * H + kvh * G + r % G)
+                     * hd + c * VEC
+           : q;
+    cp_async16(dst(r, c), src, ok);
+  }
 }
 
-// Odd row strides keep a column walk across 16 rows on 16 banks.
-__host__ __device__ __forceinline__ int odd_stride(int n) {
-  return (n & 1) ? n : n + 1;
+// Keys [k0, k0 + BK) of KV head kvh, `width` real columns of D.  When a
+// thread's chunks are one column 8 or more rows apart, its source and
+// destination step linearly (the swizzles repeat every 8 rows), so each
+// copy costs an add instead of the index arithmetic.
+template <typename T, int D, int NT, typename Dst>
+__device__ __forceinline__ void load_kv(const T* src, int b, int Tk, int KV,
+                                        int kvh, int width, int k0,
+                                        Dst dst) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CPR = D / VEC;
+  if constexpr (NT % CPR == 0 && (NT / CPR) % 8 == 0) {
+    constexpr int RSTEP = NT / CPR;
+    const int c = threadIdx.x % CPR, j0 = threadIdx.x / CPR;
+    const long long rs = static_cast<long long>(KV) * width;
+    const T* s0 = src + (static_cast<long long>(b) * Tk + k0 + j0) * rs +
+                  static_cast<long long>(kvh) * width + c * VEC;
+    auto d0 = dst(j0, c);
+    const auto dstep = dst(j0 + RSTEP, c) - d0;
+    const bool col = c * VEC < width;
+#pragma unroll
+    for (int i = 0; i < BK / RSTEP; ++i) {
+      const bool ok = col && k0 + j0 + i * RSTEP < Tk;
+      cp_async16(d0 + i * dstep, ok ? s0 + i * RSTEP * rs : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < BK * CPR; e += NT) {
+      const int j = e / CPR, c = e % CPR;
+      const int kp = k0 + j;
+      const bool ok = kp < Tk && c * VEC < width;
+      const T* s = ok ? src + ((static_cast<long long>(b) * Tk + kp) * KV +
+                               kvh) * width + c * VEC
+                      : src;
+      cp_async16(dst(j, c), s, ok);
+    }
+  }
 }
 
-// ------------------------------------------------------------------ flash
+// ---------------------------------------------- flash, bf16, wgmma
 
-size_t flash_smem_bytes(int hd, int dv_cols) {
-  const int ldq = odd_stride(hd);
-  return sizeof(float) * (static_cast<size_t>(FL_ROWS) * ldq  // Qs
-                          + static_cast<size_t>(FL_BK) * ldq  // Ks
-                          + static_cast<size_t>(FL_BK) * dv_cols  // Vs
-                          + static_cast<size_t>(FL_ROWS) * FL_LDP  // Ps
-                          + 3 * FL_ROWS);                     // m, l, alpha
+// Shared tiles of 64 rows for wgmma: blocks of 64 columns (128 bytes a
+// row), each [64 rows][128 B] with the 128-byte swizzle (16-byte chunk c
+// of row r at chunk c ^ (r % 8)), every block 1024-byte aligned.
+__device__ __forceinline__ bf16* sw128(bf16* base, int row, int chunk) {
+  return base + (chunk >> 3) * 64 * 64 + row * 64 +
+         (((chunk & 7) ^ (row & 7)) << 3);
 }
 
-// Row r of a block is query position q0 + r / G of head kvh * G + r % G.
-// Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty * 4 + i (i < 4); in
-// the scores it owns keys tx + 16 * j (j < 4), in the accumulator value
-// columns tx + 16 * j (j < DV).
-template <typename T, int DV>
-__global__ void __launch_bounds__(FL_THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int S, int Tk,
-             int H, int KV, int hd, int hdv, int G, int bq, int causal,
-             int window, float softcap, float scale) {
-  extern __shared__ float smem[];
-  const int ldq = odd_stride(hd);
-  const int ldv = 16 * DV;
-  float* Qs = smem;
-  float* Ks = Qs + FL_ROWS * ldq;
-  float* Vs = Ks + FL_BK * ldq;
-  float* Ps = Vs + FL_BK * ldv;
-  float* Ms = Ps + FL_ROWS * FL_LDP;
-  float* Ls = Ms + FL_ROWS;
-  float* As = Ls + FL_ROWS;
+// A wgmma shared-memory descriptor with the 128-byte swizzle; lbo and sbo
+// in bytes.
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a . b, mma.sync m16n8k16, bf16 inputs, f32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_arrive() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (+)= A . B, m64n64k16 bf16 -> f32, A and B from shared memory
+// through descriptors (both K-major); accumulate == 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A . B, m64n64k16 bf16 -> f32, A from registers (the mma.sync
+// A fragment of each warp's 16 rows), B from shared memory through a
+// descriptor, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A . B, m64n128k16 bf16 -> f32, A from registers (the mma.sync
+// A fragment of each warp's 16 rows), B from shared memory through a
+// descriptor, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A . B, m64n256k16 bf16 -> f32, A from registers (the mma.sync
+// A fragment of each warp's 16 rows), B from shared memory through a
+// descriptor, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, "
+      "%68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, "
+      "%79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, "
+      "%101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, "
+      "%119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D> struct PV;
+template <> struct PV<64> {
+  __device__ static void mma(float (&o)[32], const uint32_t (&a)[4],
+                             uint64_t db) { wgmma_rs_n64(o, a, db); }
+};
+template <> struct PV<128> {
+  __device__ static void mma(float (&o)[64], const uint32_t (&a)[4],
+                             uint64_t db) { wgmma_rs_n128(o, a, db); }
+};
+template <> struct PV<256> {
+  __device__ static void mma(float (&o)[128], const uint32_t (&a)[4],
+                             uint64_t db) { wgmma_rs_n256(o, a, db); }
+};
+
+constexpr int TC_WGS = 2;            // warpgroups (of 64 rows) a block
+constexpr int TC_BM = 64 * TC_WGS;   // rows a block
+constexpr int TC_THREADS = 128 * TC_WGS;
+
+// Q (TC_BM rows), then two K and two V tiles of BK keys; 1 KB of slack
+// for the 1024-byte alignment the 128-byte swizzle needs.
+template <int D> constexpr int tc_smem_bytes() {
+  return static_cast<int>(sizeof(bf16)) * (TC_BM + 4 * BK) * D + 1024;
+}
+
+// Warpgroup g owns block rows 64g..64g+63, its warp w rows 64g + 16w..+15;
+// lane l holds rows 64g + 16w + l/4 (i = 0) and + 8 (i = 1), in the score
+// fragment of n8 tile nt the keys 8nt + 2(l%4) + {0, 1}, in the output
+// fragment of n8 tile nd the value columns 8nd + 2(l%4) + {0, 1}.  K and
+// V of tile t + 1 are copied in while tile t runs (two buffers each).
+// Two blocks share an SM up to D = 128.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, D <= 128 ? 2 : 1)
+flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ out, int S,
+                  int Tk, int H, int KV, int hd, int hdv, int G, int bq,
+                  int n_qt, int causal, int window, float softcap,
+                  float scale) {
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(
+      tc_smem + ((1024 - (smem_u32(tc_smem) & 1023)) & 1023));
+  bf16* Kbuf = Qs + TC_BM * D;
+  bf16* Vbuf = Kbuf + 2 * BK * D;
+
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int b = blockIdx.z, kvh = blockIdx.y;
-  const int q0 = blockIdx.x * bq;
+  const int q0 = (n_qt - 1 - blockIdx.x) * bq;
   const int rows = bq * G;
   const int q_last = min(q0 + bq, S) - 1;
+  const KeyRange kr = key_range(q0, q_last, Tk, causal, window);
+  const int t_begin = kr.lo / BK, t_end = kr.hi / BK;
+  const LogitScale ls = logit_scale(scale, softcap);
 
-  for (int e = tid; e < FL_ROWS * hd; e += FL_THREADS) {
-    const int r = e / hd, d = e - (e / hd) * hd;
-    const int qp = q0 + r / G;
-    float x = 0.f;
-    if (r < rows && qp < S)
-      x = to_f(q[((static_cast<long long>(b) * S + qp) * H + kvh * G + r % G)
-                 * hd + d]);
-    Qs[r * ldq + d] = x;
+  auto kslot = [&](int t) { return Kbuf + (t & 1) * BK * D; };
+  auto vslot = [&](int t) { return Vbuf + (t & 1) * BK * D; };
+  auto load_tile = [&](int t) {
+    bf16* kb = kslot(t);
+    bf16* vb = vslot(t);
+    load_kv<bf16, D, TC_THREADS>(
+        k, b, Tk, KV, kvh, hd, t * BK,
+        [&](int r, int c) { return sw128(kb, r, c); });
+    load_kv<bf16, D, TC_THREADS>(
+        v, b, Tk, KV, kvh, hdv, t * BK,
+        [&](int r, int c) { return sw128(vb, r, c); });
+  };
+  load_q<bf16, D, TC_BM, TC_THREADS>(
+      q, b, S, H, kvh, G, hd, q0, rows,
+      [&](int r, int c) { return sw128(Qs + (r >> 6) * 64 * D, r & 63, c); });
+  load_tile(t_begin);
+  cp_commit();
+
+  const bf16* Qw = Qs + wg * 64 * D;
+  int qpos[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 64 * wg + warp * 16 + (lane >> 2) + 8 * i;
+    qpos[i] = q0 + r / G;
+    row_ok[i] = r < rows && qpos[i] < S;
   }
-  if (tid < FL_ROWS) {
-    Ms[tid] = NEG;
-    Ls[tid] = 0.f;
-  }
-
-  // The keys any row of the block attends to: row qp sees
-  // [lo(qp), hi(qp)], both nondecreasing in qp.  A row with none makes
-  // the block walk all T keys (that row then averages v).
-  int k_lo = 0, k_hi = Tk - 1;
-  bool empty_row = false;
-  for (int qp = q0; qp <= q_last; ++qp) {
-    const int lo = window > 0 ? max(0, qp - window + 1) : 0;
-    const int hi = causal ? min(Tk - 1, qp) : Tk - 1;
-    empty_row = empty_row || lo > hi;
-  }
-  if (!empty_row) {
-    k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-    k_hi = causal ? min(Tk - 1, q_last) : Tk - 1;
-  }
-
-  float acc[4][DV];
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DV; ++j) acc[i][j] = 0.f;
+  for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
 
-  for (int k0 = (k_lo / FL_BK) * FL_BK; k0 <= k_hi; k0 += FL_BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < FL_BK * hd; e += FL_THREADS) {
-      const int j = e / hd, d = e - (e / hd) * hd;
-      const int kp = k0 + j;
-      Ks[j * ldq + d] =
-          kp < Tk ? to_f(k[((static_cast<long long>(b) * Tk + kp) * KV + kvh)
-                           * hd + d])
-                  : 0.f;
+  for (int t = t_begin; t <= t_end; ++t) {
+    const int k0 = t * BK;
+    if (t < t_end) load_tile(t + 1);       // rides along tile t
+    cp_commit();
+    cp_wait<1>();
+    fence_async_shared();                  // the copies, seen by wgmma
+    __syncthreads();                       // Q, K and V of tile t are in
+    const bf16* Ks = kslot(t);
+    const bf16* Vs = vslot(t);
+
+    // S = Q K^T: Q and K K-major, 16 columns a step
+    float s[BK / 2] = {};
+    wg_arrive();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if (kk * 16 >= hd) break;            // zero columns: no product
+      const int off = (kk >> 2) * 64 * 64 + (kk & 3) * 16;
+      wgmma_ss_n64(s, gmma_desc(Qw + off, 16, 1024),
+                   gmma_desc(Ks + off, 16, 1024), kk > 0);
     }
-    for (int e = tid; e < FL_BK * ldv; e += FL_THREADS) {
-      const int j = e / ldv, d = e - (e / ldv) * ldv;
-      const int kp = k0 + j;
-      Vs[e] = (kp < Tk && d < hdv)
-                  ? to_f(v[((static_cast<long long>(b) * Tk + kp) * KV + kvh)
-                           * hdv + d])
-                  : 0.f;
-    }
-    __syncthreads();
+    wg_commit();
+    wg_wait<0>();
 
-    // scores of rows ty*4+i against keys tx+16*j
-    float s[4][4];
+    // online softmax on the fragments, rows reduced over the lane quad;
+    // on a tile with no mask and no cap the scale rides in the exponent's
+    // FMA (the max of s * scale is scale * max(s))
+    const bool masked =
+        tile_masked(kr, k0, q0, q_last, Tk, causal, window);
+    const bool raw = !masked && ls.cap == 0.f;
+    const float mul = raw ? ls.mul : 1.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty * 4 + i) * ldq + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * ldq + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const int qp = q0 + r / G;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int kp = k0 + c;
-        float x = s[i][j] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        bool ok = r < rows && qp < S;
-        if (causal) ok = ok && kp <= qp;
-        if (window > 0) ok = ok && qp - kp < window;
-        Ps[r * FL_LDP + c] = kp >= Tk ? -INFINITY : (ok ? x : NEG);
-      }
-    }
-    __syncthreads();
-
-    // online softmax update, 4 lanes a row
-    {
-      const int r = tid >> 2, part = tid & 3;
-      float* pr = Ps + r * FL_LDP;
+    for (int i = 0; i < 2; ++i) {
       float mx = -INFINITY;
-      for (int c = part; c < FL_BK; c += 4) mx = fmaxf(mx, pr[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
-      const float m_old = Ms[r];
-      const float m_new = fmaxf(m_old, mx);
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * nt + 2 * i + e];
+          if (!raw)
+            x = logit2(x, ls, masked, qpos[i], k0 + 8 * nt + 2 * (lane & 3)
+                       + e, Tk, causal, window);
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx * mul);
+      const float alpha = fast_exp2(m[i] - m_new);
+      m[i] = m_new;
       float sum = 0.f;
-      for (int c = part; c < FL_BK; c += 4) {
-        const float p = expf(pr[c] - m_new);
-        pr[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(FULL, sum, 1);
-      sum += __shfl_xor_sync(FULL, sum, 2);
-      if (part == 0) {
-        const float alpha = expf(m_old - m_new);
-        As[r] = alpha;
-        Ls[r] = Ls[r] * alpha + sum;
-        Ms[r] = m_new;
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * nt + 2 * i + e];
+          x = fast_exp2(fmaf(x, mul, -m_new));
+          sum += x;
+        }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        o[4 * nd + 2 * i] *= alpha;
+        o[4 * nd + 2 * i + 1] *= alpha;
       }
     }
-    __syncthreads();
 
-    // acc = alpha * acc + P . V
+    // O += P V: P rounded to bf16 in registers (two n8 score tiles are
+    // one k16 A fragment), V the MN-major B operand: 64-column blocks 8 KB
+    // apart (LBO), 8-key row groups 1 KB apart (SBO)
+    wg_arrive();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = As[ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < DV; ++j) acc[i][j] *= alpha;
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[8 * kk], s[8 * kk + 1]),
+                             pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
+                             pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
+                             pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
+      PV<D>::mma(o, a, gmma_desc(Vs + kk * 16 * 64, 64 * 128, 1024));
     }
-    for (int c = 0; c < FL_BK; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * FL_LDP + c];
-#pragma unroll
-      for (int j = 0; j < DV; ++j) {
-        const float vv = Vs[c * ldv + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-      }
-    }
+    wg_commit();
+    wg_wait<0>();
+    __syncthreads();                       // both buffers of tile t free
   }
-  __syncthreads();
+  cp_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const int qp = q0 + r / G;
-    if (r >= rows || qp >= S) continue;
-    const float denom = fmaxf(Ls[r], 1e-30f);
-    T* o = out + ((static_cast<long long>(b) * S + qp) * H + kvh * G + r % G)
-                     * hdv;
+  for (int i = 0; i < 2; ++i) {
+    float lt = l[i];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    if (!row_ok[i]) continue;
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
+    const int r = 64 * wg + warp * 16 + (lane >> 2) + 8 * i;
+    bf16* dst = out + ((static_cast<long long>(b) * S + qpos[i]) * H +
+                       kvh * G + r % G) * hdv;
 #pragma unroll
-    for (int j = 0; j < DV; ++j) {
-      const int d = tx + 16 * j;
-      if (d < hdv) o[d] = from_f<T>(acc[i][j] / denom);
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const int c = 8 * nd + 2 * (lane & 3);
+      if (c < hdv)
+        *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(
+            o[4 * nd + 2 * i] * inv, o[4 * nd + 2 * i + 1] * inv);
     }
   }
 }
 
-template <typename T, int DV>
-cudaError_t flash_launch(const void* q, const void* k, const void* v,
-                         void* out, int B, int S, int Tk, int H, int KV,
-                         int hd, int hdv, int causal, int window,
-                         float softcap, float scale, cudaStream_t stream) {
+// ------------------------------------------ flash, f32, CUDA cores
+
+template <int D> struct F32Tile {
+  static constexpr int BM = D <= 128 ? 128 : 64;    // rows a block
+  static constexpr int NT = BM / 8 * 16;            // threads
+  static constexpr int CV = D / 16;                 // value columns a thread
+  static constexpr int LDK = D + 4;                 // K/V row stride
+  static constexpr int LDP = BM + 4;                // P row stride
+  static constexpr int QF = BM * D + BM / 8 * 4;    // Q floats
+  static constexpr int SMEM =
+      static_cast<int>(sizeof(float)) * (QF + 2 * BK * LDK + BK * LDP);
+};
+
+// Q row r starts at r * D + (r / 8) * 4: rows 8 apart, which share a
+// warp's 16-byte loads, land on different banks.
+template <int D> __device__ __forceinline__ int q_row(int r) {
+  return r * D + (r >> 3) * 4;
+}
+
+// Thread (rg, kg) = (tid / 16, tid % 16) owns rows 8rg + i (i < 8); in
+// the scores keys kg + 16j (j < 4), in the accumulator value columns
+// 4kg + 64jj + e (jj < D / 64, e < 4).
+template <int D>
+__global__ void __launch_bounds__(F32Tile<D>::NT)
+flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int S,
+                 int Tk, int H, int KV, int hd, int hdv, int G, int bq,
+                 int n_qt, int causal, int window, float softcap,
+                 float scale) {
+  using C = F32Tile<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + C::QF;
+  float* Vs = Ks + BK * C::LDK;
+  float* Ps = Vs + BK * C::LDK;     // [key][row]; a warp's rows are its own
+
+  const int tid = threadIdx.x, rg = tid >> 4, kg = tid & 15;
+  const int b = blockIdx.z, kvh = blockIdx.y;
+  const int q0 = (n_qt - 1 - blockIdx.x) * bq;
+  const int rows = bq * G;
+  const int q_last = min(q0 + bq, S) - 1;
+  const KeyRange kr = key_range(q0, q_last, Tk, causal, window);
+  const int t_begin = kr.lo / BK, t_end = kr.hi / BK;
+  const LogitScale ls = logit_scale(scale, softcap);
+
+  auto qdst = [&](int r, int c) { return Qs + q_row<D>(r) + 4 * c; };
+  auto kdst = [&](int r, int c) { return Ks + r * C::LDK + 4 * c; };
+  auto vdst = [&](int r, int c) { return Vs + r * C::LDK + 4 * c; };
+  load_q<float, D, C::BM, C::NT>(q, b, S, H, kvh, G, hd, q0, rows, qdst);
+  load_kv<float, D, C::NT>(k, b, Tk, KV, kvh, hd, t_begin * BK, kdst);
+  cp_commit();
+  load_kv<float, D, C::NT>(v, b, Tk, KV, kvh, hdv, t_begin * BK, vdst);
+  cp_commit();
+
+  float m[8], l[8], acc[8][C::CV];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C::CV; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int t = t_begin; t <= t_end; ++t) {
+    const int k0 = t * BK;
+    cp_wait<1>();
+    __syncthreads();                       // Q and K of tile t are in
+
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 kv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(Ks + (kg + 16 * j) * C::LDK
+                                                 + d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(Qs + q_row<D>(8 * rg + i) + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+        }
+      }
+    }
+    __syncthreads();                       // every warp is done with K
+    if (t < t_end) load_kv<float, D, C::NT>(k, b, Tk, KV, kvh, hd, k0 + BK,
+                                            kdst);
+    cp_commit();
+
+    // online softmax in registers, rows reduced over the half-warp
+    const bool masked =
+        tile_masked(kr, k0, q0, q_last, Tk, causal, window);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int qp = q0 + (8 * rg + i) / G;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = logit2(s[i][j], ls, masked, qp, k0 + kg + 16 * j, Tk,
+                         causal, window);
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = fast_exp2(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fast_exp2(s[i][j] - m_new);
+        sum += s[i][j];
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < C::CV; ++c) acc[i][c] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float4*>(Ps + (kg + 16 * j) * C::LDP + 8 * rg +
+                                   4 * h) =
+            make_float4(s[4 * h][j], s[4 * h + 1][j], s[4 * h + 2][j],
+                        s[4 * h + 3][j]);
+
+    cp_wait<1>();
+    __syncthreads();                       // V of tile t is in, P written
+#pragma unroll 2
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 p0 =
+          *reinterpret_cast<const float4*>(Ps + kk * C::LDP + 8 * rg);
+      const float4 p1 =
+          *reinterpret_cast<const float4*>(Ps + kk * C::LDP + 8 * rg + 4);
+      const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+      for (int jj = 0; jj < D / 64; ++jj) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            Vs + kk * C::LDK + 4 * kg + 64 * jj);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[i][4 * jj] = fmaf(p[i], vv.x, acc[i][4 * jj]);
+          acc[i][4 * jj + 1] = fmaf(p[i], vv.y, acc[i][4 * jj + 1]);
+          acc[i][4 * jj + 2] = fmaf(p[i], vv.z, acc[i][4 * jj + 2]);
+          acc[i][4 * jj + 3] = fmaf(p[i], vv.w, acc[i][4 * jj + 3]);
+        }
+      }
+    }
+    __syncthreads();                       // every warp is done with V, P
+    if (t < t_end) load_kv<float, D, C::NT>(v, b, Tk, KV, kvh, hdv, k0 + BK,
+                                            vdst);
+    cp_commit();
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float lt = l[i];
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1)
+      lt += __shfl_xor_sync(0xffffffffu, lt, o);
+    const int r = 8 * rg + i;
+    const int qp = q0 + r / G;
+    if (r >= rows || qp >= S) continue;
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
+    float* dst = out + ((static_cast<long long>(b) * S + qp) * H + kvh * G +
+                        r % G) * hdv;
+#pragma unroll
+    for (int jj = 0; jj < D / 64; ++jj) {
+      const int c = 4 * kg + 64 * jj;
+      if (c < hdv)
+        *reinterpret_cast<float4*>(dst + c) =
+            make_float4(acc[i][4 * jj] * inv, acc[i][4 * jj + 1] * inv,
+                        acc[i][4 * jj + 2] * inv, acc[i][4 * jj + 3] * inv);
+    }
+  }
+}
+
+// ------------------------------------------------------ flash launchers
+
+template <int D>
+cudaError_t flash_f32(const void* q, const void* k, const void* v,
+                      void* out, int B, int S, int Tk, int H, int KV, int hd,
+                      int hdv, int causal, int window, float softcap,
+                      float scale, cudaStream_t stream) {
+  using C = F32Tile<D>;
+  static_assert(C::SMEM <= MAX_SMEM, "f32 flash tile exceeds shared memory");
   const int G = H / KV;
-  const int bq = FL_ROWS / G;
-  const size_t smem = flash_smem_bytes(hd, 16 * DV);
+  const int bq = C::BM / G;
+  const int n_qt = (S + bq - 1) / bq;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_kernel_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + bq - 1) / bq, KV, B);
-  flash_kernel<T, DV><<<grid, FL_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, Tk, H, KV, hd, hdv,
-      G, bq, causal, window, softcap, scale);
+  flash_kernel_f32<D><<<dim3(n_qt, KV, B), C::NT, C::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, Tk, H, KV,
+      hd, hdv, G, bq, n_qt, causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t flash_dispatch(const void* q, const void* k, const void* v,
-                           void* out, int B, int S, int Tk, int H, int KV,
-                           int hd, int hdv, int causal, int window,
-                           float softcap, float scale, cudaStream_t stream) {
-#define FLASH_CASE(DV)                                                     \
-  if (hdv <= 16 * DV)                                                      \
-    return flash_launch<T, DV>(q, k, v, out, B, S, Tk, H, KV, hd, hdv,     \
-                               causal, window, softcap, scale, stream);
-  FLASH_CASE(1)
-  FLASH_CASE(2)
-  FLASH_CASE(4)
-  FLASH_CASE(8)
-  FLASH_CASE(16)
-#undef FLASH_CASE
-  return cudaErrorInvalidValue;
+template <int D>
+cudaError_t flash_bf16(const void* q, const void* k, const void* v,
+                       void* out, int B, int S, int Tk, int H, int KV, int hd,
+                       int hdv, int causal, int window, float softcap,
+                       float scale, cudaStream_t stream) {
+  constexpr int smem = tc_smem_bytes<D>();
+  static_assert(smem <= MAX_SMEM, "bf16 flash tile exceeds shared memory");
+  const int G = H / KV;
+  const int bq = TC_BM / G;
+  const int n_qt = (S + bq - 1) / bq;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  flash_kernel_bf16<D><<<dim3(n_qt, KV, B), TC_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, Tk, H, KV, hd,
+      hdv, G, bq, n_qt, causal, window, softcap, scale);
+  return cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- decode
 
+// A decode block's shape: NT threads, tiles of SK keys, NS stages.
+template <int NT_, int SK_, int NS_> struct DecCfg {
+  static constexpr int NT = NT_, SK = SK_, NS = NS_;
+  static constexpr int PARTS = NT / SK;    // threads a key in the logits
+  static constexpr int WARPS = NT / 32;
+};
+
+template <typename T, typename C> struct DecodeSmem {
+  static constexpr int VEC = 16 / sizeof(T);   // elements a 16-byte copy
+  // The ring of C::NS tiles of C::SK rows (rows padded by 16 bytes: the
+  // logits read across the rows, C::PARTS threads a key), then q as f32,
+  // the chunk's
+  // logits/probabilities, the P.V slices' partial sums and the chunk's
+  // validity bytes.
+  __host__ __device__ static int ldk(int hd) { return hd + VEC; }
+  __host__ __device__ static int slices(int hd) {
+    return C::NT / (hd / 4);
+  }
+  __host__ __device__ static int q_off(int hd) {
+    return C::NS * C::SK * ldk(hd) * static_cast<int>(sizeof(T));
+  }
+  __host__ __device__ static int l_off(int hd, int G) {
+    return q_off(hd) + 4 * G * hd;
+  }
+  __host__ __device__ static int red_off(int hd, int G, int chunk) {
+    return l_off(hd, G) + 4 * G * chunk;
+  }
+  __host__ __device__ static int ok_off(int hd, int G, int chunk, int gb) {
+    return red_off(hd, G, chunk) + 4 * slices(hd) * (G < gb ? G : gb) * hd;
+  }
+  __host__ __device__ static int bytes(int hd, int G, int chunk, int gb) {
+    return ok_off(hd, G, chunk, gb) + chunk;
+  }
+};
+
+// 4 consecutive elements (or, from 16 bytes, VEC) as floats.
+__device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
+}
+__device__ __forceinline__ void load4(const bf16* p, float (&f)[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 c =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  f[0] = a.x; f[1] = a.y; f[2] = c.x; f[3] = c.y;
+}
+__device__ __forceinline__ void load16(const float* p, float (&f)[4]) {
+  load4(p, f);
+}
+__device__ __forceinline__ void load16(const bf16* p, float (&f)[8]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = a.x;
+    f[2 * i + 1] = a.y;
+  }
+}
+
 // Block (chunk c, KV head kvh, batch b): keys [c * chunk, c * chunk + n).
-// Partials are laid out (B, KV, chunks, G) for m and l and
-// (B, KV, chunks, G, hd) for the accumulator.
-template <typename T>
-__global__ void __launch_bounds__(DEC_THREADS)
+// The chunk's K tiles, then its V tiles (once for every DEC_GB heads),
+// stream through one ring of C::NS stages, C::NS - 1 tiles in flight
+// ahead of the one in use.  The logits of the whole chunk are kept, so
+// its softmax is taken once between the K and the V tiles (no online
+// rescaling).  Partials are laid out (B, KV, chunks, G) for m and l (base
+// 2) and (B, KV, chunks, G, hd) for the accumulator.
+template <typename T, int GB, typename C>
+__global__ void __launch_bounds__(C::NT)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v,
                       const uint8_t* __restrict__ valid, int Tk, int H,
@@ -330,92 +954,399 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       float scale, float* __restrict__ m_out,
                       float* __restrict__ l_out,
                       float* __restrict__ acc_out) {
-  extern __shared__ float smem[];
-  float* Qs = smem;            // G x hd
-  float* Ss = Qs + G * hd;     // G x chunk: logits, then probabilities
+  using L = DecodeSmem<T, C>;
+  constexpr int VEC = L::VEC;
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  const int ldk = L::ldk(hd);
+  T* ring = reinterpret_cast<T*>(dec_smem);
+  float* Qs = reinterpret_cast<float*>(dec_smem + L::q_off(hd));
+  float* Ls = reinterpret_cast<float*>(dec_smem + L::l_off(hd, G));
+  float* Red = reinterpret_cast<float*>(dec_smem + L::red_off(hd, G, chunk));
+  uint8_t* ok_s = dec_smem + L::ok_off(hd, G, chunk, GB);
+
   const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t0 = c * chunk;
   const int n = min(chunk, Tk - t0);
+  const long long row0 = static_cast<long long>(b) * Tk + t0;
 
-  const T* qb = q + (static_cast<long long>(b) * H + kvh * G) * hd;
-  for (int e = tid; e < G * hd; e += DEC_THREADS) Qs[e] = to_f(qb[e]);
-  __syncthreads();
-
-  // logits: a warp a key, the key's hd values on the lanes
-  for (int j = warp; j < n; j += DEC_WARPS) {
-    const long long row = static_cast<long long>(b) * Tk + t0 + j;
-    const T* kr = k + (row * KV + kvh) * hd;
-    float kreg[MAX_HEAD_DIM / 32];
-#pragma unroll
-    for (int i = 0; i < MAX_HEAD_DIM / 32; ++i) {
-      const int d = lane + 32 * i;
-      kreg[i] = d < hd ? to_f(kr[d]) : 0.f;
-    }
-    const bool ok = valid[row] != 0;
-    for (int g = 0; g < G; ++g) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < MAX_HEAD_DIM / 32; ++i) {
-        const int d = lane + 32 * i;
-        if (d < hd) part = fmaf(Qs[g * hd + d], kreg[i], part);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        part += __shfl_xor_sync(FULL, part, o);
-      if (lane == 0) Ss[g * chunk + j] = ok ? part * scale : NEG;
-    }
+  // A chunk with a valid key reads only its valid keys (the others weigh
+  // exp(NEG - m) == 0); a chunk with none reads all its v (its mean of v
+  // counts if the whole row has no valid key).
+  int any = 0;
+  for (int j = tid; j < n; j += C::NT) {
+    const uint8_t x = valid[row0 + j];
+    ok_s[j] = x;
+    any |= x;
   }
-  __syncthreads();
+  any = __syncthreads_or(any);
 
-  // the chunk's max and sum of each head: a warp a head
+  const int nt = (n + C::SK - 1) / C::SK;        // tiles of K, of V
+  const int ng = (G + GB - 1) / GB;        // passes over V
+  const int total = nt * (1 + ng);
+  const int cpr = hd / VEC;
+  // a thread's copies: one 16-byte column c of rows j0, j0 + rstep, ...
+  // (every hd the configs use), else the general index walk
+  const bool even = C::NT % cpr == 0;
+  const int cc = tid % cpr, cj0 = tid / cpr, rstep = C::NT / cpr;
+  const long long rs = static_cast<long long>(KV) * hd;
+  auto fetch = [=](int i) {
+    if (i < total) {
+      const bool is_k = i < nt;
+      const int j0 = (is_k ? i : (i - nt) % nt) * C::SK;
+      const int rows = min(C::SK, n - j0);
+      const T* src = is_k ? k : v;
+      T* dst = ring + (i % C::NS) * C::SK * ldk;
+      if (even) {
+        const T* s0 = src + (row0 + j0) * rs +
+                      static_cast<long long>(kvh) * hd + cc * VEC;
+        for (int j = cj0; j < rows; j += rstep) {
+          const bool ok = (!is_k && !any) || ok_s[j0 + j] != 0;
+          cp_async16(dst + j * ldk + cc * VEC, ok ? s0 + j * rs : src, ok);
+        }
+      } else {
+        for (int e = tid; e < rows * cpr; e += C::NT) {
+          const int j = e / cpr, x = e - j * cpr;
+          const bool ok = (!is_k && !any) || ok_s[j0 + j] != 0;
+          cp_async16(dst + j * ldk + x * VEC,
+                     ok ? src + ((row0 + j0 + j) * KV + kvh) * hd + x * VEC
+                        : src,
+                     ok);
+        }
+      }
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < C::NS - 1; ++i) fetch(i);
+  const T* qb = q + (static_cast<long long>(b) * H + kvh * G) * hd;
+  for (int e = tid; e < G * hd; e += C::NT) Qs[e] = to_f(qb[e]);
+
+  const float sl = scale * LOG2E;
   const long long stat0 =
       ((static_cast<long long>(b) * KV + kvh) * n_chunks + c) * G;
-  for (int g = warp; g < G; g += DEC_WARPS) {
-    float* sr = Ss + g * chunk;
-    float mx = -INFINITY;
-    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sr[j]);
+  const int key = tid / C::PARTS, part = tid % C::PARTS;
+  const int cgs = hd / 4, slices = L::slices(hd);
+  const int cg = tid % cgs, slice = tid / cgs;
+  float acc[GB][4];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
-    float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float p = expf(sr[j] - mx);
-      sr[j] = p;
-      sum += p;
-    }
+  for (int gg = 0; gg < GB; ++gg)
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
-    if (lane == 0) {
-      m_out[stat0 + g] = mx;
-      l_out[stat0 + g] = sum;
-    }
-  }
-  __syncthreads();
+    for (int e = 0; e < 4; ++e) acc[gg][e] = 0.f;
 
-  // accumulator: a thread a value column, DEC_GB heads a pass over v
-  for (int d = tid; d < hd; d += DEC_THREADS) {
-    for (int g0 = 0; g0 < G; g0 += DEC_GB) {
-      float a[DEC_GB];
+  for (int i = 0; i < total; ++i) {
+    fetch(i + C::NS - 1);
+    cp_wait<C::NS - 1>();
+    __syncthreads();                       // tile i is in (and q)
+    const T* tile = ring + (i % C::NS) * C::SK * ldk;
+    if (i < nt) {
+      // logits: C::PARTS neighbouring lanes a key, each K element read
+      // once for GB heads, the parts summed by shuffles
+      const int j = i * C::SK + key;
+      for (int g0 = 0; g0 < G; g0 += GB) {
+        float s[GB];
 #pragma unroll
-      for (int gg = 0; gg < DEC_GB; ++gg) a[gg] = 0.f;
-      for (int j = 0; j < n; ++j) {
-        const float vv = to_f(
-            v[((static_cast<long long>(b) * Tk + t0 + j) * KV + kvh) * hd
-              + d]);
+        for (int gg = 0; gg < GB; ++gg) s[gg] = 0.f;
+        if (j < n) {
+#pragma unroll 4
+          for (int x = part; x < cpr; x += C::PARTS) {
+            float kf[VEC];
+            load16(tile + key * ldk + x * VEC, kf);
 #pragma unroll
-        for (int gg = 0; gg < DEC_GB; ++gg)
-          if (g0 + gg < G) a[gg] = fmaf(Ss[(g0 + gg) * chunk + j], vv, a[gg]);
+            for (int gg = 0; gg < GB; ++gg) {
+              if (g0 + gg < G) {
+                const float* qr = Qs + (g0 + gg) * hd + x * VEC;
+#pragma unroll
+                for (int u = 0; u < VEC; u += 4) {
+                  const float4 qv = *reinterpret_cast<const float4*>(qr + u);
+                  s[gg] = fmaf(qv.x, kf[u], s[gg]);
+                  s[gg] = fmaf(qv.y, kf[u + 1], s[gg]);
+                  s[gg] = fmaf(qv.z, kf[u + 2], s[gg]);
+                  s[gg] = fmaf(qv.w, kf[u + 3], s[gg]);
+                }
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int gg = 0; gg < GB; ++gg) {
+          if (g0 + gg >= G) break;
+#pragma unroll
+          for (int o = 1; o < C::PARTS; o <<= 1)
+            s[gg] += __shfl_xor_sync(0xffffffffu, s[gg], o);
+          if (part == 0 && j < n)
+            Ls[(g0 + gg) * chunk + j] = ok_s[j] ? s[gg] * sl : NEG;
+        }
       }
+      if (i == nt - 1) {
+        __syncthreads();                   // every logit of the chunk
+        for (int g = warp; g < G; g += C::WARPS) {   // a warp a head
+          float* sr = Ls + g * chunk;
+          float mx = -INFINITY;
+          for (int jj = lane; jj < n; jj += 32) mx = fmaxf(mx, sr[jj]);
 #pragma unroll
-      for (int gg = 0; gg < DEC_GB; ++gg)
-        if (g0 + gg < G) acc_out[(stat0 + g0 + gg) * hd + d] = a[gg];
+          for (int o = 16; o > 0; o >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+          float sum = 0.f;
+          for (int jj = lane; jj < n; jj += 32) {
+            const float p = fast_exp2(sr[jj] - mx);
+            sr[jj] = p;
+            sum += p;
+          }
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, o);
+          if (lane == 0) {
+            m_out[stat0 + g] = mx;
+            l_out[stat0 + g] = sum;
+          }
+        }
+      }
+    } else {
+      // P.V: a thread owns value columns 4cg..4cg+3 of GB heads for
+      // the tile's keys jj == slice (mod slices)
+      const int vi = i - nt, g0 = (vi / nt) * GB, tv = vi % nt;
+      const int j0 = tv * C::SK, rows = min(C::SK, n - j0);
+      if (slice < slices) {
+#pragma unroll 4
+        for (int jj = slice; jj < rows; jj += slices) {
+          float vf[4];
+          load4(tile + jj * ldk + 4 * cg, vf);
+#pragma unroll
+          for (int gg = 0; gg < GB; ++gg) {
+            if (g0 + gg < G) {
+              const float p = Ls[(g0 + gg) * chunk + j0 + jj];
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[gg][e] = fmaf(p, vf[e], acc[gg][e]);
+            }
+          }
+        }
+      }
+      if (tv == nt - 1) {                  // this pass's heads are done
+        const int gn = min(GB, G - g0);
+        if (slice < slices) {
+#pragma unroll
+          for (int gg = 0; gg < GB; ++gg) {
+            if (gg < gn)
+              *reinterpret_cast<float4*>(Red + (slice * gn + gg) * hd +
+                                         4 * cg) =
+                  make_float4(acc[gg][0], acc[gg][1], acc[gg][2],
+                              acc[gg][3]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[gg][e] = 0.f;
+          }
+        }
+        __syncthreads();
+        for (int e = tid; e < gn * hd; e += C::NT) {
+          const int gg = e / hd, d = e - gg * hd;
+          float sum = 0.f;
+          for (int s2 = 0; s2 < slices; ++s2)
+            sum += Red[(s2 * gn + gg) * hd + d];
+          acc_out[(stat0 + g0 + gg) * hd + d] = sum;
+        }
+      }
     }
+    __syncthreads();                       // the ring slot can be refilled
   }
+  cp_wait<0>();
 }
 
-// Block (head h, batch b): merge the chunks of head h.
-__global__ void __launch_bounds__(DEC_THREADS)
+// decode_partial_kernel with both products on the tensor cores (bf16, G
+// <= 16 heads padded to the 16 rows of mma.sync m16n8k16, hd a multiple
+// of 64).  The same ring of K tiles then V tiles, of 64 keys; warp w takes
+// keys 16w..16w+15 of a K tile (S = q K^T, q's A fragments loaded once
+// by ldmatrix, K's B fragments by ldmatrix) and value columns
+// w hd/4..(w+1) hd/4 - 1 of the V tiles (O += P V, P's A fragments from
+// the chunk's probabilities rounded to bf16, V's B fragments by
+// ldmatrix.trans), so no slice sums are needed.
+template <typename C>
+__global__ void __launch_bounds__(C::NT)
+decode_partial_kernel_tc(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const uint8_t* __restrict__ valid, int Tk, int H,
+                         int KV, int hd, int G, int chunk, int n_chunks,
+                         float scale, float* __restrict__ m_out,
+                         float* __restrict__ l_out,
+                         float* __restrict__ acc_out) {
+  static_assert(C::NT == 128 && C::SK == 64, "4 warps, 16 keys a warp");
+  constexpr int VEC = 8;
+  extern __shared__ __align__(16) unsigned char dtc_smem[];
+  const int ldk = hd + VEC;                // rows 16 bytes apart in banks
+  bf16* ring = reinterpret_cast<bf16*>(dtc_smem);
+  bf16* Qs = ring + C::NS * C::SK * ldk;   // 16 rows of ldk, zero past G
+  float* Ls = reinterpret_cast<float*>(Qs + 16 * ldk);
+  uint8_t* ok_s = reinterpret_cast<uint8_t*>(Ls + G * chunk);
+
+  const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t0 = c * chunk;
+  const int n = min(chunk, Tk - t0);
+  const long long row0 = static_cast<long long>(b) * Tk + t0;
+
+  int any = 0;
+  for (int j = tid; j < n; j += C::NT) {
+    const uint8_t x = valid[row0 + j];
+    ok_s[j] = x;
+    any |= x;
+  }
+  any = __syncthreads_or(any);
+
+  const int nt = (n + C::SK - 1) / C::SK;
+  const int total = 2 * nt;
+  const int cpr = hd / VEC;                // a power of two, <= 32
+  const int cc = tid % cpr, cj0 = tid / cpr, rstep = C::NT / cpr;
+  const long long rs = static_cast<long long>(KV) * hd;
+  auto fetch = [=](int i) {
+    if (i < total) {
+      const bool is_k = i < nt;
+      const int j0 = (is_k ? i : i - nt) * C::SK;
+      const int rows = min(C::SK, n - j0);
+      const bf16* src = is_k ? k : v;
+      bf16* dst = ring + (i % C::NS) * C::SK * ldk;
+      const bf16* s0 = src + (row0 + j0) * rs +
+                       static_cast<long long>(kvh) * hd + cc * VEC;
+      for (int j = cj0; j < C::SK; j += rstep) {   // rows past n: zeros
+        const bool ok = j < rows && ((!is_k && !any) || ok_s[j0 + j] != 0);
+        cp_async16(dst + j * ldk + cc * VEC, ok ? s0 + j * rs : src, ok);
+      }
+    }
+    cp_commit();
+  };
+  const bf16* qb = q + (static_cast<long long>(b) * H + kvh * G) * hd;
+  for (int e = tid; e < 16 * cpr; e += C::NT) {   // with tile 0's copies
+    const int r = e / cpr, x = e - r * cpr;
+    cp_async16(Qs + r * ldk + x * VEC, r < G ? qb + r * hd + x * VEC : qb,
+               r < G);
+  }
+#pragma unroll
+  for (int i = 0; i < C::NS - 1; ++i) fetch(i);
+
+  const float sl = scale * LOG2E;
+  const long long stat0 =
+      ((static_cast<long long>(b) * KV + kvh) * n_chunks + c) * G;
+  const int gr = lane >> 2;                // fragment rows gr, gr + 8
+  const int cw = warp * (hd / 4);          // this warp's value columns
+  uint32_t qa[MAX_HEAD_DIM / 16][4];
+  float o[MAX_HEAD_DIM / 32][4];
+#pragma unroll
+  for (int nd = 0; nd < MAX_HEAD_DIM / 32; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+
+  for (int i = 0; i < total; ++i) {
+    fetch(i + C::NS - 1);
+    cp_wait<C::NS - 1>();
+    __syncthreads();                       // tile i is in (and q)
+    const bf16* tile = ring + (i % C::NS) * C::SK * ldk;
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < MAX_HEAD_DIM / 16; ++kk)
+        if (kk * 16 < hd)
+          ldsm_x4(qa[kk], Qs + (lane & 15) * ldk + kk * 16 +
+                              ((lane >> 4) << 3));
+    }
+    if (i < nt) {
+      // S (16 x 16 keys a warp) = q K^T over hd / 16 steps
+      float sc[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < MAX_HEAD_DIM / 16; ++kk) {
+        if (kk * 16 >= hd) break;
+        uint32_t bb[4];
+        ldsm_x4(bb, tile + (16 * warp + (lane & 7) + ((lane >> 4) << 3)) *
+                               ldk + kk * 16 + (((lane >> 3) & 1) << 3));
+        mma_bf16(sc[0], qa[kk], bb[0], bb[1]);
+        mma_bf16(sc[1], qa[kk], bb[2], bb[3]);
+      }
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8)
+#pragma unroll
+        for (int nt8 = 0; nt8 < 2; ++nt8)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int g = gr + 8 * h8;
+            const int j = i * C::SK + 16 * warp + 8 * nt8 + 2 * (lane & 3) + e;
+            if (g < G && j < n)
+              Ls[g * chunk + j] = ok_s[j] ? sc[nt8][2 * h8 + e] * sl : NEG;
+          }
+      if (i == nt - 1) {
+        __syncthreads();                   // every logit of the chunk
+        for (int g = warp; g < G; g += C::WARPS) {   // a warp a head
+          float* sr = Ls + g * chunk;
+          float mx = -INFINITY;
+          for (int jj = lane; jj < n; jj += 32) mx = fmaxf(mx, sr[jj]);
+#pragma unroll
+          for (int o2 = 16; o2 > 0; o2 >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o2));
+          float sum = 0.f;
+          for (int jj = lane; jj < n; jj += 32) {
+            const float p = fast_exp2(sr[jj] - mx);
+            sr[jj] = p;
+            sum += p;
+          }
+#pragma unroll
+          for (int o2 = 16; o2 > 0; o2 >>= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, o2);
+          if (lane == 0) {
+            m_out[stat0 + g] = mx;
+            l_out[stat0 + g] = sum;
+          }
+        }
+      }
+    } else {
+      // O (16 x hd/4 columns a warp) += P V over the tile's 4 key steps
+      const int j0 = (i - nt) * C::SK;
+#pragma unroll
+      for (int ks = 0; ks < C::SK / 16; ++ks) {
+        float pv[2][4];
+#pragma unroll
+        for (int h8 = 0; h8 < 2; ++h8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int g = gr + 8 * h8;
+            const int j = j0 + 16 * ks + 2 * (lane & 3) + (e & 1) +
+                          8 * (e >> 1);
+            pv[h8][e] = g < G && j < n ? Ls[g * chunk + j] : 0.f;
+          }
+        const uint32_t a[4] = {pack_bf16(pv[0][0], pv[0][1]),
+                               pack_bf16(pv[1][0], pv[1][1]),
+                               pack_bf16(pv[0][2], pv[0][3]),
+                               pack_bf16(pv[1][2], pv[1][3])};
+#pragma unroll
+        for (int np = 0; np < MAX_HEAD_DIM / 64; ++np) {
+          if (np * 64 >= hd) break;        // 16 columns a pair of n8 tiles
+          uint32_t bb[4];
+          ldsm_x4_t(bb, tile + (16 * ks + (lane & 7) +
+                                (((lane >> 3) & 1) << 3)) * ldk +
+                            cw + 16 * np + ((lane >> 4) << 3));
+          mma_bf16(o[2 * np], a, bb[0], bb[1]);
+          mma_bf16(o[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+      if (i == total - 1) {
+#pragma unroll
+        for (int nd = 0; nd < MAX_HEAD_DIM / 32; ++nd) {
+          if (nd * 8 >= hd / 4) break;
+#pragma unroll
+          for (int h8 = 0; h8 < 2; ++h8) {
+            const int g = gr + 8 * h8;
+            if (g < G)
+              *reinterpret_cast<float2*>(
+                  acc_out + (stat0 + g) * hd + cw + 8 * nd +
+                  2 * (lane & 3)) = make_float2(o[nd][2 * h8],
+                                                o[nd][2 * h8 + 1]);
+          }
+        }
+      }
+    }
+    __syncthreads();                       // the ring slot can be refilled
+  }
+  cp_wait<0>();
+}
+
+// Block (head h, batch b): merge the chunks of head h (m in base 2).
+__global__ void __launch_bounds__(COMBINE_THREADS)
 decode_combine_kernel(const float* __restrict__ m, const float* __restrict__ l,
                       const float* __restrict__ acc, float* __restrict__ out,
                       int H, int KV, int hd, int G, int n_chunks) {
@@ -427,42 +1358,94 @@ decode_combine_kernel(const float* __restrict__ m, const float* __restrict__ l,
   for (int c = 0; c < n_chunks; ++c) mx = fmaxf(mx, m[base + c * G]);
   float denom = 0.f;
   for (int c = 0; c < n_chunks; ++c)
-    denom += expf(m[base + c * G] - mx) * l[base + c * G];
-  denom = fmaxf(denom, 1e-30f);
-  for (int d = threadIdx.x; d < hd; d += DEC_THREADS) {
+    denom += fast_exp2(m[base + c * G] - mx) * l[base + c * G];
+  const float inv = 1.f / fmaxf(denom, 1e-30f);
+  for (int d = threadIdx.x; d < hd; d += COMBINE_THREADS) {
     float o = 0.f;
     for (int c = 0; c < n_chunks; ++c)
-      o = fmaf(expf(m[base + c * G] - mx), acc[(base + c * G) * hd + d], o);
-    out[(static_cast<long long>(b) * H + h) * hd + d] = o / denom;
+      o = fmaf(fast_exp2(m[base + c * G] - mx), acc[(base + c * G) * hd + d],
+               o);
+    out[(static_cast<long long>(b) * H + h) * hd + d] = o * inv;
   }
 }
 
-template <typename T>
+template <typename T, int GB, typename C>
 cudaError_t decode_launch(const void* q, const void* k, const void* v,
                           const void* valid, int B, int Tk, int H, int KV,
                           int hd, int chunk, float scale, float* m, float* l,
                           float* acc, float* out, cudaStream_t stream) {
+  using L = DecodeSmem<T, C>;
   const int G = H / KV;
   const int n_chunks = (Tk + chunk - 1) / chunk;
-  const size_t smem = sizeof(float) * static_cast<size_t>(G) * (hd + chunk);
+  const int smem = L::bytes(hd, G, chunk, GB);
+  if (hd % L::VEC != 0 || smem > MAX_SMEM) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      decode_partial_kernel<T, GB, C>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  decode_partial_kernel<T><<<dim3(n_chunks, KV, B), DEC_THREADS, smem,
-                             stream>>>(
+  decode_partial_kernel<T, GB, C><<<dim3(n_chunks, KV, B), C::NT, smem,
+                                    stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(valid), Tk, H, KV,
       hd, G, chunk, n_chunks, scale, m, l, acc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<<<dim3(H, B), DEC_THREADS, 0, stream>>>(
+  decode_combine_kernel<<<dim3(H, B), COMBINE_THREADS, 0, stream>>>(
       m, l, acc, out, H, KV, hd, G, n_chunks);
   return cudaGetLastError();
 }
 
+template <typename C>
+cudaError_t decode_launch_tc(const void* q, const void* k, const void* v,
+                             const void* valid, int B, int Tk, int H, int KV,
+                             int hd, int chunk, float scale, float* m,
+                             float* l, float* acc, float* out,
+                             cudaStream_t stream) {
+  const int G = H / KV;
+  const int n_chunks = (Tk + chunk - 1) / chunk;
+  const int ldk = hd + 8;
+  const int smem = 2 * (C::NS * C::SK + 16) * ldk + 4 * G * chunk + chunk;
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_partial_kernel_tc<C>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  decode_partial_kernel_tc<C><<<dim3(n_chunks, KV, B), C::NT, smem,
+                                stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const uint8_t*>(valid), Tk, H,
+      KV, hd, G, chunk, n_chunks, scale, m, l, acc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_combine_kernel<<<dim3(H, B), COMBINE_THREADS, 0, stream>>>(
+      m, l, acc, out, H, KV, hd, G, n_chunks);
+  return cudaGetLastError();
+}
+
+// The heads a pass over v: G rounded up to a power of two, at most
+// DEC_GB (more heads take several passes).
+template <typename T, typename C>
+cudaError_t decode_dispatch(const void* q, const void* k, const void* v,
+                            const void* valid, int B, int Tk, int H, int KV,
+                            int hd, int chunk, float scale, float* m,
+                            float* l, float* acc, float* out,
+                            cudaStream_t stream) {
+  const int G = H / KV;
+#define DECODE_CASE(GB)                                                    \
+  if (G <= GB)                                                             \
+    return decode_launch<T, GB, C>(q, k, v, valid, B, Tk, H, KV, hd,       \
+                                   chunk, scale, m, l, acc, out, stream);
+  DECODE_CASE(1)
+  DECODE_CASE(2)
+  DECODE_CASE(4)
+#undef DECODE_CASE
+  return decode_launch<T, DEC_GB, C>(q, k, v, valid, B, Tk, H, KV, hd, chunk,
+                                     scale, m, l, acc, out, stream);
+}
+
 bool shapes_ok(int B, int H, int KV, int hd) {
-  return B > 0 && KV > 0 && H % KV == 0 && hd > 0 && hd <= MAX_HEAD_DIM;
+  return B > 0 && KV > 0 && H % KV == 0 && hd > 0 && hd <= MAX_HEAD_DIM &&
+         hd % 16 == 0;
 }
 
 }  // namespace
@@ -470,22 +1453,31 @@ bool shapes_ok(int B, int H, int KV, int hd) {
 extern "C" {
 
 // q (B, S, H, hd), k (B, T, KV, hd), v (B, T, KV, hdv) -> out (B, S, H,
-// hdv), all of one type (dtype 0: float, 1: bf16), contiguous.
+// hdv), all of one type (dtype 0: float, 1: bf16), contiguous, head dims
+// multiples of 16, at most 64 query heads a KV head.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int dtype, int B, int S, int Tk, int H,
                            int KV, int hd, int hdv, int causal, int window,
                            float softcap, float scale, void* stream) {
-  if (!shapes_ok(B, H, KV, hd) || S <= 0 || Tk <= 0 || H / KV > FL_ROWS ||
-      hdv <= 0 || hdv > MAX_HEAD_DIM)
+  if (!shapes_ok(B, H, KV, hd) || S <= 0 || Tk <= 0 || H / KV > MAX_GROUP ||
+      hdv <= 0 || hdv > MAX_HEAD_DIM || hdv % 16 != 0)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return flash_dispatch<float>(q, k, v, out, B, S, Tk, H, KV, hd, hdv,
-                                 causal, window, softcap, scale, st);
-  if (dtype == 1)
-    return flash_dispatch<__nv_bfloat16>(q, k, v, out, B, S, Tk, H, KV, hd,
-                                         hdv, causal, window, softcap, scale,
-                                         st);
+  const int dmax = hd > hdv ? hd : hdv;
+#define FLASH_CASE(D)                                                        \
+  if (dmax <= D) {                                                           \
+    if (dtype == 0)                                                          \
+      return flash_f32<D>(q, k, v, out, B, S, Tk, H, KV, hd, hdv, causal,    \
+                          window, softcap, scale, st);                       \
+    if (dtype == 1)                                                          \
+      return flash_bf16<D>(q, k, v, out, B, S, Tk, H, KV, hd, hdv, causal,   \
+                           window, softcap, scale, st);                      \
+    return cudaErrorInvalidValue;                                            \
+  }
+  FLASH_CASE(64)
+  FLASH_CASE(128)
+  FLASH_CASE(256)
+#undef FLASH_CASE
   return cudaErrorInvalidValue;
 }
 
@@ -506,12 +1498,18 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
   float* af = static_cast<float*>(acc);
   float* of = static_cast<float*>(out);
   if (dtype == 0)
-    return decode_launch<float>(q, k, v, valid, B, Tk, H, KV, hd, chunk,
-                                scale, mf, lf, af, of, st);
+    return decode_dispatch<float, DecCfg<256, 32, 3>>(
+        q, k, v, valid, B, Tk, H, KV, hd, chunk, scale, mf, lf, af, of, st);
+  if (dtype == 1 && H / KV <= 16 && hd % 64 == 0)
+    return decode_launch_tc<DecCfg<128, 64, 3>>(
+        q, k, v, valid, B, Tk, H, KV, hd, chunk, scale, mf, lf, af, of, st);
   if (dtype == 1)
-    return decode_launch<__nv_bfloat16>(q, k, v, valid, B, Tk, H, KV, hd,
-                                        chunk, scale, mf, lf, af, of, st);
+    return decode_dispatch<bf16, DecCfg<128, 32, 3>>(
+        q, k, v, valid, B, Tk, H, KV, hd, chunk, scale, mf, lf, af, of, st);
   return cudaErrorInvalidValue;
 }
+
+// the most keys decode_attention_launch takes as one chunk
+int decode_max_chunk(void) { return DEC_MAX_CHUNK; }
 
 }  // extern "C"

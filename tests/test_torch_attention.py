@@ -204,6 +204,75 @@ def test_flash_attention_all_masked_row_follows_the_oracle():
                                rtol=1e-4, atol=1e-5)
 
 
+# ------------------------------------------- chunk choice and padding
+
+H100_SMS = 132                  # multiprocessors of an H100 SXM
+
+
+@pytest.mark.parametrize("t,pairs,group", [
+    (1088, 64, 4),               # the serving path: qwen3-4b
+    (4096, 128, 2),              # gemma3-27b's decode
+    (1, 8, 8), (77, 4, 7), (8192, 32, 4), (8192, 2, 1), (300, 3, 64),
+    (65, 1, 2), (100_000, 1024, 4), (1025, 16, 1),
+])
+def test_decode_chunk_fills_the_card(t, pairs, group):
+    """The chunk is a multiple of 16 in [16, 256], keeps the chunk's
+    logits within 32 KB, and splits T into enough chunks for 2 blocks an
+    SM unless the chunk is already at its floor of 16 or its cap."""
+    chunk = t_att.decode_chunk(t, pairs, group, H100_SMS)
+    assert chunk % 16 == 0 and 16 <= chunk <= t_att.DECODE_MAX_CHUNK
+    assert 4 * group * chunk <= 32 * 1024
+    cap = min(t_att.DECODE_MAX_CHUNK, 8192 // group // 16 * 16)
+    blocks = -(-t // chunk) * pairs
+    assert blocks >= 2 * H100_SMS or chunk in (16, cap)
+
+
+def test_decode_chunk_on_the_serving_paths():
+    """qwen3-4b's decode (B 8 x KV 8, G 4, T 1088): 208-key chunks, 6 a
+    sequence and KV head, 384 blocks; gemma3-27b's (B 8 x KV 16, G 2, T
+    4096): 256-key chunks, 2048 blocks; T = 1 and short caches: 16."""
+    assert t_att.decode_chunk(1088, 64, 4, H100_SMS) == 208
+    assert t_att.decode_chunk(4096, 128, 2, H100_SMS) == 256
+    assert t_att.decode_chunk(1, 64, 4, H100_SMS) == 16
+    assert t_att.decode_chunk(77, 4, 4, H100_SMS) == 16
+
+
+@pytest.mark.parametrize("hd,hdv", [(40, 40), (20, 24), (100, 72), (64, 8),
+                                    (1, 1)])
+def test_head_dim_padding_changes_nothing(hd, hdv):
+    """Zero columns padded onto q, k and v (to a multiple of 16, as the
+    wrappers do before a launch) leave every dot product as it was: the
+    plain versions on the padded tensors, with the unpadded head dim's
+    scale and the output sliced back, equal the unpadded calls."""
+    r = np.random.default_rng(hd * 7 + hdv)
+    b, s, t, h, kv = 2, 24, 40, 6, 3
+    q = torch.from_numpy(r.standard_normal((b, s, h, hd), np.float32))
+    k = torch.from_numpy(r.standard_normal((b, t, kv, hd), np.float32))
+    v = torch.from_numpy(r.standard_normal((b, t, kv, hdv), np.float32))
+    pq, pk, pv = (t_att.pad_head_dim(x) for x in (q, k, v))
+    assert pq.shape[-1] % 16 == 0 and pv.shape[-1] % 16 == 0
+    assert pq.shape[-1] - hd < 16 and pq.is_contiguous()
+    assert torch.equal(pq[..., :hd], q) and not pq[..., hd:].any()
+    for kw in (dict(causal=True), dict(causal=False, window=9, softcap=5.0)):
+        want = t_att.flash_attention_plain(q, k, v, **kw)
+        got = t_att.flash_attention_plain(pq, pk, pv, scale=hd ** -0.5,
+                                          **kw)[..., :hdv]
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    # decode takes v of q's head dim; its scale is the unpadded hd's
+    vd = torch.from_numpy(r.standard_normal((b, t, kv, hd), np.float32))
+    valid = torch.from_numpy(r.random((b, t)) < 0.7)
+    want = t_att.decode_attention_plain(q[:, 0].contiguous(), k, vd, valid)
+    pqd = t_att.pad_head_dim(q[:, 0])
+    logits = torch.einsum("bngd,btnd->bngt",
+                          pqd.reshape(b, kv, h // kv, -1), pk) * hd ** -0.5
+    logits = torch.where(valid[:, None, None, :], logits, t_att.NEG)
+    got = torch.einsum("bngt,btnd->bngd", torch.softmax(logits, -1),
+                       t_att.pad_head_dim(vd)).reshape(b, h, -1)[..., :hd]
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert t_att.pad_head_dim(pq) is pq or torch.equal(
+        t_att.pad_head_dim(pq), pq)
+
+
 # ------------------------------------------------------- wrapper checks
 
 def test_wrappers_check_their_arguments():

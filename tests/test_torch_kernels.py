@@ -323,7 +323,12 @@ def test_pool_on_the_card_matches_the_cpu(cuda_device, kw):
 
 # ------------------------------------- attention kernels, on the card only
 
-ATT_TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (2e-2, 3e-2)}
+# (atol, rtol) of (decode, flash) by input dtype: f32 as the reference's
+# test; bf16 from the card's measured errors with room on both sides
+# (decode's output is f32, about 3e-4 off; flash's is bf16, one ulp off),
+# well under the reference's 2e-2 / 3e-2, which a wrong scale would pass
+ATT_TOL = {torch.float32: ((2e-5, 2e-5), (2e-4, 2e-4)),
+           torch.bfloat16: ((2e-3, 2e-3), (4e-3, 1e-2))}
 
 
 def _randn(rng, shape, dtype, dev):
@@ -336,6 +341,12 @@ def _randn(rng, shape, dtype, dev):
 @pytest.mark.parametrize("b,h,kvh,hd,t", [
     (8, 32, 8, 128, 1088), (2, 8, 2, 64, 77), (3, 7, 1, 16, 300),
     (1, 16, 16, 256, 129), (2, 12, 4, 96, 1),
+    # the chunk choice at both ends, G in {1, 2, 4, 7, 8}, and head dims
+    # through the padding (40) and every size the configs use
+    (1, 8, 1, 64, 1), (2, 16, 8, 128, 8192), (4, 32, 8, 32, 1088),
+    (3, 14, 2, 40, 77), (2, 8, 8, 192, 1025), (1, 16, 2, 128, 65),
+    # G = 16, the tensor-core path's widest, and G = 20 (passes of 8 heads)
+    (1, 32, 2, 64, 300), (1, 40, 2, 64, 100),
 ])
 def test_decode_attention_kernel_matches_plain(cuda_device, dtype, b, h,
                                                kvh, hd, t):
@@ -350,13 +361,13 @@ def test_decode_attention_kernel_matches_plain(cuda_device, dtype, b, h,
     torch.cuda.synchronize()
     assert att.launches["decode_attention"] == 1
     want = att.decode_attention_plain(q, k, v, valid)
-    tol = ATT_TOL[dtype][0]
-    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    atol, rtol = ATT_TOL[dtype][0]
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
     # valid as a broadcast view of a (T,) mask
     row = valid[-1]
     got = att.decode_attention(q, k, v, row[None].expand(b, t))
     want = att.decode_attention_plain(q, k, v, row[None].expand(b, t))
-    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
 @pytest.mark.gpu
@@ -371,6 +382,16 @@ def test_decode_attention_kernel_matches_plain(cuda_device, dtype, b, h,
     (1, 8, 4, 2, 1, 16, 16, True, 2, 0.0),       # rows with no key
     (1, 65, 65, 2, 2, 256, 256, True, 0, 0.0),
     (1, 70, 90, 4, 4, 192, 128, True, 0, 0.0),   # MLA's head dims
+    # S and T off every tile, G in {1, 2, 4, 7, 8}, every head dim of the
+    # configs, one through the padding (40), masks at the tiles' edges
+    (1, 1, 1, 8, 8, 64, 64, True, 0, 0.0),
+    (1, 65, 65, 8, 4, 32, 32, True, 0, 0.0),
+    (2, 1025, 1025, 8, 1, 128, 128, True, 0, 0.0),
+    (1, 300, 1025, 14, 2, 40, 40, False, 0, 0.0),
+    (1, 65, 300, 4, 1, 96, 96, True, 64, 30.0),
+    (1, 1025, 1025, 16, 8, 128, 128, True, 256, 0.0),
+    (1, 12, 6, 8, 1, 128, 128, True, 3, 0.0),     # rows with no key
+    (2, 300, 65, 4, 4, 40, 24, False, 17, 20.0),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, b, s, t,
                                               h, kv, hd, hdv, causal, window,
@@ -385,9 +406,9 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, b, s, t,
     torch.cuda.synchronize()
     assert att.launches["flash_attention"] == 1
     assert got.dtype == dtype and got.shape == (b, s, h, hdv)
-    tol = ATT_TOL[dtype][1]
+    atol, rtol = ATT_TOL[dtype][1]
     torch.testing.assert_close(got, att.flash_attention_plain(q, k, v, **kw),
-                               rtol=tol, atol=tol)
+                               rtol=rtol, atol=atol)
 
 
 @pytest.mark.gpu
