@@ -10,27 +10,32 @@ Phases (one line each; any failure exits non-zero and prints no result):
      matmul settings (TF32 off, precision "highest"), then ``nvcc`` of
      the kernel sources of ``src/repro_torch/kernels/csrc`` (one process
      each, all started together) with their ``-Xptxas -v`` reports
-     (registers, shared memory, spills);
+     (registers, shared memory, spills), summed up per kernel for the
+     engine-scan and attention kernels;
   2. kernel vs plain: batches of 16 ``cfd`` traces of 120 000 requests
      under predictor {BLOOM, NONE, PERFECT} x compression {off, on} and a
      conventional-only config (BL); each engine-scan kernel against its
      plain PyTorch version on the same tensors (integer Stats and state
      rows identical, float sums within 1e-3 relative), and a 4-epoch
-     ``advance_packed`` partition identical to one run;
+     ``advance_packed`` partition identical to one run; at the path's
+     shape each kernel's time, its launch (blocks, blocks resident on an
+     SM, waves), the longest set's active slots and ns a request slot,
+     beside the times before the Hopper redesign, quoted from PERF.md;
   3. golden: integer Stats of three full-width cells against the JAX
      reference's values in ``tests/data/torch_golden_stats.json``;
   4. main path of the simulator: ``policy.table3`` for IBL /
      Morpheus-Basic / Morpheus-ALL x cfd / kmeans / spmv at 120 000
      requests through the kernels, with the launch counts of that run,
      its best splits against the reference's (same file), points/s, and
-     host (trace generation + ``pack``) against device (scan kernels,
-     CUDA events) time;
+     host (trace generation + ``pack``) against device time (each
+     dispatch by CUDA events, and the scan kernels' own device time from
+     a profiled pass);
   5. pool kernels vs plain at large shapes: ``tag_lookup`` on (51200, 8)
      and (51200, 32), ``bloom_query`` on 4096 queries, ``bdi_compress`` of
      65 536 blocks of every level and the decompress round trip, and the
      block read (plain and fused with decompression) of 4096 rows of
      (4096, 32, 32), each equal to its plain version (tolerance 0), with
-     times;
+     times, and the floor of a launch (a one-element ``add_``);
   6. golden pool: the serving pool on the card replays the three cells
      of ``tests/data/torch_golden_pool.json``; stats and crcs of plans,
      pages read and final state equal the reference's;
@@ -105,6 +110,10 @@ GOLDEN_POOL = ROOT / "tests" / "data" / "torch_golden_pool.json"
 GOLDEN_LM = ROOT / "tests" / "data" / "torch_golden_lm.json"
 SOURCES = ("engine_scan", "pool", "attention")
 
+# The device ms of the engine-scan kernels at phase 2's timed shape before
+# their Hopper redesign, quoted from PERF.md (kernel table: NVIDIA H100
+# 80GB HBM3 at 700 W), for the log only
+SCAN_BEFORE_MS = {"conv_scan": "0.0527", "ext_scan": "1.746-1.761"}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (guide table)
 PEAK_OPS_PER_S = 67e12           # H100 SXM float32 outside tensor cores
 PEAK_BF16_PER_S = 989e12         # H100 SXM bf16 on the tensor cores, dense
@@ -298,9 +307,30 @@ def phase_kernels(env: Env, dev) -> dict:
                         plain_on_graph=False),
                 bound=bound_ms("ext", pt, b_s_e, cfg.ext_max_ways),
                 shape=list(pt.ext_tag.shape))
+            for tier, ways, act in (("conv", cfg.conv_ways, pt.conv_active),
+                                    ("ext", cfg.ext_max_ways, pt.ext_active)):
+                t = timing[f"{tier}_scan"]
+                longest = int(act.sum(-1).max())
+                t.update(launch=scan.launch_shape(
+                    tier, ways, act.shape[0] * act.shape[1], dev),
+                    ways=ways, longest_active=longest,
+                    ns_per_slot=t["ms"] * 1e6 / longest)
             epoch_check(env, cfg, traces, dev)
         log(f"phase 2: {name}: kernels == plain (L conv "
             f"{pt.conv_tag.shape[2]}, ext {pt.ext_tag.shape[2]})")
+    log("phase 2: at the path's shape (bloom/comp=1): " + "; ".join(
+        f"{k} {v['shape']}, {v['ways']} ways: {v['ms']:.4f} ms on the card "
+        f"({v['call_ms']:.4f} ms a call), bound {v['bound'][0]:.5f} ms "
+        f"({v['bound'][1]}); {v['launch']['blocks']} blocks of "
+        f"{v['launch']['threads']} threads, "
+        f"{v['launch']['resident_blocks_per_sm']} resident a SM on "
+        f"{v['launch']['sms']} SMs, {v['launch']['waves']:.3f} waves; "
+        f"longest set {v['longest_active']} active slots, "
+        f"{v['ns_per_slot']:.1f} ns a request slot"
+        for k, v in timing.items()))
+    log("phase 2: before the Hopper redesign, quoted from PERF.md and not "
+        "measured in this run: " + ", ".join(
+            f"{k} {ms} ms" for k, ms in SCAN_BEFORE_MS.items()))
     return {"err": err, "timing": timing}
 
 
@@ -337,7 +367,11 @@ def phase_golden(env: Env, dev) -> None:
 
 def host_device_split(env: Env, points, dev) -> dict:
     """Re-run the sweep's dispatches step by step: host seconds of trace
-    generation and pack, device milliseconds of the scan kernels."""
+    generation and pack, device milliseconds (CUDA events) of the copy to
+    the card and of each dispatch's ``_run_packed``, whose span holds the
+    host's enqueue gaps; then one profiled pass over the packed
+    dispatches: device ms of the scan kernels and of the other device
+    work."""
     cs, engine = env.cs, env.engine
     t0 = time.perf_counter()
     prepped = [cs._prepare(p) for p in points]
@@ -347,6 +381,7 @@ def host_device_split(env: Env, points, dev) -> dict:
         groups.setdefault(cfg, []).append(i)
     pack_s = copy_ms = scan_ms = 0.0
     dispatches = 0
+    packed = []
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     for cfg, idxs in groups.items():
         done = 0
@@ -367,8 +402,14 @@ def host_device_split(env: Env, points, dev) -> dict:
             copy_ms += ev[0].elapsed_time(ev[1])
             scan_ms += ev[1].elapsed_time(ev[2])
             dispatches += 1
+            packed.append((cfg, tp))
+    _, us = profiled(lambda: [engine._run_packed(cfg, tp)
+                              for cfg, tp in packed])
+    kernel_us = sum(v for k, v in us.items() if "scan_kernel" in k)
     return dict(gen_s=gen_s, pack_s=pack_s, copy_ms=copy_ms,
-                scan_ms=scan_ms, dispatches=dispatches)
+                scan_ms=scan_ms, dispatches=dispatches,
+                kernel_ms=kernel_us / 1e3,
+                other_device_ms=(sum(us.values()) - kernel_us) / 1e3)
 
 
 def phase_main(env: Env, dev) -> dict:
@@ -408,7 +449,10 @@ def phase_main(env: Env, dev) -> dict:
         f"runs {json.dumps(plain)}; host "
         f"generate {split['gen_s']:.3f} s + pack {split['pack_s']:.3f} s, "
         f"device copy {split['copy_ms']:.2f} ms + scan "
-        f"{split['scan_ms']:.2f} ms over {split['dispatches']} dispatches")
+        f"{split['scan_ms']:.2f} ms over {split['dispatches']} dispatches "
+        f"(CUDA events, host gaps included); profiled: scan kernels "
+        f"{split['kernel_ms']:.2f} ms, other device work "
+        f"{split['other_device_ms']:.2f} ms")
     return {"launches": counts, "points": len(points), "wall_s": wall,
             "split": split}
 
@@ -602,6 +646,11 @@ def phase_pool_kernels(env: Env, dev) -> dict:
         f"{v['bound'][0]:.5f} ms)" for k, v in out.items())
         + f"; fused read {out['gather_blocks']['fused_ms']:.5f} ms, "
         f"library gather {out['gather_blocks']['library_ms']:.5f} ms")
+    # the floor of a launch: one one-element CUDA op, by graph replay
+    one = torch.zeros(1, device=dev)
+    out["launch_floor_ms"] = device_ms(lambda: one.add_(1), 50)
+    log(f"phase 5: launch floor (one-element add_): "
+        f"{out['launch_floor_ms']:.5f} ms on the card")
     return out
 
 
@@ -1517,6 +1566,7 @@ def pool_kernel_rows(pk: dict, cells: dict, paths: dict) -> list:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
             "bound_by": head["bound"][1], "library_ms": head["library_ms"],
             "shape": head["shape"], "path_shapes": timed,
+            "launch_floor_ms": pk["launch_floor_ms"],
             "large": {"shape": large["shape"], "ms": large["ms"],
                       "call_ms": large["call_ms"],
                       "plain_ms": large["plain_ms"],
@@ -1529,7 +1579,8 @@ def pool_kernel_rows(pk: dict, cells: dict, paths: dict) -> list:
 def ptxas_summary(log_text: str) -> dict:
     """Registers and spill bytes of each kernel of a ``-Xptxas -v``
     report, by readable name (``flash_kernel_f32<128>``,
-    ``decode_partial_kernel<bf16, 2, 128, 32, 3>``)."""
+    ``decode_partial_kernel<bf16, 2, 128, 32, 3>``, ``ext_scan_kernel<4>``,
+    ``conv_scan_kernel``)."""
     import re
     out, cur = {}, None
     for ln in log_text.splitlines():
@@ -1537,8 +1588,9 @@ def ptxas_summary(log_text: str) -> dict:
         if m:
             k = re.search(r"(flash_kernel_f32|flash_kernel_bf16|"
                           r"decode_partial_kernel_tc|decode_partial_kernel|"
-                          r"decode_combine_kernel)"
-                          r"(I.*?)?E[vP]", m.group(1))
+                          r"decode_combine_kernel|conv_scan_kernel|"
+                          r"ext_scan_kernel)"
+                          r"(?:(I.*?)?E[vP]|(?=ENS))", m.group(1))
             if k is None:
                 cur = None
                 continue
@@ -1589,11 +1641,14 @@ def main() -> int:
                   if ("registers" in ln or "spill" in ln
                       or "Compiling entry" in ln) and "(C7519)" not in ln]
         log(f"phase 1: ptxas {name}: {' | '.join(report)}")
+    scan_ptxas = ptxas_summary(env.build.build_log("engine_scan"))
     att_ptxas = ptxas_summary(env.build.build_log("attention"))
-    log("phase 1: attention kernels (ptxas): " + "; ".join(
-        f"{k}: {v['registers']} registers, {v['spill_stores']} B spill "
-        f"stores, {v['spill_loads']} B spill loads"
-        for k, v in att_ptxas.items()))
+    for what, summary in (("engine-scan", scan_ptxas),
+                          ("attention", att_ptxas)):
+        log(f"phase 1: {what} kernels (ptxas): " + "; ".join(
+            f"{k}: {v['registers']} registers, {v['spill_stores']} B spill "
+            f"stores, {v['spill_loads']} B spill loads"
+            for k, v in summary.items()))
 
     k = phase_kernels(env, dev)
     phase_golden(env, dev)
@@ -1628,6 +1683,11 @@ def main() -> int:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": None, "shape_BSL": t["shape"],
+            "ways": t["ways"], "launch": t["launch"],
+            "longest_set_active": t["longest_active"],
+            "ns_per_request_slot": t["ns_per_slot"],
+            "ptxas": {n: v for n, v in scan_ptxas.items()
+                      if n.startswith(name.split("_")[0])},
         })
     kernels += pool_kernel_rows(pk, cells, paths)
     kernels += attention_kernel_rows(ak, serving, att_path, golden_lm["err"],

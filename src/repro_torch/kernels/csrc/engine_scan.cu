@@ -6,23 +6,48 @@
 //   ext_scan_kernel   <- _ext_scan_kernel (:135) and _ext_state_kernel (:283)
 //
 // One warp owns one (trace, set) and replays that set's L packed request
-// slots in order.  The ways live in registers, spread over the lanes (way
-// = k * 32 + lane, K ways per lane); the hit way comes from a ballot and
-// __ffs, the LRU victim from a warp-wide __reduce_min_sync over
-// (key << shift) | way, which reproduces jnp.argmax/argmin's first-index
-// rule.  Every lane computes the same warp-uniform outcome and Stats;
-// lane 0 writes them.  A null state-in pointer means a cold set, a null
+// slots in order.  A null state-in pointer means a cold set, a null
 // state-out pointer drops the final rows, so the monolithic and the
 // stateful (epoch-carry) scans are one code path.
 //
-// Bound: each set is a serial chain of L dependent steps (ballot, reduce,
-// shuffle latency), so a launch takes about L step latencies whatever its
-// B*S*L*~11 input bytes; the design keeps every step in registers, loads
-// the request columns 32 slots at a time (one coalesced load per lane,
-// then shuffles) and skips padding slots with a ballot.
+// Bound: each set is a serial chain of dependent steps and a launch holds
+// B*S such chains, so the card is limited by the instructions a step
+// issues and by how many chains an SM keeps resident to hide a step's
+// latency, not by the B*S*L*~11 input bytes.  The design cuts both:
+//
+//  * The ways live in registers, way = k * 32 + lane (K ways a lane), each
+//    as its tag and one packed word.  An extended way's word is
+//        absent << 25 | invalid << 24 | lru << 12 | way << 4 | dirty << 3
+//        | size / 32
+//    whose unsigned order is jnp.argmin's victim order (valid ways by
+//    lru, then way), so one __reduce_min_sync of the lanes' minima names
+//    the victim together with its dirty bit and size; a conventional
+//    way's word is keyed the same way (conv_scan_kernel).  This takes the
+//    rows the engine makes: lru <= LRU_MAX, sizes that are multiples of
+//    32 below 256, a tag valid in at most one way of a set.
+//  * A warp-uniform count of valid ways answers "any way valid" without a
+//    vote; a per-lane mask of invalid ways gives the first free way in one
+//    reduction, on a miss only.
+//  * The Bloom filters live on the lanes: lane l holds word l % 8 of bf1
+//    and of bf2.  Each lane writes its slot's Bloom mask (8 words) to
+//    shared memory once a chunk, so a request reads its word with one
+//    load; one ballot (lanes 0-7 test bf1, lanes 8-15 bf2) answers both
+//    membership tests; the insert is an OR, the swap two moves.
+//  * The lookup, the first victim and the Bloom tests are independent of
+//    one another, issued together and then selected.
+//  * The request columns are loaded 32 slots a chunk, one slot a lane,
+//    with the next chunk in flight while this one replays.  A chunk's
+//    write / mask / level bits become warp-uniform ballots, so a request
+//    costs one shuffle (its tag).
+//  * Stats are a chunk's bitmasks of the requests' outcomes (hit, forward,
+//    swap), counted once a chunk; the float sums are formed from the
+//    counts once at the end (the reference sums the same per-request
+//    constants, so the two agree within rounding).
 //
 // Plain C interface (loaded with ctypes): each launcher returns
-// cudaGetLastError() and launches on the caller's stream.
+// cudaGetLastError() and launches on the caller's stream;
+// engine_scan_launch_shape reports a launch's blocks and the blocks an SM
+// keeps resident.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -41,8 +66,17 @@ constexpr int MAX_EVICTIONS = BLOCK_BYTES / 32;
 constexpr int HIGH = 0;
 constexpr int LOW = 1;
 constexpr int PRED_BLOOM = 0;
-constexpr int PRED_NONE = 1;
 constexpr int PRED_PERFECT = 2;
+
+// Fields of the packed way words (see the head of the file).
+constexpr uint32_t W_SIZE = 0x7u;
+constexpr uint32_t W_DIRTY = 0x8u;
+constexpr uint32_t W_WAY = 0xFF0u;
+constexpr uint32_t W_LRU = LRU_MAX << 12;
+constexpr uint32_t W_LRU_ONE = 1u << 12;
+constexpr uint32_t W_INVALID = 1u << 24;
+constexpr uint32_t W_ABSENT = 1u << 25;
+constexpr uint32_t NO_WAY = 0xFFFFu;
 
 // Stats vector order: engine_scan.INT_FIELDS / FLOAT_FIELDS.
 enum { I_CONV_HITS, I_CONV_MISSES, I_EXT_HITS, I_EXT_FP, I_EXT_PM,
@@ -54,40 +88,54 @@ struct Costs {
   float e_conv, e_ext, e_ext_pm, e_dram;
 };
 
-struct Acc {
-  int i[NI];
-  float f[NF];
+// One lane's slot of a chunk of request columns, as loaded.
+struct Slot {
+  uint32_t tag;
+  int32_t level;
+  uint8_t write, active, mask;
 };
 
-__device__ __forceinline__ uint32_t sat_dec(uint32_t x) {
-  return x > 0u ? x - 1u : 0u;
-}
-
-// The request columns of slots [t0, t0 + 32) of one set: lane j holds
-// slot t0 + j.  flags = write | active << 1 | mask << 2 | level << 3.
-__device__ __forceinline__ void load_chunk(
+__device__ __forceinline__ Slot load_slot(
     const uint32_t* tag, const uint8_t* write, const int32_t* level,
-    const uint8_t* active, const uint8_t* mask, long base, int t, int L,
-    uint32_t& c_tag, uint32_t& c_flags) {
-  c_tag = 0u;
-  c_flags = 0u;
+    const uint8_t* active, const uint8_t* mask, long base, int t, int L) {
+  Slot s = {0u, 0, 0, 0, 0};
   if (t < L) {
     const long o = base + t;
-    c_tag = tag[o];
-    c_flags = (write[o] ? 1u : 0u) | (active[o] ? 2u : 0u) |
-              (mask[o] ? 4u : 0u) |
-              (level ? (static_cast<uint32_t>(level[o]) << 3) : 0u);
+    s.tag = tag[o];
+    s.write = write[o];
+    s.active = active[o];
+    s.mask = mask[o];
+    if (level) s.level = level[o];
   }
+  return s;
 }
 
-__device__ __forceinline__ void write_stats(const Acc& acc, long set,
-                                            int32_t* ints, float* flts,
-                                            int lane) {
+// A chunk as the replay reads it: lane j's tag, and the chunk's bits as
+// warp-uniform masks (bit j = slot t0 + j).
+struct Chunk {
+  uint32_t tag, todo, write, mask, high, low;
+};
+
+__device__ __forceinline__ Chunk chunk_of(const Slot& s) {
+  Chunk c;
+  c.tag = s.tag;
+  c.todo = __ballot_sync(FULL, s.active != 0);
+  c.write = __ballot_sync(FULL, s.write != 0);
+  c.mask = __ballot_sync(FULL, s.mask != 0);
+  c.high = __ballot_sync(FULL, s.level == HIGH);
+  c.low = __ballot_sync(FULL, s.level == LOW);
+  return c;
+}
+
+__device__ __forceinline__ void write_stats(const int32_t (&ints)[NI],
+                                            const float (&flts)[NF],
+                                            long set, int32_t* out_i,
+                                            float* out_f, int lane) {
   if (lane == 0) {
 #pragma unroll
-    for (int q = 0; q < NI; ++q) ints[set * NI + q] = acc.i[q];
+    for (int q = 0; q < NI; ++q) out_i[set * NI + q] = ints[q];
 #pragma unroll
-    for (int q = 0; q < NF; ++q) flts[set * NF + q] = acc.f[q];
+    for (int q = 0; q < NF; ++q) out_f[set * NF + q] = flts[q];
   }
 }
 
@@ -112,94 +160,91 @@ struct ConvArgs {
   uint32_t* lru1;
 };
 
+// A conventional way is its tag and one packed word
+//     valid << 24 | lru << 12 | lane << 4 | dirty
+// and its victim key is that word for a valid way, lane << 4 for an
+// invalid one (FULL for an absent lane): the key order is the reference's
+// argmin over (valid ? lru : -1), the first invalid way, else the least
+// lru, first index, and the victim key's bit 0 says whether the victim is
+// a dirty valid block.  The hit vote and the victim reduction are
+// independent; the lane to touch or fill is the matching lane on a hit
+// (a tag is valid in at most one way of a set) and the lane whose key is
+// the victim on a miss.
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
 conv_scan_kernel(const ConvArgs a) {
+  constexpr uint32_t C_VALID = 1u << 24;
   const int lane = threadIdx.x & 31;
   const long set = static_cast<long>(blockIdx.x) * WARPS_PER_BLOCK +
                    (threadIdx.x >> 5);
   if (set >= a.n_sets) return;  // warp-uniform
   const bool exists = lane < a.W;
   const long row = set * a.W + lane;
+  const uint32_t lane_bits = static_cast<uint32_t>(lane) << 4;
+  const uint32_t invalid_key = exists ? lane_bits : FULL;
 
-  uint32_t tg = 0u, lru = 0u;
-  bool vd = false, dt = false;
+  uint32_t tg = 0u, w = lane_bits;
+  bool live = false;  // exists and valid
   if (a.tags0 != nullptr && exists) {
     tg = a.tags0[row];
-    vd = a.valid0[row] != 0;
-    dt = a.dirty0[row] != 0;
-    lru = a.lru0[row];
+    live = a.valid0[row] != 0;
+    w |= (live ? C_VALID : 0u) | ((a.lru0[row] & LRU_MAX) << 12) |
+         (a.dirty0[row] ? 1u : 0u);
   }
-  Acc acc = {};
-  const Costs c = a.c;
+  int n_m = 0, n_hit = 0, n_wb = 0;
   const long base = set * a.L;
 
+  Slot next = load_slot(a.tag, a.write, nullptr, a.active, a.mask, base,
+                        lane, a.L);
   for (int t0 = 0; t0 < a.L; t0 += 32) {
-    uint32_t c_tag, c_flags;
-    load_chunk(a.tag, a.write, nullptr, a.active, a.mask, base, t0 + lane,
-               a.L, c_tag, c_flags);
-    uint32_t todo = __ballot_sync(FULL, (c_flags & 2u) != 0u);
+    const Chunk ch = chunk_of(next);
+    if (t0 + 32 < a.L)  // warp-uniform; in flight during this chunk
+      next = load_slot(a.tag, a.write, nullptr, a.active, a.mask, base,
+                       t0 + 32 + lane, a.L);
+    uint32_t todo = ch.todo, hit_bits = 0u, wb_bits = 0u;
     while (todo) {
       const int j = __ffs(todo) - 1;
       todo &= todo - 1u;
-      const uint32_t rt = __shfl_sync(FULL, c_tag, j);
-      const uint32_t rf = __shfl_sync(FULL, c_flags, j);
-      const bool wr = rf & 1u;
-      const bool m = (rf >> 2) & 1u;
-
-      const uint32_t hits = __ballot_sync(FULL, exists && vd && tg == rt);
-      const bool hit = hits != 0u;
-      int way;
-      bool evict_wb = false;
-      if (hit) {
-        way = __ffs(hits) - 1;
-      } else {
-        const uint32_t inv = __ballot_sync(FULL, exists && !vd);
-        if (inv) {
-          way = __ffs(inv) - 1;
-        } else {
-          const uint32_t key = exists ? ((lru << 5) | lane) : FULL;
-          way = static_cast<int>(__reduce_min_sync(FULL, key) & 31u);
-        }
-        evict_wb = __shfl_sync(FULL, static_cast<int>(vd && dt), way) != 0;
-      }
-      if (lane == way) {
-        if (hit) {
-          dt = dt || wr;
-        } else {
-          tg = rt;
-          vd = true;
-          dt = wr;
-        }
-        lru = LRU_MAX;
-      } else {
-        lru = sat_dec(lru);
-      }
-
-      if (m) {  // request_stats, conventional side
-        const int wb = (!hit && evict_wb) ? 1 : 0;
-        acc.i[I_CONV_HITS] += hit ? 1 : 0;
-        acc.i[I_CONV_MISSES] += hit ? 0 : 1;
-        acc.i[I_DRAM] += hit ? 0 : 1;
-        acc.i[I_WB] += wb;
-        acc.f[F_LAT] += hit ? c.lat_ch : c.lat_cm;
-        float e = c.e_conv;
-        if (!hit) e += c.e_dram;
-        if (wb > 0) e += static_cast<float>(wb) * c.e_dram;
-        acc.f[F_ENERGY] += e;
-        acc.f[F_CONV_BYTES] += static_cast<float>(BLOCK_BYTES);
-        float db = hit ? 0.f : static_cast<float>(BLOCK_BYTES);
-        if (wb > 0) db += static_cast<float>(wb) * BLOCK_BYTES;
-        acc.f[F_DRAM_BYTES] += db;
-      }
+      const uint32_t bit = 1u << j;
+      const uint32_t rt = __shfl_sync(FULL, ch.tag, j);
+      const uint32_t key = live ? w : invalid_key;
+      const uint32_t vic = __reduce_min_sync(FULL, key);
+      const bool match = live && tg == rt;
+      const bool hit = __any_sync(FULL, match);
+      const bool sel = hit ? match : key == vic;
+      const uint32_t wr = (ch.write & bit) ? 1u : 0u;
+      const uint32_t filled = hit ? w | W_LRU | wr
+                                  : C_VALID | W_LRU | lane_bits | wr;
+      const uint32_t aged = (w & W_LRU) ? w - W_LRU_ONE : w;
+      w = sel ? filled : aged;
+      tg = sel ? rt : tg;
+      live = live || sel;
+      hit_bits |= hit ? bit : 0u;
+      wb_bits |= (!hit && (vic & 1u)) ? bit : 0u;
     }
+    n_m += __popc(ch.mask & ch.todo);
+    n_hit += __popc(ch.mask & hit_bits);
+    n_wb += __popc(ch.mask & wb_bits);
   }
 
-  write_stats(acc, set, a.ints, a.flts, lane);
+  // request_stats, conventional side, summed over the set's requests
+  const Costs c = a.c;
+  const int n_miss = n_m - n_hit;
+  int32_t ints[NI] = {};
+  ints[I_CONV_HITS] = n_hit;
+  ints[I_CONV_MISSES] = n_miss;
+  ints[I_DRAM] = n_miss;
+  ints[I_WB] = n_wb;
+  float flts[NF] = {};
+  flts[F_LAT] = n_hit * c.lat_ch + n_miss * c.lat_cm;
+  flts[F_ENERGY] = n_m * c.e_conv + (n_miss + n_wb) * c.e_dram;
+  flts[F_CONV_BYTES] = static_cast<float>(n_m * BLOCK_BYTES);
+  flts[F_DRAM_BYTES] = static_cast<float>((n_miss + n_wb) * BLOCK_BYTES);
+  write_stats(ints, flts, set, a.ints, a.flts, lane);
   if (a.tags1 != nullptr && exists) {
     a.tags1[row] = tg;
-    a.valid1[row] = vd;
-    a.dirty1[row] = dt;
-    a.lru1[row] = lru;
+    a.valid1[row] = live;
+    a.dirty1[row] = w & 1u;
+    a.lru1[row] = (w >> 12) & LRU_MAX;
   }
 }
 
@@ -235,265 +280,221 @@ struct ExtArgs {
   int32_t* nmru1;
 };
 
-// repro/core/bloom.py: h = tag * m (mod 2^32); h ^= h >> 15; bit = h % 256
-__device__ __forceinline__ void hash_bits(uint32_t tag, uint32_t (&hb)[3]) {
+// The Bloom mask of a tag (repro/core/bloom.py: h = tag * m (mod 2^32);
+// h ^= h >> 15; bit h % 256 of the filter), written as its 8 words.
+__device__ __forceinline__ void bloom_words(uint32_t tag,
+                                            uint32_t (&row)[BLOOM_WORDS]) {
   const uint32_t mult[3] = {0x9E3779B1u, 0x85EBCA77u, 0xC2B2AE3Du};
+  reinterpret_cast<uint4*>(row)[0] = make_uint4(0u, 0u, 0u, 0u);
+  reinterpret_cast<uint4*>(row)[1] = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     uint32_t h = tag * mult[i];
     h ^= h >> 15;
-    hb[i] = h % BLOOM_BITS;
+    h %= BLOOM_BITS;
+    row[h >> 5] |= 1u << (h & 31u);
   }
 }
 
-// Every lane holds all 8 words; the unrolled selects keep them in
-// registers (no dynamically indexed local memory).
-__device__ __forceinline__ bool bloom_test(const uint32_t (&bf)[BLOOM_WORDS],
-                                           const uint32_t (&hb)[3]) {
-  bool present = true;
+// The least of the lane's K way words, then of the warp's.
+template <int K>
+__device__ __forceinline__ uint32_t warp_min_word(const uint32_t (&w)[K]) {
+  uint32_t m = w[0];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    uint32_t w = 0u;
-#pragma unroll
-    for (int q = 0; q < BLOOM_WORDS; ++q)
-      if ((hb[i] >> 5) == static_cast<uint32_t>(q)) w = bf[q];
-    present = present && ((w >> (hb[i] & 31u)) & 1u);
-  }
-  return present;
+  for (int k = 1; k < K; ++k) m = min(m, w[k]);
+  return __reduce_min_sync(FULL, m);
 }
 
 template <int K>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
 ext_scan_kernel(const ExtArgs a) {
-  constexpr int SHIFT = (K <= 4) ? 7 : 8;  // way index bits in a min key
   const int lane = threadIdx.x & 31;
   const long set = static_cast<long>(blockIdx.x) * WARPS_PER_BLOCK +
                    (threadIdx.x >> 5);
   if (set >= a.n_sets) return;  // warp-uniform
+  const bool cold = a.tags0 == nullptr;
+  // the Bloom masks of this warp's chunk, one row a slot
+  __shared__ __align__(16) uint32_t masks_s[WARPS_PER_BLOCK][32][BLOOM_WORDS];
+  uint32_t (&masks)[32][BLOOM_WORDS] = masks_s[threadIdx.x >> 5];
 
-  uint32_t tg[K], lru[K];
-  int32_t sz[K];
-  bool vd[K], dt[K], ex[K];
+  uint32_t tg[K], w[K];
+  uint32_t inv = 0u;  // bit k: way k * 32 + lane exists and is invalid
+  int my_valid = 0;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int way = k * 32 + lane;
-    ex[k] = way < a.W;
+    const uint32_t wbits = static_cast<uint32_t>(way) << 4;
     tg[k] = 0u;
-    lru[k] = 0u;
-    sz[k] = 0;
-    vd[k] = false;
-    dt[k] = false;
-    if (a.tags0 != nullptr && ex[k]) {
+    if (way >= a.W) {
+      w[k] = W_ABSENT | W_INVALID | wbits;
+    } else if (cold) {
+      w[k] = W_INVALID | wbits;
+      inv |= 1u << k;
+    } else {
       const long r = set * a.W + way;
       tg[k] = a.tags0[r];
-      vd[k] = a.valid0[r] != 0;
-      dt[k] = a.dirty0[r] != 0;
-      lru[k] = a.lru0[r];
-      sz[k] = a.size0[r];
+      const bool vd = a.valid0[r] != 0;
+      w[k] = (vd ? 0u : W_INVALID) | ((a.lru0[r] & LRU_MAX) << 12) | wbits |
+             (a.dirty0[r] ? W_DIRTY : 0u) |
+             ((static_cast<uint32_t>(a.size0[r]) >> 5) & W_SIZE);
+      inv |= vd ? 0u : 1u << k;
+      my_valid += vd;
     }
   }
-  uint32_t bf1[BLOOM_WORDS], bf2[BLOOM_WORDS];
-  int used = 0, nmru = 0;
-#pragma unroll
-  for (int q = 0; q < BLOOM_WORDS; ++q) {
-    bf1[q] = a.tags0 != nullptr ? a.bf1_0[set * BLOOM_WORDS + q] : 0u;
-    bf2[q] = a.tags0 != nullptr ? a.bf2_0[set * BLOOM_WORDS + q] : 0u;
-  }
-  if (a.tags0 != nullptr) {
-    used = a.used0[set];
-    nmru = a.nmru0[set];
-  }
+  const uint32_t q = lane & (BLOOM_WORDS - 1);
+  uint32_t bf1 = cold ? 0u : a.bf1_0[set * BLOOM_WORDS + q];
+  uint32_t bf2 = cold ? 0u : a.bf2_0[set * BLOOM_WORDS + q];
+  int used = cold ? 0 : a.used0[set];
+  int nmru = cold ? 0 : a.nmru0[set];
+  int n_valid = static_cast<int>(__reduce_add_sync(FULL, my_valid));
 
-  Acc acc = {};
-  const Costs c = a.c;
+  const bool bloom = a.predictor == PRED_BLOOM;
+  const bool perfect = a.predictor == PRED_PERFECT;
+  int n_hit = 0, n_fp = 0, n_pm = 0, n_miss = 0, n_wb = 0, n_swap = 0;
   const long base = set * a.L;
 
+  Slot next = load_slot(a.tag, a.write, a.level, a.active, a.mask, base,
+                        lane, a.L);
   for (int t0 = 0; t0 < a.L; t0 += 32) {
-    uint32_t c_tag, c_flags;
-    load_chunk(a.tag, a.write, a.level, a.active, a.mask, base, t0 + lane,
-               a.L, c_tag, c_flags);
-    uint32_t todo = __ballot_sync(FULL, (c_flags & 2u) != 0u);
+    const Chunk ch = chunk_of(next);
+    if (bloom) {
+      __syncwarp();  // the last chunk's rows are read
+      bloom_words(ch.tag, masks[lane]);
+      __syncwarp();
+    }
+    if (t0 + 32 < a.L)  // warp-uniform; in flight during this chunk
+      next = load_slot(a.tag, a.write, a.level, a.active, a.mask, base,
+                       t0 + 32 + lane, a.L);
+    uint32_t todo = ch.todo, hit_bits = 0u, pred_bits = 0u, swap_bits = 0u;
     while (todo) {
       const int j = __ffs(todo) - 1;
       todo &= todo - 1u;
-      const uint32_t rt = __shfl_sync(FULL, c_tag, j);
-      const uint32_t rf = __shfl_sync(FULL, c_flags, j);
-      const bool wr = rf & 1u;
-      const bool m = (rf >> 2) & 1u;
-      const int lv = static_cast<int>(rf >> 3);
+      const uint32_t bit = 1u << j;
+      const uint32_t rt = __shfl_sync(FULL, ch.tag, j);
+      const bool wr = ch.write & bit;
+      const uint32_t phys = !a.compression   ? BLOCK_BYTES
+                            : (ch.high & bit) ? 32u
+                            : (ch.low & bit)  ? 64u
+                                              : BLOCK_BYTES;
 
-      // lookup: first matching way
-      int e_way = -1;
+      // independent of one another: the first victim, the lookup, the
+      // Bloom tests
+      const uint32_t victim0 = warp_min_word<K>(w);
+      uint32_t mine = NO_WAY;
+#pragma unroll
+      for (int k = K - 1; k >= 0; --k)
+        if (tg[k] == rt && w[k] < W_INVALID) mine = k * 32 + lane;
+      const uint32_t e_way = __reduce_min_sync(FULL, mine);
+      const uint32_t mq = bloom ? masks[j][q] : 0u;
+      const uint32_t probe = (lane & BLOOM_WORDS) ? bf2 : bf1;
+      const uint32_t tests = __ballot_sync(FULL, (probe & mq) == mq);
+      const bool hit = e_way != NO_WAY;
+      const bool pred = bloom ? (tests & 0xFFu) == 0xFFu : perfect ? hit
+                                                                   : true;
+
+      uint32_t cw = e_way;  // the way touched or filled
+      int wbs = 0;
+      if (!hit) {  // insert: LRU-evict until the block fits (<= 4 times)
+        uint32_t v = victim0;
+        for (int it = 0; it < MAX_EVICTIONS; ++it) {
+          if (used + static_cast<int>(phys) <= a.budget || n_valid == 0)
+            break;
+          if (it > 0) v = warp_min_word<K>(w);
+          wbs += (v >> 3) & 1u;
+          used -= static_cast<int>((v & W_SIZE) << 5);
+          --n_valid;
+#pragma unroll
+          for (int k = 0; k < K; ++k)
+            if (w[k] == v) {
+              w[k] = (w[k] & (W_LRU | W_WAY)) | W_INVALID;
+              inv |= 1u << k;
+            }
+        }
+        // free way: the first invalid way, way 0 when none (jnp.argmax)
+        const uint32_t fw = __reduce_min_sync(
+            FULL, inv ? static_cast<uint32_t>((__ffs(inv) - 1) * 32 + lane)
+                      : NO_WAY);
+        n_valid += fw != NO_WAY;
+        cw = fw != NO_WAY ? fw : 0u;
+        used += static_cast<int>(phys);
+      }
+      // touch (hit) or fill (miss) way cw; every other way ages
+      const uint32_t keep = hit ? FULL : W_WAY;
+      const uint32_t set_bits =
+          W_LRU | (wr ? W_DIRTY : 0u) | (hit ? 0u : phys >> 5);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const uint32_t b = __ballot_sync(FULL, ex[k] && vd[k] && tg[k] == rt);
-        if (e_way < 0 && b) e_way = k * 32 + __ffs(b) - 1;
+        if (static_cast<uint32_t>(k * 32 + lane) == cw) {
+          w[k] = (w[k] & keep) | set_bits;
+          tg[k] = rt;
+        } else if (w[k] & W_LRU) {
+          w[k] -= W_LRU_ONE;
+        }
       }
-      const bool hit = e_way >= 0;
+      if (static_cast<uint32_t>(lane) == (cw & 31u)) inv &= ~(1u << (cw >> 5));
 
-      uint32_t hb[3];
-      hash_bits(rt, hb);
-      bool pred = true;
-      if (a.predictor == PRED_BLOOM) pred = bloom_test(bf1, hb);
-      else if (a.predictor == PRED_PERFECT) pred = hit;
-
-      const int phys = !a.compression ? BLOCK_BYTES
-                       : lv == HIGH   ? 32
-                       : lv == LOW    ? 64
-                                      : BLOCK_BYTES;
-      int wbs = 0;
-      if (hit) {  // touch: Algorithm 1 lines 8-12
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          if (k * 32 + lane == e_way) {
-            lru[k] = LRU_MAX;
-            dt[k] = dt[k] || wr;
-          } else {
-            lru[k] = sat_dec(lru[k]);
-          }
-        }
-      } else {  // insert: LRU-evict until the block fits
-        for (int it = 0; it < MAX_EVICTIONS; ++it) {
-          bool any_valid = false;
-#pragma unroll
-          for (int k = 0; k < K; ++k)
-            any_valid = any_valid || __any_sync(FULL, vd[k]);
-          if (used + phys <= a.budget || !any_valid) break;
-          uint32_t best = FULL;
-#pragma unroll
-          for (int k = 0; k < K; ++k) {
-            const uint32_t key = vd[k] ? lru[k] : (LRU_MAX + 1u);
-            const uint32_t comp =
-                (key << SHIFT) | static_cast<uint32_t>(k * 32 + lane);
-            if (ex[k] && comp < best) best = comp;
-          }
-          best = __reduce_min_sync(FULL, best);
-          const int v = static_cast<int>(best & ((1u << SHIFT) - 1u));
-          const int vk = v >> 5, vl = v & 31;
-          int vdirty = 0, vsize = 0;
-#pragma unroll
-          for (int k = 0; k < K; ++k)
-            if (k == vk) {
-              vdirty = dt[k];
-              vsize = sz[k];
-            }
-          vdirty = __shfl_sync(FULL, vdirty, vl);
-          vsize = __shfl_sync(FULL, vsize, vl);
-          wbs += vdirty;
-          used -= vsize;
-          if (lane == vl) {
-#pragma unroll
-            for (int k = 0; k < K; ++k)
-              if (k == vk) {
-                vd[k] = false;
-                dt[k] = false;
-                sz[k] = 0;
-              }
-          }
-        }
-        // free way: first invalid way, way 0 when none (jnp.argmax rule)
-        int fw = -1;
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const uint32_t b = __ballot_sync(FULL, ex[k] && !vd[k]);
-          if (fw < 0 && b) fw = k * 32 + __ffs(b) - 1;
-        }
-        if (fw < 0) fw = 0;
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          if (k * 32 + lane == fw) {
-            tg[k] = rt;
-            vd[k] = true;
-            dt[k] = wr;
-            sz[k] = phys;
-            lru[k] = LRU_MAX;
-          } else {
-            lru[k] = sat_dec(lru[k]);
-          }
-        }
-        used += phys;
-      }
-
-      // Bloom maintenance (Fig. 6(b))
+      // Bloom maintenance (Fig. 6(b)): insert into both filters, count
+      // the tag if it was not in bf2, swap at the associativity
       bool swap = false;
-      if (a.predictor == PRED_BLOOM) {
-        const bool in_bf2 = bloom_test(bf2, hb);
-#pragma unroll
-        for (int q = 0; q < BLOOM_WORDS; ++q) {
-          uint32_t mq = 0u;
-#pragma unroll
-          for (int i = 0; i < 3; ++i)
-            if ((hb[i] >> 5) == static_cast<uint32_t>(q))
-              mq |= 1u << (hb[i] & 31u);
-          bf1[q] |= mq;
-          bf2[q] |= mq;
-        }
-        nmru += in_bf2 ? 0 : 1;
+      if (bloom) {
+        bf1 |= mq;
+        bf2 |= mq;
+        nmru += (tests & 0xFF00u) == 0xFF00u ? 0 : 1;
         if (nmru >= a.ext_ways) {
           swap = true;
-#pragma unroll
-          for (int q = 0; q < BLOOM_WORDS; ++q) {
-            bf1[q] = bf2[q];
-            bf2[q] = 0u;
-          }
+          bf1 = bf2;
+          bf2 = 0u;
           nmru = 0;
         }
       }
 
-      if (m) {  // request_stats, extended side
-        const bool hit_e = hit;
-        const bool fp = !hit && pred;
-        const bool pm = !pred;
-        const bool miss = !hit;
-        const int wb = miss ? wbs : 0;
-        acc.i[I_EXT_HITS] += hit_e;
-        acc.i[I_EXT_FP] += fp;
-        acc.i[I_EXT_PM] += pm;
-        acc.i[I_EXT_TRUE_MISS] += miss;
-        acc.i[I_DRAM] += miss;
-        acc.i[I_WB] += wb;
-        acc.i[I_SWAPS] += (a.predictor == PRED_BLOOM && swap) ? 1 : 0;
-        float lat = 0.f;
-        if (hit_e) lat += c.lat_eh;
-        if (fp) lat += c.lat_em;
-        if (pm) lat += c.lat_pm;
-        acc.f[F_LAT] += lat;
-        float e = 0.f;
-        if (hit_e || fp) e += c.e_ext;
-        if (pm) e += c.e_ext_pm;
-        if (miss) e += c.e_dram;
-        if (wb > 0) e += static_cast<float>(wb) * c.e_dram;
-        acc.f[F_ENERGY] += e;
-        const int noc = ((hit_e || fp) ? 1 : 0) + (miss ? 1 : 0) + wb;
-        acc.f[F_NOC] += static_cast<float>(noc * BLOCK_BYTES);
-        float db = miss ? static_cast<float>(BLOCK_BYTES) : 0.f;
-        if (wb > 0) db += static_cast<float>(wb) * BLOCK_BYTES;
-        acc.f[F_DRAM_BYTES] += db;
-      }
+      hit_bits |= hit ? bit : 0u;
+      pred_bits |= pred ? bit : 0u;
+      swap_bits |= swap ? bit : 0u;
+      n_wb += (ch.mask & bit) ? wbs : 0;  // 0 on a hit
     }
+    // request_stats, extended side, of the chunk's counted requests
+    const uint32_t m = ch.mask;
+    n_hit += __popc(m & hit_bits);
+    n_fp += __popc(m & ~hit_bits & pred_bits);
+    n_pm += __popc(m & ~pred_bits);
+    n_miss += __popc(m & ~hit_bits);
+    n_swap += __popc(m & swap_bits);
   }
 
-  write_stats(acc, set, a.ints, a.flts, lane);
+  const Costs c = a.c;
+  int32_t ints[NI] = {};
+  ints[I_EXT_HITS] = n_hit;
+  ints[I_EXT_FP] = n_fp;
+  ints[I_EXT_PM] = n_pm;
+  ints[I_EXT_TRUE_MISS] = n_miss;
+  ints[I_DRAM] = n_miss;
+  ints[I_WB] = n_wb;
+  ints[I_SWAPS] = n_swap;
+  float flts[NF] = {};
+  flts[F_LAT] = n_hit * c.lat_eh + n_fp * c.lat_em + n_pm * c.lat_pm;
+  flts[F_ENERGY] = (n_hit + n_fp) * c.e_ext + n_pm * c.e_ext_pm +
+                   (n_miss + n_wb) * c.e_dram;
+  flts[F_NOC] = static_cast<float>((n_hit + n_fp + n_miss + n_wb) *
+                                   BLOCK_BYTES);
+  flts[F_DRAM_BYTES] = static_cast<float>((n_miss + n_wb) * BLOCK_BYTES);
+  write_stats(ints, flts, set, a.ints, a.flts, lane);
   if (a.tags1 != nullptr) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int way = k * 32 + lane;
-      if (ex[k]) {
+      if (way < a.W) {
         const long r = set * a.W + way;
         a.tags1[r] = tg[k];
-        a.valid1[r] = vd[k];
-        a.dirty1[r] = dt[k];
-        a.lru1[r] = lru[k];
-        a.size1[r] = sz[k];
+        a.valid1[r] = (w[k] & W_INVALID) == 0u;
+        a.dirty1[r] = (w[k] & W_DIRTY) != 0u;
+        a.lru1[r] = (w[k] & W_LRU) >> 12;
+        a.size1[r] = static_cast<int32_t>((w[k] & W_SIZE) << 5);
       }
     }
     if (lane < BLOOM_WORDS) {
-#pragma unroll
-      for (int q = 0; q < BLOOM_WORDS; ++q)
-        if (q == lane) {
-          a.bf1_1[set * BLOOM_WORDS + q] = bf1[q];
-          a.bf2_1[set * BLOOM_WORDS + q] = bf2[q];
-        }
+      a.bf1_1[set * BLOOM_WORDS + lane] = bf1;
+      a.bf2_1[set * BLOOM_WORDS + lane] = bf2;
     }
     if (lane == 0) {
       a.used1[set] = used;
@@ -509,6 +510,13 @@ Costs costs_from(const float* c) {
 unsigned blocks_for(int n_sets) {
   return static_cast<unsigned>((n_sets + WARPS_PER_BLOCK - 1) /
                                WARPS_PER_BLOCK);
+}
+
+// The ext_scan_kernel instantiation for W extended ways.
+using ExtKernel = void (*)(const ExtArgs);
+ExtKernel ext_kernel_for(int W) {
+  return W <= 32 ? ext_scan_kernel<1> : W <= 64 ? ext_scan_kernel<2>
+         : W <= 128 ? ext_scan_kernel<4> : ext_scan_kernel<8>;
 }
 
 }  // namespace
@@ -591,14 +599,25 @@ int ext_scan_launch(const void* tag, const void* write, const void* level,
   a.bf1_1 = static_cast<uint32_t*>(bf1_1);
   a.bf2_1 = static_cast<uint32_t*>(bf2_1);
   a.nmru1 = static_cast<int32_t*>(nmru1);
-  const unsigned grid = blocks_for(n_sets);
-  const unsigned block = WARPS_PER_BLOCK * 32;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (W <= 32) ext_scan_kernel<1><<<grid, block, 0, s>>>(a);
-  else if (W <= 64) ext_scan_kernel<2><<<grid, block, 0, s>>>(a);
-  else if (W <= 128) ext_scan_kernel<4><<<grid, block, 0, s>>>(a);
-  else ext_scan_kernel<8><<<grid, block, 0, s>>>(a);
+  ext_kernel_for(W)<<<blocks_for(n_sets), WARPS_PER_BLOCK * 32, 0,
+                      static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A launch of `tier` (0 conventional, 1 extended) over n_sets sets of W
+// ways: its blocks, threads a block, and the blocks an SM keeps resident
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int engine_scan_launch_shape(int tier, int W, int n_sets, int* blocks,
+                             int* threads, int* blocks_per_sm) {
+  if (n_sets <= 0 || W <= 0 || W > (tier == 0 ? 32 : 256))
+    return cudaErrorInvalidValue;
+  *blocks = static_cast<int>(blocks_for(n_sets));
+  *threads = WARPS_PER_BLOCK * 32;
+  const void* kernel =
+      tier == 0 ? reinterpret_cast<const void*>(conv_scan_kernel)
+                : reinterpret_cast<const void*>(ext_kernel_for(W));
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, *threads, 0));
 }
 
 }  // extern "C"

@@ -11,16 +11,26 @@ Replaces the Pallas bodies of ``src/repro/kernels/engine_scan.py``:
 Each kernel (``csrc/engine_scan.cu``) gives one warp to one (trace, set)
 and replays that set's L packed slots through the LRU tag store (and, on
 the extended tier, the double-Bloom predictor and the BDI byte budget),
-summing the per-request Stats in in-set order.  Optional state rows in
-and out make the monolithic scan and the epoch-carry scan one code path.
+counting the per-request Stats.  Optional state rows in and out make the
+monolithic scan and the epoch-carry scan one code path.
 
-What bounds it on an H100: each set is a serial chain of L dependent
-steps, so a launch costs about L step latencies (ballots, a warp
-min-reduction, shuffles) rather than its B*S*L*~11 input bytes over
-3.35 TB/s.  The design keeps every step in registers, loads the request
-columns 32 slots at a time with one coalesced load per lane, skips
-padding slots with a ballot, and puts 4 warps in a block so an SM holds
-many independent chains to hide each step's latency.
+What bounds it on an H100: each set is a serial chain of dependent
+steps, and a launch holds B*S of them, so its time follows the
+instructions a step issues and the chains an SM keeps resident, not its
+B*S*L*~11 input bytes over 3.35 TB/s.  The design keeps a step short:
+an extended way is a tag and one packed word whose unsigned order is the
+LRU victim order, so one warp min-reduction names the victim with its
+dirty bit and size; the Bloom filters are spread over the lanes (one
+word of each filter a lane, a chunk's Bloom masks in shared memory), so
+one ballot answers both membership tests; the lookup, the victim and
+the Bloom test are independent reductions issued together; the next 32
+slots of the request columns load while this chunk replays.  Stats are
+counted from a chunk's outcome bitmasks, and the float Stats formed from
+the counts once a set (the same per-request constants the plain version
+sums, equal within rounding).  The kernels take the rows the engine
+makes (lru <= ``LRU_MAX``, sizes of 0, 32, 64 or 128 bytes, a tag valid
+in at most one way of a set).  ``launch_shape`` reports a launch's
+blocks, the blocks an SM keeps resident and the waves.
 
 Each wrapper checks device, dtype, shape and contiguity.  On CUDA tensors
 it launches its kernel (and adds one to ``launches``) or raises; on CPU
@@ -267,6 +277,30 @@ def ext_scan(cfg: MorpheusConfig, tag: torch.Tensor, write: torch.Tensor,
     return ints, flts, out
 
 
+# ---------------------------------------------------------- occupancy
+
+def launch_shape(tier: str, ways: int, n_sets: int,
+                 device: torch.device) -> Dict[str, float]:
+    """The launch of ``conv_scan`` (``tier`` "conv") or ``ext_scan``
+    ("ext") over ``n_sets`` sets of ``ways`` ways on ``device``: its
+    blocks and threads a block, the blocks an SM keeps resident
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), the card's SMs
+    and the waves (blocks over resident blocks of all SMs)."""
+    dev = torch.device(device)
+    _build.require_cuda(dev, "launch_shape")
+    out = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(dev):
+        err = _lib().engine_scan_launch_shape(
+            {"conv": 0, "ext": 1}[tier], ways, n_sets,
+            *[ctypes.byref(x) for x in out])
+    _build.raise_on(err, "engine_scan_launch_shape")
+    blocks, threads, per_sm = (x.value for x in out)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return dict(blocks=blocks, threads=threads,
+                resident_blocks_per_sm=per_sm, sms=sms,
+                waves=blocks / max(per_sm * sms, 1))
+
+
 # ------------------------------------------------------------ binding
 
 @functools.lru_cache(maxsize=None)
@@ -281,4 +315,6 @@ def _lib() -> ctypes.CDLL:
     lib.ext_scan_launch.argtypes = ([p] * 5 + [i] * 7 + [f] + [p] * 9
                                     + [p] * 2 + [p] * 9 + [p])
     lib.ext_scan_launch.restype = i
+    lib.engine_scan_launch_shape.argtypes = [i] * 3 + [p] * 3
+    lib.engine_scan_launch_shape.restype = i
     return lib

@@ -1,6 +1,7 @@
 """Parity of the port's set-parallel engine (``repro_torch.core.engine``)
-with the reference, the epoch-carry contract, the backend switch and the
-import guard."""
+with the reference (among the cases, the widest extended set the
+engine-scan kernel takes and a set forced into four evictions), the
+epoch-carry contract, the backend switch and the import guard."""
 import os
 import subprocess
 import sys
@@ -15,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import torch_parity as tp  # noqa: E402
+from repro.core import address_separation as asep  # noqa: E402
 from repro.core import controller as ctl  # noqa: E402
 from repro.core import engine as j_engine  # noqa: E402
 from repro_torch.core import cache_sim as t_cs  # noqa: E402
@@ -53,6 +55,63 @@ def test_simulate_batch_conv_only_and_empty():
     empty = (np.zeros(0, np.uint32), np.zeros(0, bool), np.zeros(0, np.int32))
     got = t_engine.simulate_parallel(pcfg, *empty, 0, device="cpu")
     assert all(float(x) == 0.0 for x in got)
+
+
+def _wide_cfg(ext_ways, **kw):
+    """(reference, port) configs of the small cache with ``ext_ways``
+    logical extended ways."""
+    amap = asep.make_map(conv_sets=8, num_cache_chips=2, sets_per_chip=4)
+    cfg = ctl.MorpheusConfig(amap=amap, conv_ways=4, ext_ways=ext_ways, **kw)
+    return cfg, tp.port_cfg(cfg)
+
+
+@pytest.mark.parametrize("pred", list(ctl.Predictor))
+def test_256_extended_ways_match_reference(pred):
+    """ext_ways=64 with compression: 256 physical ways, the widest set the
+    engine-scan kernel takes, filled past its budget."""
+    cfg, pcfg = _wide_cfg(64, compression=True, predictor=pred)
+    assert pcfg.ext_max_ways == 256
+    traces = [(*tp.trace(n=6000, span=1 << 14, seed=seed), warm)
+              for seed, warm in ((41, 0), (42, 500))]
+    ref = j_engine.simulate_batch(cfg, traces, backend="jnp")
+    got = t_engine.simulate_batch(pcfg, traces, device="cpu")
+    assert int(ref.ext_true_miss.sum()) > 0 and int(ref.writebacks.sum()) > 0
+    for i in range(len(traces)):
+        tp.assert_stats_equal(ref, got, f"256 ways/{pred.value}/trace{i}", i)
+
+
+def _pressure_trace(n, ext_sets=(8, 9, 10, 11, 12, 13, 14, 15), total=16):
+    """Requests to the extended sets, every tag new, every request a
+    write, every ninth block UNCOMP (128 bytes) and the rest HIGH (32):
+    an 8-way, 256-byte set holds eight HIGH blocks, and the UNCOMP block
+    after them evicts four."""
+    i = np.arange(n)
+    gset = np.asarray(ext_sets)[i % len(ext_sets)]
+    tag = i // len(ext_sets) + 1
+    levels = np.where((i // len(ext_sets)) % 9 == 8, 2, 0).astype(np.int32)
+    return ((tag * total + gset).astype(np.uint32), np.ones(n, bool), levels)
+
+
+def test_four_evictions_match_reference():
+    """One set, eight HIGH dirty blocks then an UNCOMP block: four
+    evictions and four writebacks in the reference and in the port."""
+    cfg, pcfg = _wide_cfg(2, compression=True)
+    assert pcfg.ext_max_ways == 8 and pcfg.ext_budget_bytes == 256
+    traces = [(*_pressure_trace(9, ext_sets=(8,)), 0)]
+    ref = j_engine.simulate_batch(cfg, traces, backend="jnp")
+    got = t_engine.simulate_batch(pcfg, traces, device="cpu")
+    assert int(ref.writebacks[0]) == 4 and int(ref.ext_true_miss[0]) == 9
+    tp.assert_stats_equal(ref, got, "four evictions", 0)
+
+
+@pytest.mark.parametrize("pred", [ctl.Predictor.BLOOM, ctl.Predictor.NONE])
+def test_eviction_pressure_matches_reference(pred):
+    cfg, pcfg = _wide_cfg(2, compression=True, predictor=pred)
+    traces = [(*_pressure_trace(1500), 0), (*_pressure_trace(700), 100)]
+    ref = j_engine.simulate_batch(cfg, traces, backend="jnp")
+    got = t_engine.simulate_batch(pcfg, traces, device="cpu")
+    for i in range(len(traces)):
+        tp.assert_stats_equal(ref, got, f"pressure/{pred.value}/trace{i}", i)
 
 
 def test_simulate_matches_pallas_interpret():

@@ -89,6 +89,11 @@ def test_stats_vectors_round_trip():
                                  "conv_bytes", "dram_bytes")
 
 
+def test_launch_shape_needs_a_card():
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        scan.launch_shape("ext", 128, 5760, torch.device("cpu"))
+
+
 # ---------------------------------------------------- on the card only
 
 @pytest.fixture
@@ -181,6 +186,122 @@ def test_empty_input_launches_nothing(cuda_device):
                                z.bool(), state=rows, keep_state=True)
     assert scan.launches["conv_scan"] == 0
     assert not i.any() and not f.any() and torch.equal(out.lru, rows.lru)
+
+
+def _columns(seed, b, s, length, span):
+    """Random packed (B, S, L) request columns (tag, write, level,
+    active, mask) in the dense layout ``engine.pack`` makes (an active
+    prefix of each set's row), except that set 0 of each trace has no
+    active slot and set 1 has active slots in its last 32-slot chunk
+    only."""
+    rng = np.random.default_rng(seed)
+    shape = (b, s, length)
+    n = rng.integers(1, length + 1, size=(b, s))
+    active = np.arange(length)[None, None, :] < n[..., None]
+    active[:, 0] = False
+    last = (length - 1) // 32 * 32
+    active[:, 1] = False
+    active[:, 1, last + int(rng.integers(0, length - last)):] = True
+    tag = rng.integers(0, span, size=shape).astype(np.uint32).view(np.int32)
+    cols = (tag, rng.random(shape) < 0.3,
+            rng.integers(0, 3, size=shape).astype(np.int32), active,
+            active & (rng.random(shape) < 0.8))
+    return tuple(torch.from_numpy(np.ascontiguousarray(c)) for c in cols)
+
+
+def _scan_matches_plain(cfg, tier, cols, dev, ctx):
+    """The ``tier`` ("conv" or "ext") kernel against its plain version on
+    ``cols``: cold with and without the final rows, then carrying the
+    plain version's final rows in, with and without rows out."""
+    cols = [c.to(dev) for c in cols]
+    if tier == "conv":
+        kernel, plain = scan.conv_scan, scan.conv_scan_plain
+        args = (cfg, cols[0], cols[1], cols[3], cols[4])
+    else:
+        kernel, plain = scan.ext_scan, scan.ext_scan_plain
+        args = (cfg, *cols)
+    scan.reset_launches()
+    for keep in (False, True):
+        _close(kernel(*args, keep_state=keep), plain(*args, keep_state=keep),
+               f"{ctx} cold keep={keep}")
+    rows = plain(*args, keep_state=True)[2]
+    for keep in (False, True):
+        _close(kernel(*args, state=rows, keep_state=keep),
+               plain(*args, state=rows, keep_state=keep),
+               f"{ctx} state keep={keep}")
+    assert scan.launches[f"{tier}_scan"] == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ways", [1, 31, 32])
+def test_conv_kernel_at_way_boundaries(cuda_device, ways):
+    """1, 31 and 32 conventional ways over 3 x 13 sets (not a multiple of
+    a block's 4 sets), with empty sets and last-chunk-only sets."""
+    cfg = _cfg(ways=ways)
+    cols = _columns(ways, 3, 13, 200, span=2 * ways + 3)
+    _scan_matches_plain(cfg, "conv", cols, cuda_device, f"conv {ways} ways")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ext_ways,comp,pred", [
+    (32, False, ctl.Predictor.BLOOM),       # 32 ways: one a lane
+    (33, False, ctl.Predictor.PERFECT),     # 33: two a lane, one present
+    (16, True, ctl.Predictor.BLOOM),        # 64
+    (65, False, ctl.Predictor.NONE),        # 65: four a lane
+    (32, True, ctl.Predictor.BLOOM),        # 128
+    (129, False, ctl.Predictor.PERFECT),    # 129: eight a lane
+    (64, True, ctl.Predictor.BLOOM)],       # 256, the widest set
+    ids=["32", "33", "64", "65", "128", "129", "256"])
+def test_ext_kernel_at_way_boundaries(cuda_device, ext_ways, comp, pred):
+    cfg = ctl.MorpheusConfig(amap=_cfg().amap, conv_ways=4, ext_ways=ext_ways,
+                             compression=comp, predictor=pred)
+    ways = cfg.ext_max_ways
+    cols = _columns(ways, 2, 15, 300, span=2 * ways + 5)
+    _scan_matches_plain(cfg, "ext", cols, cuda_device, f"ext {ways} ways")
+
+
+@pytest.mark.gpu
+def test_scan_kernels_at_length_1024(cuda_device):
+    """L = 1024, the conventional length of the BL configuration."""
+    cfg = _cfg(ways=32, compression=True)
+    cols = _columns(1024, 2, 9, 1024, span=96)
+    _scan_matches_plain(cfg, "conv", cols, cuda_device, "conv L=1024")
+    _scan_matches_plain(cfg, "ext", cols, cuda_device, "ext L=1024")
+
+
+@pytest.mark.gpu
+def test_ext_kernel_four_evictions(cuda_device):
+    """Compression with an 8-way, 256-byte set: eight HIGH (32-byte) dirty
+    blocks fill it, and the UNCOMP (128-byte) block after them evicts
+    four; then a stream where every ninth block is UNCOMP."""
+    cfg = _cfg(ways=2, compression=True)
+    b, s, length = 2, 15, 72
+    pos = np.arange(length)
+    tag = np.broadcast_to(pos + 1000 * np.arange(s)[:, None], (b, s, length))
+    level = np.broadcast_to(np.where(pos % 9 == 8, 2, 0), (b, s, length))
+    ones = np.ones((b, s, length), bool)
+    cols = [torch.from_numpy(np.ascontiguousarray(c)).to(cuda_device) for c in
+            (tag.astype(np.int32), ones, level.astype(np.int32), ones)]
+    ninth = torch.from_numpy(np.broadcast_to(pos == 8, (b, s, length)).copy())
+    args = (cfg, *cols, ninth.to(cuda_device))
+    kernel, plain = scan.ext_scan(*args), scan.ext_scan_plain(*args)
+    _close(kernel, plain, "ext four evictions")
+    wb = scan.INT_FIELDS.index("writebacks")
+    assert bool((plain[0][..., wb] == 4).all())
+    every = torch.from_numpy(ones)
+    _scan_matches_plain(cfg, "ext", [c.cpu() for c in cols] + [every],
+                        cuda_device, "ext evictions")
+
+
+@pytest.mark.gpu
+def test_launch_shape_reports_the_launch(cuda_device):
+    for tier, ways, n_sets in (("conv", 32, 2560), ("ext", 128, 5761)):
+        shape = scan.launch_shape(tier, ways, n_sets, cuda_device)
+        assert shape["blocks"] == -(-n_sets // (shape["threads"] // 32))
+        assert shape["resident_blocks_per_sm"] >= 1
+        assert shape["waves"] == pytest.approx(
+            shape["blocks"] / (shape["resident_blocks_per_sm"]
+                               * shape["sms"]))
 
 
 # ------------------------------------------- pool kernels, on the card only
