@@ -17,10 +17,13 @@ Phases (one line each; any failure exits non-zero and prints no result):
      conventional-only config (BL); each engine-scan kernel against its
      plain PyTorch version on the same tensors (integer Stats and state
      rows identical, float sums within 1e-3 relative), and a 4-epoch
-     ``advance_packed`` partition identical to one run; at the path's
-     shape each kernel's time, its launch (blocks, blocks resident on an
-     SM, waves), the longest set's active slots and ns a request slot,
-     beside the times before the Hopper redesign, quoted from PERF.md;
+     ``advance_packed`` partition identical to one run; state rows
+     outside the kernels' row contract (lru above 0xFFF, an extended size
+     of 48 bytes, a tag valid in two ways) raise ``ValueError``; at the
+     path's shape each kernel's time, its launch (blocks, blocks resident
+     on an SM, waves), the longest set's active slots and ns a request
+     slot, beside the times before the Hopper redesign, quoted from
+     PERF.md;
   3. golden: integer Stats of three full-width cells against the JAX
      reference's values in ``tests/data/torch_golden_stats.json``;
   4. main path of the simulator: ``policy.table3`` for IBL /
@@ -31,11 +34,14 @@ Phases (one line each; any failure exits non-zero and prints no result):
      dispatch by CUDA events, and the scan kernels' own device time from
      a profiled pass);
   5. pool kernels vs plain at large shapes: ``tag_lookup`` on (51200, 8)
-     and (51200, 32), ``bloom_query`` on 4096 queries, ``bdi_compress`` of
-     65 536 blocks of every level and the decompress round trip, and the
-     block read (plain and fused with decompression) of 4096 rows of
-     (4096, 32, 32), each equal to its plain version (tolerance 0), with
-     times, and the floor of a launch (a one-element ``add_``);
+     and (51200, 32), ``bloom_query`` on 4096 queries (pre-gathered, and
+     by row of a (51200, 8) store), ``bloom_record`` of 4096 keys over
+     51 200 sets with repeats, ``bdi_compress`` of 65 536 blocks of every
+     level and the decompress round trip, the block read (plain and fused
+     with decompression) of 4096 rows of (4096, 32, 32), and ``read_rows``
+     of 4096 rows of both tiers from phase 8's stores, each equal to its
+     plain version (tolerance 0), with times and bounds, and the floor of
+     a launch (a one-element ``add_``);
   6. golden pool: the serving pool on the card replays the three cells
      of ``tests/data/torch_golden_pool.json``; stats and crcs of plans,
      pages read and final state equal the reference's;
@@ -46,14 +52,17 @@ Phases (one line each; any failure exits non-zero and prints no result):
      share Zipf-popular system prompts and continue earlier
      conversations; a fetch installs the prefix's blake2b digest, every
      hit must read back what was installed; the working set exceeds the
-     pool, so pages are evicted; launches, keys per second, hit rate,
-     evictions, and a profiled window of host against device time;
+     pool, so pages are evicted; launches by wrapper (one predictor query
+     and one Bloom record an extended lookup, one block read a hit, or
+     the phase fails), keys per second, hit rate, evictions, and a
+     profiled window of host against device time;
   8. full-scale pool: 51 200 conventional sets (50 MiB of 128-byte
      blocks) and 4 x 12 800 extended sets of 4 x 8 BDI slots under a
      batched synthetic mix (128 rounds of 512 keys from 32 sequences x 36
      layers x 16 pages, payloads of every BDI level), with the same
-     checks; it evicts nothing and stands for no user's traffic: it runs
-     the kernels at the full store's shapes with the state on the card;
+     checks (at most two Bloom launches and one block read a round); it
+     evicts nothing and stands for no user's traffic: it runs the kernels
+     at the full store's shapes with the state on the card;
   9. every pool-kernel call of phases 7 and 8, one per input shape,
      replayed against its plain version (tolerance 0), and the most
      frequent and the largest shape of each timed with its bound;
@@ -283,6 +292,7 @@ def phase_kernels(env: Env, dev) -> dict:
         p = scan.conv_scan_plain(*conv_args, keep_state=True)
         err["conv_scan"] = max(err["conv_scan"],
                                compare(k, p, f"conv_scan {name}"))
+        rows = {"conv": k[2]}
         ext_args = None
         if cfg.ext_enabled:
             emask = pt.ext_active & (pt.ext_pos >= warm)
@@ -292,6 +302,7 @@ def phase_kernels(env: Env, dev) -> dict:
             p = scan.ext_scan_plain(*ext_args, keep_state=True)
             err["ext_scan"] = max(err["ext_scan"],
                                   compare(k, p, f"ext_scan {name}"))
+            rows["ext"] = k[2]
         if name == "bloom/comp=1":     # the Morpheus-ALL shape of the path
             b_s_c = pt.conv_tag.shape[0] * pt.conv_tag.shape[1]
             b_s_e = pt.ext_tag.shape[0] * pt.ext_tag.shape[1]
@@ -316,6 +327,7 @@ def phase_kernels(env: Env, dev) -> dict:
                     ways=ways, longest_active=longest,
                     ns_per_slot=t["ms"] * 1e6 / longest)
             epoch_check(env, cfg, traces, dev)
+            contract_check(env, conv_args, ext_args, rows)
         log(f"phase 2: {name}: kernels == plain (L conv "
             f"{pt.conv_tag.shape[2]}, ext {pt.ext_tag.shape[2]})")
     log("phase 2: at the path's shape (bloom/comp=1): " + "; ".join(
@@ -350,6 +362,38 @@ def epoch_check(env: Env, cfg, traces, dev) -> None:
     if int(state.pos.min()) != LENGTH:
         fail("epoch partition: position does not reach the trace end")
     log("phase 2: 4-epoch advance_packed partition == one run")
+
+
+def contract_check(env: Env, conv_args, ext_args, rows: dict) -> None:
+    """The kernels' own final rows pass as state-in; one row outside the
+    row contract of each kind makes the wrapper raise ``ValueError``
+    before a launch."""
+    scan = env.scan
+    calls = {"conv": lambda st: scan.conv_scan(*conv_args, state=st),
+             "ext": lambda st: scan.ext_scan(*ext_args, state=st)}
+    for tier, call in calls.items():
+        call(rows[tier])
+    bad = (("conv", "lru", 0x1000), ("ext", "lru", 0x1000),
+           ("ext", "size", 48), ("ext", "tags", None))
+    for tier, field, value in bad:
+        st = type(rows[tier])(*[x.clone() for x in rows[tier]])
+        w = int(st.valid[3, 5].to(torch.int32).argmax())
+        if field == "tags":
+            other = (w + 1) % st.tags.shape[-1]
+            st.tags[3, 5, other] = st.tags[3, 5, w]
+            st.valid[3, 5, other] = True
+        else:
+            getattr(st, field)[3, 5, w] = value
+        scan.reset_launches()
+        try:
+            calls[tier](st)
+        except ValueError:
+            if scan.launches[f"{tier}_scan"]:
+                fail(f"row contract: {tier} {field} launched before raising")
+            continue
+        fail(f"row contract: {tier}_scan took a state row with bad {field}")
+    log("phase 2: the kernels' own rows pass the row contract; a bad lru "
+        "(conv, ext), size or duplicated tag (ext) raises ValueError")
 
 
 def phase_golden(env: Env, dev) -> None:
@@ -476,10 +520,12 @@ POOL_SERVING = dict(conv_sets=51200, ext_sets_per_chip=12800,
                     predictor="bloom")
 ROUNDS, ROUND_KEYS = 128, 512
 PROFILED_ROUNDS = 4
-POOL_WRAPPERS = ("tag_lookup", "bloom_query", "bdi_compress",
-                 "gather_blocks", "cached_block_read")
+# the wrappers the serving pool calls, and their kernels
+POOL_WRAPPERS = ("tag_lookup", "bloom_query", "bloom_record", "bdi_compress",
+                 "read_rows")
 POOL_KERNELS = ("tag_lookup_kernel", "bloom_query_kernel",
-                "bdi_compress_kernel", "block_read_kernel")
+                "bloom_record_kernel", "bdi_compress_kernel",
+                "block_read_kernel")
 
 
 def pool_payload(keys: np.ndarray, words: int = 32) -> np.ndarray:
@@ -514,25 +560,42 @@ def bytes_bound(n_bytes: float, n_ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def pool_bound(name: str, shapes) -> tuple:
-    """``bytes_bound`` of one call of pool wrapper ``name`` on inputs of
-    ``shapes``: each input read once and each output written once (the
-    block reads count only the selected row of each set, the Bloom query
-    one filter row and one mask row a query), against about 4 operations
-    a way, 6 a hash or segment and 1-2 a word read."""
+def pool_bound(name: str, args) -> tuple:
+    """``bytes_bound`` of one call of pool wrapper ``name`` on ``args``:
+    each input read once and each output written once (the block reads
+    count only the rows they select, by this call's rows; the Bloom query
+    one filter row and one mask row a query; the record the filter rows
+    and counts of the sets this batch touches, read and written), against
+    about 4 operations a way, 6 a hash or segment and 1-2 a word read."""
     if name == "tag_lookup":
-        s, w = shapes[0]
+        s, w = args[0].shape
         return bytes_bound(s * w * (4 + 1 + 4 + 4) + s * 12, 4 * s * w)
-    if name == "bloom_query":
-        q, words = shapes[0]
-        return bytes_bound(q * (words * 8 + 8), q * 3 * 6)
+    if name == "bloom_query":                  # (+ 4 B a row index)
+        q, words = args[1].shape[0], args[0].shape[1]
+        return bytes_bound(q * (words * 8 + 8 + 4 * (len(args) > 2)),
+                           q * 3 * 6)
+    if name == "bloom_record":
+        bf1, _, _, sets, _, _ = args
+        k, words, runs = len(sets), bf1.shape[1], len(np.unique(sets))
+        return bytes_bound(k * 4 + (2 * runs + 1) * 4
+                           + runs * (2 * 2 * words * 4 + 2 * 4),
+                           k * (3 * 6 + 6 * words))
     if name == "bdi_compress":
-        n = shapes[0][0]
+        n = args[0].shape[0]
         return bytes_bound(n * (128 + 136), n * 32 * 6)
     if name == "bdi_decompress":               # level, base, payload
-        n, words = shapes[2]
+        n, words = args[2].shape
         return bytes_bound(n * (8 + 8 * words), n * words * 2)
-    s, _, words = shapes[0]
+    if name == "read_rows":
+        conv, ext, _, _, tier, set_idx, way = args
+        n, words = tier.shape[0], conv.shape[2]
+        read = 0                                # rows, + level/base on ext
+        for t, store in enumerate((conv, ext)):
+            ok = ((tier == t) & (set_idx >= 0) & (set_idx < store.shape[0])
+                  & (way >= 0) & (way < store.shape[1]))
+            read += int(ok.sum()) * (4 * words + 8 * t)
+        return bytes_bound(n * (12 + 4 * words) + read, n * words * 2)
+    s, _, words = args[0].shape
     if name == "gather_blocks":
         return bytes_bound(s * (4 + 8 * words), s * words)
     return bytes_bound(s * (12 + 8 * words), s * words * 2)
@@ -582,7 +645,7 @@ def phase_pool_kernels(env: Env, dev) -> dict:
                 err=err, shape=[s, w],
                 **times(lambda: kp.tag_lookup(*args),
                         lambda: kp.tag_lookup_plain(*args), 50, 5),
-                bound=pool_bound("tag_lookup", [args[0].shape]))
+                bound=pool_bound("tag_lookup", args))
     # bloom query, 4096 queries of 8-word filters, half of them members
     q, words = 4096, 8
     filters = u32(rng, (q, words), dev) & u32(rng, (q, words), dev)
@@ -594,7 +657,7 @@ def phase_pool_kernels(env: Env, dev) -> dict:
         err=err, shape=[q, words],
         **times(lambda: kp.bloom_query(filters, tags),
                 lambda: kp.bloom_query_plain(filters, tags), 50, 5),
-        bound=pool_bound("bloom_query", [filters.shape]))
+        bound=pool_bound("bloom_query", (filters, tags)))
     # BDI: 65 536 blocks of every level, and the round trip
     n = 65536
     blocks = bdi_blocks(rng, n, dev)
@@ -610,12 +673,12 @@ def phase_pool_kernels(env: Env, dev) -> dict:
         err=err, shape=[n, 32],
         **times(lambda: kp.bdi_compress(blocks),
                 lambda: kp.bdi_compress_plain(blocks), 50, 5),
-        bound=pool_bound("bdi_compress", [blocks.shape]))
+        bound=pool_bound("bdi_compress", (blocks,)))
     out["bdi_decompress"] = dict(
         err=err_d, shape=[n, 32],
         **times(lambda: kp.bdi_decompress(*comp),
                 lambda: kp.bdi_decompress_plain(*comp), 50, 5),
-        bound=pool_bound("bdi_decompress", [c.shape for c in comp]))
+        bound=pool_bound("bdi_decompress", comp))
     # block read: 4096 rows of (4096, 32, 32), plain and fused
     s, w = 4096, 32
     data = u32(rng, (s, w, 32), dev)
@@ -635,11 +698,45 @@ def phase_pool_kernels(env: Env, dev) -> dict:
         **times(lambda: kp.gather_blocks(data, way),
                 lambda: kp.gather_blocks_plain(data, way), 50, 5,
                 library=lambda: data[rows, way]),
-        bound=pool_bound("gather_blocks", [data.shape]),
+        bound=pool_bound("gather_blocks", (data, way)),
         fused_ms=device_ms(lambda: kp.cached_block_read(*fargs), 50),
         fused_plain_ms=device_ms(
             lambda: kp.cached_block_read_plain(*fargs), 5),
-        fused_bound=pool_bound("cached_block_read", [data.shape]))
+        fused_bound=pool_bound("cached_block_read", fargs))
+    # the predictor's query by row of the full-scale pool's (51200, 8)
+    # filter store, half of the queries members
+    n_sets = POOL_SERVING["ext_sets_per_chip"] * POOL_SERVING[
+        "num_cache_chips"]
+    store = u32(rng, (n_sets, words), dev) & u32(rng, (n_sets, words), dev)
+    rows = torch.from_numpy(rng.integers(0, n_sets, size=q).astype(np.int32)
+                            ).to(dev)
+    store[rows[::2].long()] |= kp.bloom_query_plain(store, tags, rows)[1][::2]
+    qargs = (store, tags, rows)
+    out["bloom_query_rows"] = dict(
+        err=exact(kp.bloom_query(*qargs), kp.bloom_query_plain(*qargs),
+                  "bloom_query by row"), shape=[n_sets, words, q],
+        **times(lambda: kp.bloom_query(*qargs),
+                lambda: kp.bloom_query_plain(*qargs), 50, 5),
+        bound=pool_bound("bloom_query", qargs))
+    # a batch's Bloom records: 4096 keys over the same 51 200 sets, one
+    # set taking 256 of them, a fifth of the tags repeated
+    rec = record_args(rng, n_sets, 4096, words, POOL_SERVING["ways"], dev)
+    out["bloom_record"] = dict(
+        err=record_exact(env, rec, "bloom_record"),
+        shape=[n_sets, words, 4096], **record_times(env, rec, 50, 1),
+        bound=pool_bound("bloom_record", rec))
+    # read_rows: 4096 rows of both tiers and tier 2 from phase 8's stores
+    # (52 MB conventional, 210 MB extended: past the 50 MB L2)
+    rargs = read_args(rng, 4096, dev)
+    conv_rows = [c[rargs[4] == 0].long() for c in rargs[5:]]
+    out["read_rows"] = dict(
+        err=exact(kp.read_rows(*rargs), kp.read_rows_plain(*rargs),
+                  "read_rows"), shape=[list(a.shape) for a in rargs[:2]],
+        **times(lambda: kp.read_rows(*rargs),
+                lambda: kp.read_rows_plain(*rargs), 50, 5,
+                library=lambda: rargs[0][conv_rows[0], conv_rows[1]]),
+        bound=pool_bound("read_rows", rargs))
+    del rargs, conv_rows
     log("phase 5: pool kernels == plain (tolerance 0): " + ", ".join(
         f"{k} {v['shape']} {v['ms']:.5f} ms on the card, {v['call_ms']:.4f} "
         f"ms a call (plain {v['plain_ms']:.4f} ms, bound "
@@ -652,6 +749,77 @@ def phase_pool_kernels(env: Env, dev) -> dict:
     log(f"phase 5: launch floor (one-element add_): "
         f"{out['launch_floor_ms']:.5f} ms on the card")
     return out
+
+
+def record_args(rng, n_sets: int, k: int, words: int, ways: int, dev):
+    """``bloom_record``'s arguments: filters and MRU counts of ``n_sets``
+    sets on the card, ``k`` keys with one set taking every 16th and a
+    fifth of the tags repeated."""
+    sets = rng.integers(0, n_sets, size=k)
+    sets[::16] = sets[0]
+    tags = rng.integers(0, 1 << 32, size=k, dtype=np.uint64).astype(np.uint32)
+    tags[3::5] = tags[rng.integers(0, 3, size=len(tags[3::5]))]
+    n_mru = torch.from_numpy(rng.integers(0, ways, size=n_sets).astype(
+        np.int32)).to(dev)
+    return (u32(rng, (n_sets, words), dev) & u32(rng, (n_sets, words), dev),
+            u32(rng, (n_sets, words), dev) & u32(rng, (n_sets, words), dev),
+            n_mru, sets, tags, ways)
+
+
+def copy_arg(a):
+    return a.clone() if isinstance(a, torch.Tensor) else (
+        a.copy() if isinstance(a, np.ndarray) else a)
+
+
+def record_exact(env: Env, args, ctx: str) -> int:
+    """``bloom_record`` and its plain version on two copies of ``args``:
+    the filters and counts they leave must be identical."""
+    kp = env.pool
+    a, b = [tuple(copy_arg(x) for x in args) for _ in range(2)]
+    kp.bloom_record(*a)
+    kp.bloom_record_plain(*b)
+    return exact(a[:3], b[:3], ctx)
+
+
+def record_times(env: Env, args, reps: int, plain_reps: int) -> dict:
+    """``times`` of ``bloom_record`` on a copy of ``args`` (it works in
+    place): the kernel's device ms by graph replay of its launch on a plan
+    copied to the card beforehand (a graph cannot capture the wrapper's
+    copy from the host), the wrapper's ms a call back to back (host plan
+    and copy included), and the plain version's ms back to back."""
+    kp, b = env.pool, env.build
+    bf1, bf2, n_mru, sets, tags, ways = [copy_arg(x) for x in args]
+    plan, runs = kp.record_plan(np.asarray(sets, np.int64),
+                                np.asarray(tags, np.uint32))
+    plan = torch.from_numpy(plan).to(bf1.device)
+
+    def launch():
+        b.raise_on(kp._lib().bloom_record_launch(
+            b.ptr(bf1), b.ptr(bf2), b.ptr(n_mru), b.ptr(plan), runs,
+            bf1.shape[1], ways, b.stream(bf1.device)), "bloom_record")
+    call = (bf1, bf2, n_mru, sets, tags, ways)
+    return dict(ms=device_ms(launch, reps),
+                call_ms=timed_cuda(lambda: kp.bloom_record(*call), reps),
+                plain_ms=timed_cuda(lambda: kp.bloom_record_plain(*call),
+                                    plain_reps),
+                library_ms=None)
+
+
+def read_args(rng, n: int, dev):
+    """``read_rows``' arguments on phase 8's stores: ``n`` rows a third of
+    each tier, ways within their store."""
+    sets, conv_ways = POOL_SERVING["conv_sets"], POOL_SERVING["ways"]
+    ext_ways = 4 * conv_ways
+    tier = rng.integers(0, 3, size=n)
+    way = np.where(tier == 0, rng.integers(0, conv_ways, size=n),
+                   rng.integers(0, ext_ways, size=n))
+    cols = [torch.from_numpy(c.astype(np.int32)).to(dev)
+            for c in (tier, rng.integers(0, sets, size=n), way)]
+    level = torch.from_numpy(rng.integers(0, 3, size=(sets, ext_ways))
+                             .astype(np.int32)).to(dev)
+    return (u32(rng, (sets, conv_ways, 32), dev),
+            u32(rng, (sets, ext_ways, 32), dev), level,
+            u32(rng, (sets, ext_ways), dev), *cols)
 
 
 def replay_golden_cell(env: Env, cell: dict, dev) -> dict:
@@ -692,10 +860,11 @@ def phase_golden_pool(env: Env, dev) -> None:
 class PathCalls:
     """While entered, wraps the pool wrappers under the names the serving
     pool calls them by (``kernels.ops``): counts each call by its input
-    shapes (and keyword arguments) and keeps a copy of the inputs of the
-    first call of each, so the calls the path made can be replayed against
-    the plain versions afterwards.  The wrappers still count their own
-    launches."""
+    shapes (the values of arguments that have none, and keyword
+    arguments) and keeps a copy of the inputs of the first call of each
+    (before a wrapper that works in place changes them), so the calls the
+    path made can be replayed against the plain versions afterwards.  The
+    wrappers still count their own launches."""
 
     def __init__(self, ops, names=POOL_WRAPPERS):
         self.ops, self.names = ops, names
@@ -714,10 +883,11 @@ class PathCalls:
 
     def _wrap(self, name, fn):
         def call(*args, **kwargs):
-            key = (name, tuple(tuple(a.shape) for a in args),
+            key = (name, tuple(tuple(a.shape) if hasattr(a, "shape") else a
+                               for a in args),
                    tuple(sorted(kwargs.items())))
             if key not in self.calls:
-                self.inputs[key] = tuple(a.clone() for a in args)
+                self.inputs[key] = tuple(copy_arg(a) for a in args)
                 self.calls[key] = 0
             self.calls[key] += 1
             return fn(*args, **kwargs)
@@ -866,6 +1036,15 @@ def phase_engine_serving(env: Env, dev) -> dict:
     if stats.lookups != lookups:
         fail(f"engine serving path: {stats.lookups} lookups, expected "
              f"{lookups}")
+    # one predictor query and one Bloom record an extended lookup, one
+    # block read a hit (each read_pages call)
+    ext_lookups = stats.ext_hits + stats.ext_false_pos + stats.ext_pred_miss
+    hits = stats.conv_hits + stats.ext_hits
+    want = {"bloom_query": ext_lookups, "bloom_record": ext_lookups,
+            "read_rows": hits}
+    got = {k: run["launches"][k] for k in want}
+    if got != want:
+        fail(f"engine serving path: launches {got}, expected {want}")
     window = profiled_window(lambda: [
         serve_request(pool, kv.page_key, p, installed, "profiled request")
         for p in prompts[ENGINE_REQUESTS:]])
@@ -874,8 +1053,11 @@ def phase_engine_serving(env: Env, dev) -> dict:
         f"{lookups} page lookups one key a call, {distinct} distinct "
         f"pages against {cap} slots, in {run['wall_s']:.3f} s "
         f"({keys_s:.1f} keys/s); hit rate {hit_rate:.4f} ({stats}); "
-        f"events {json.dumps(events)}; launches {json.dumps(run['launches'])}"
-        f", plain runs 0; "
+        f"events {json.dumps(events)}; launches by wrapper "
+        f"{json.dumps(run['launches'])}, plain runs 0; Bloom launches "
+        f"{got['bloom_query'] + got['bloom_record']} (a query and a record "
+        f"each) for {ext_lookups} extended lookups, block reads "
+        f"{got['read_rows']} for {hits} hits; "
         + window_text(window, f"{ENGINE_PROFILED} more prompts"))
     return dict(run, keys_per_s=keys_s, lookups=lookups,
                 distinct=distinct, slots=cap,
@@ -925,66 +1107,85 @@ def phase_full_scale(env: Env, dev) -> dict:
     stats, hit_rate = pool.stats, pool.hit_rate()
     if not (stats.conv_hits and stats.ext_hits):
         fail(f"full-scale pool: a tier never hit ({stats})")
+    n = run["launches"]
+    bloom = n["bloom_query"] + n["bloom_record"]
+    if bloom > 2 * ROUNDS or n["read_rows"] > ROUNDS:
+        fail(f"full-scale pool: {bloom} Bloom launches (at most "
+             f"{2 * ROUNDS}) and {n['read_rows']} block reads (at most "
+             f"{ROUNDS}) in {ROUNDS} rounds")
     window = profiled_window(lambda: [
         serve_round(pool, keys, pages, index, "profiled round")
         for keys in traffic[ROUNDS:]])
     keys_s = ROUNDS * ROUND_KEYS / run["wall_s"]
     log(f"phase 8: full-scale pool, batched mix: {ROUNDS} x {ROUND_KEYS} "
         f"keys in {run['wall_s']:.3f} s ({keys_s:.1f} keys/s), hit rate "
-        f"{hit_rate:.4f} ({stats}); launches "
-        f"{json.dumps(run['launches'])}, plain runs 0; "
+        f"{hit_rate:.4f} ({stats}); launches by wrapper "
+        f"{json.dumps(run['launches'])}, plain runs 0; Bloom launches "
+        f"{bloom}, block reads {n['read_rows']}; "
         + window_text(window, f"{PROFILED_ROUNDS} more rounds"))
     return dict(run, keys_per_s=keys_s, hit_rate=hit_rate,
                 stats=stats._asdict(), window=window)
 
 
-def replay_path(env: Env, cell: str, calls: PathCalls, dev) -> dict:
+def call_rows(name: str, args) -> int:
+    """The rows (queries, keys, blocks, sets) of one pool-wrapper call."""
+    i = {"bloom_query": 1, "bloom_record": 3, "read_rows": 4}.get(name, 0)
+    return args[i].shape[0]
+
+
+def replay_path(env: Env, cell: str, calls: PathCalls) -> dict:
     """Replay every (wrapper, shapes) call a serving cell made against the
     plain version on the same inputs (tolerance 0), and time the most
     frequent and the largest shape of each wrapper."""
     kp = env.pool
     out = {}
     for (name, shapes, _), args in calls.inputs.items():
-        if not args[0].numel():
+        if not call_rows(name, args):
             continue
-        err = exact(getattr(kp, name)(*args),
-                    getattr(kp, name + "_plain")(*args),
-                    f"{cell}: {name} {shapes}")
+        ctx = f"{cell}: {name} {shapes}"
+        if name == "bloom_record":
+            err = record_exact(env, args, ctx)
+        else:
+            err = exact(getattr(kp, name)(*args),
+                        getattr(kp, name + "_plain")(*args), ctx)
         row = out.setdefault(name, {"err": 0, "shapes": 0, "timed": []})
         row["err"] = max(row["err"], err)
         row["shapes"] += 1
     for name, row in out.items():
         keys = [k for k in calls.inputs if k[0] == name
-                and calls.inputs[k][0].numel()]
+                and call_rows(name, calls.inputs[k])]
         top = max(keys, key=lambda k: calls.calls[k])
-        big = max(keys, key=lambda k: calls.inputs[k][0].numel())
+        big = max(keys, key=lambda k: call_rows(name, calls.inputs[k]))
         for key in dict.fromkeys((top, big)):
             args = calls.inputs[key]
             kernel = getattr(kp, name)
             plain = getattr(kp, name + "_plain")
             library = None
-            if name == "gather_blocks":
-                rows = torch.arange(args[0].shape[0], device=dev)
-                library = (lambda a=args, r=rows: a[0][r, a[1]])
-            t = times(lambda a=args: kernel(*a), lambda a=args: plain(*a),
-                      50, 5, library=library)
+            if name == "read_rows" and bool((args[4] == 0).any()):
+                # the conventional rows' gather, where the call has some
+                conv = [c[args[4] == 0].long() for c in args[5:]]
+                library = (lambda a=args, c=conv: a[0][c[0], c[1]])
+            t = (record_times(env, args, 50, 5) if name == "bloom_record"
+                 else times(lambda a=args: kernel(*a),
+                            lambda a=args: plain(*a), 50, 5,
+                            library=library))
             row["timed"].append(dict(
-                cell=cell, shape=[list(s) for s in key[1]],
-                launches=calls.calls[key], **t,
-                bound=pool_bound(name, key[1])))
+                cell=cell, shape=[list(s) if isinstance(s, tuple) else s
+                                  for s in key[1]],
+                rows=call_rows(name, args), launches=calls.calls[key], **t,
+                bound=pool_bound(name, args)))
     return out
 
 
-def phase_path_shapes(env: Env, dev, cells: dict) -> dict:
+def phase_path_shapes(env: Env, cells: dict) -> dict:
     """Phase 9: each pool kernel against its plain version at the shapes
     the serving cells gave it."""
-    out = {c: replay_path(env, c, run["calls"], dev)
-           for c, run in cells.items()}
+    out = {c: replay_path(env, c, run["calls"]) for c, run in cells.items()}
     log("phase 9: pool kernels == plain at the serving path's shapes "
         "(tolerance 0): " + "; ".join(
             f"{c}: " + ", ".join(
                 f"{name} {row['shapes']} shapes" + "".join(
-                    f" [{t['shape'][0]} x{t['launches']}: {t['ms']:.5f} ms "
+                    f" [{t['rows']} rows x{t['launches']}: {t['ms']:.5f} ms "
                     f"on the card, plain {t['plain_ms']:.5f} ms, bound "
                     f"{t['bound'][0]:.3g} ms]" for t in row["timed"])
                 for name, row in rows.items())
@@ -1522,36 +1723,51 @@ def attention_kernel_rows(ak: dict, serving: dict, path: dict,
 def pool_kernel_rows(pk: dict, cells: dict, paths: dict) -> list:
     """The pool kernels' entries of the kernels line: launches and times
     at the shape the engine-traffic cell (the main path) launched most,
-    the other shapes timed on the path, and the large shapes of phase 5."""
+    the other shapes timed on the path, and the large shapes of phase 5
+    (``large``, and for the indexed query and the two-tier read
+    ``large_by_row``)."""
     src = "src/repro_torch/kernels/csrc/pool.cu"
-    rows = {  # name: (replaces, kernel, wrappers on the path)
+    rows = {  # name: (replaces, kernel, wrappers, the phase-5 entries)
         "tag_lookup": ("src/repro/kernels/tag_lookup.py:26",
-                       "tag_lookup_kernel", ("tag_lookup",)),
+                       "tag_lookup_kernel", ("tag_lookup",), ()),
         "bloom_query": ("src/repro/kernels/bloom_query.py:33",
-                        "bloom_query_kernel", ("bloom_query",)),
+                        "bloom_query_kernel", ("bloom_query",),
+                        ("bloom_query_rows",)),
+        "bloom_record": ("src/repro/kernels/bloom_query.py:33",
+                         "bloom_record_kernel", ("bloom_record",), ()),
         "bdi_compress": ("src/repro/kernels/bdi.py:28",
-                         "bdi_compress_kernel", ("bdi_compress",)),
+                         "bdi_compress_kernel", ("bdi_compress",), ()),
         "bdi_decompress": ("src/repro/kernels/bdi.py:45",
                            "block_read_kernel",
-                           ("cached_block_read", "bdi_decompress")),
+                           ("read_rows", "bdi_decompress"), ("read_rows",)),
         "gather_blocks": ("src/repro/kernels/gather_blocks.py:26",
                           "block_read_kernel",
-                          ("gather_blocks", "cached_block_read")),
+                          ("read_rows", "gather_blocks", "cached_block_read"),
+                          ("read_rows",)),
     }
-    notes = {"bdi_decompress": "on the serving path the decompression runs "
-             "fused into cached_block_read's block read; the path's numbers "
-             "are cached_block_read's",
-             "gather_blocks": "cached_block_read (gather + decompress) is "
-             "the same kernel with level/base"}
+    notes = {"bloom_record": "the reference pool's per-key _bloom_record "
+             "(src/repro/serving/paged_kv.py:390: two _query_kernel "
+             "launches and two ORs a key) as one launch a batch",
+             "bdi_decompress": "on the serving path the decompression runs "
+             "fused into read_rows' extended-tier rows; the path's numbers "
+             "are read_rows'",
+             "gather_blocks": "on the serving path read_rows reads both "
+             "tiers in one launch; cached_block_read (gather + decompress) "
+             "is the same kernel with per-row level/base"}
     out = []
-    for name, (replaces, kernel, wrappers) in rows.items():
+    for name, (replaces, kernel, wrappers, by_row) in rows.items():
         head = paths["engine"][wrappers[0]]["timed"][0]
         timed = [dict(wrapper=w, **{k: v for k, v in t.items()
                                     if k != "bound"},
                       bound_ms=t["bound"][0], bound_by=t["bound"][1])
                  for c in paths for w in wrappers if w in paths[c]
                  for t in paths[c][w]["timed"]]
-        large = pk[name]
+        large = {k: {"shape": pk[k]["shape"], "ms": pk[k]["ms"],
+                     "call_ms": pk[k]["call_ms"],
+                     "plain_ms": pk[k]["plain_ms"],
+                     "bound_ms": pk[k]["bound"][0],
+                     "library_ms": pk[k]["library_ms"]}
+                 for k in (name, *by_row)}
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "kernel": kernel,
@@ -1559,7 +1775,7 @@ def pool_kernel_rows(pk: dict, cells: dict, paths: dict) -> list:
                             for w in wrappers),
             "launches_by_wrapper": {c: {w: cells[c]["launches"][w]
                                         for w in wrappers} for c in cells},
-            "max_abs_err": max([large["err"]] + [
+            "max_abs_err": max([pk[k]["err"] for k in large] + [
                 paths[c][w]["err"] for c in paths for w in wrappers
                 if w in paths[c]]),
             "ms": head["ms"], "call_ms": head["call_ms"],
@@ -1567,11 +1783,8 @@ def pool_kernel_rows(pk: dict, cells: dict, paths: dict) -> list:
             "bound_by": head["bound"][1], "library_ms": head["library_ms"],
             "shape": head["shape"], "path_shapes": timed,
             "launch_floor_ms": pk["launch_floor_ms"],
-            "large": {"shape": large["shape"], "ms": large["ms"],
-                      "call_ms": large["call_ms"],
-                      "plain_ms": large["plain_ms"],
-                      "bound_ms": large["bound"][0],
-                      "library_ms": large["library_ms"]},
+            "large": large.pop(name),
+            **({"large_by_row": large[by_row[0]]} if by_row else {}),
             **({"note": notes[name]} if name in notes else {})})
     return out
 
@@ -1657,7 +1870,7 @@ def main() -> int:
     phase_golden_pool(env, dev)
     cells = {"engine": phase_engine_serving(env, dev),
              "full_scale": phase_full_scale(env, dev)}
-    paths = phase_path_shapes(env, dev, cells)
+    paths = phase_path_shapes(env, cells)
     ak = phase_attention_kernels(env, dev)
     golden_lm = phase_golden_lm(env, dev)
     serving = phase_serving(env, dev)

@@ -29,14 +29,17 @@ counted from a chunk's outcome bitmasks, and the float Stats formed from
 the counts once a set (the same per-request constants the plain version
 sums, equal within rounding).  The kernels take the rows the engine
 makes (lru <= ``LRU_MAX``, sizes of 0, 32, 64 or 128 bytes, a tag valid
-in at most one way of a set).  ``launch_shape`` reports a launch's
-blocks, the blocks an SM keeps resident and the waves.
+in at most one way of a set); ``check_row_contract`` holds state rows to
+that before a launch.  ``launch_shape`` reports a launch's blocks, the
+blocks an SM keeps resident and the waves.
 
-Each wrapper checks device, dtype, shape and contiguity.  On CUDA tensors
-it launches its kernel (and adds one to ``launches``) or raises; on CPU
-tensors it runs the plain version (``conv_scan_plain``/``ext_scan_plain``),
-which steps ``core.controller``'s set kernels over all (B, S) sets at once
-with a Python loop over the L slots.
+Each wrapper checks device, dtype, shape and contiguity, and on CUDA the
+state rows' contract.  On CUDA tensors it launches its kernel (and adds
+one to ``launches``) or raises; on CPU tensors it runs the plain version
+(``conv_scan_plain``/``ext_scan_plain``), which steps
+``core.controller``'s set kernels over all (B, S) sets at once with a
+Python loop over the L slots.  The plain versions take any rows, as the
+reference's kernels do.
 """
 from __future__ import annotations
 
@@ -52,6 +55,7 @@ from ._build import supported  # noqa: F401  (engine.backend_status)
 from ..core import controller as ctl
 from ..core.controller import ConvRow, ExtRow, MorpheusConfig, Predictor, Stats
 from ..core.compression import BLOCK_BYTES
+from ..core.tag_store import LRU_MAX
 
 # Stats layout of the kernels' outputs: one int32 and one float32 vector
 # per set, in ``Stats`` field order.
@@ -67,6 +71,7 @@ launches: Dict[str, int] = {"conv_scan": 0, "ext_scan": 0}
 plain_runs: Dict[str, int] = {"conv_scan": 0, "ext_scan": 0}
 
 _PRED_CODE = {Predictor.BLOOM: 0, Predictor.NONE: 1, Predictor.PERFECT: 2}
+_EXT_SIZES = (0, 32, 64, 128)
 _MAX_CONV_WAYS = 32
 _MAX_EXT_WAYS = 256
 
@@ -124,6 +129,43 @@ def _check_rows(row, template, b: int, s: int, device: torch.device):
     for name, t, ref in zip(row._fields, row, template):
         _build.check(f"state.{name}", t, ref.dtype,
                      (b, s) + tuple(ref.shape), device)
+
+
+def check_row_contract(tier: str, rows) -> None:
+    """Raise ``ValueError`` unless the (B, S, W) state rows of ``tier``
+    ("conv" or "ext") are rows the engine makes, which the CUDA kernels'
+    packed way words assume: lru <= ``LRU_MAX`` as uint32, an extended
+    size of 0, 32, 64 or 128 bytes, a tag valid in at most one way of a
+    set.  One reduction a field and one host read; the message names the
+    field and the first offending (b, s, way)."""
+    lru = rows.lru.to(torch.int64) & 0xFFFFFFFF
+    w = rows.tags.shape[-1]
+    # each set's valid tags, sorted, with the invalid ways as distinct
+    # negative sentinels: a tag valid in two ways gives equal neighbours
+    way_ids = torch.arange(w, device=lru.device)
+    key = torch.where(rows.valid, rows.tags.to(torch.int64) & 0xFFFFFFFF,
+                      -1 - way_ids)
+    srt = key.sort(dim=-1).values
+    bad = {"lru": lru > LRU_MAX,
+           "tags": (srt[..., 1:] == srt[..., :-1]).any(dim=-1)}
+    if tier == "ext":
+        sizes = torch.tensor(_EXT_SIZES, dtype=torch.int32, device=lru.device)
+        bad["size"] = ~torch.isin(rows.size, sizes)
+    found = torch.stack([m.any() for m in bad.values()]).tolist()
+    for (field, mask), hit in zip(bad.items(), found):
+        if not hit:
+            continue
+        b, s, *way = mask.nonzero()[0].tolist()
+        if field == "tags":     # the second valid way of the first repeat
+            t = key[b, s].tolist()
+            way = [next(j for j in range(w) if t[j] >= 0 and t[j] in t[:j])]
+            msg = f"tag {t[way[0]]} valid in two ways of a set"
+        else:
+            v = (lru if field == "lru" else rows.size)[b, s, way[0]]
+            msg = f"{field} {int(v)} outside " + (
+                f"0..{LRU_MAX}" if field == "lru" else str(_EXT_SIZES))
+        raise ValueError(f"{tier} state row ({b}, {s}, way {way[0]}): {msg}"
+                         f"; the CUDA scan takes the rows the engine makes")
 
 
 def _zero_vecs(b: int, s: int, dev: torch.device):
@@ -186,6 +228,8 @@ def conv_scan(cfg: MorpheusConfig, tag: torch.Tensor, write: torch.Tensor,
     if not 0 < cfg.conv_ways <= _MAX_CONV_WAYS:
         raise ValueError(f"conv_scan: conv_ways={cfg.conv_ways} outside "
                          f"1..{_MAX_CONV_WAYS}")
+    if state is not None:
+        check_row_contract("conv", state)
     if not (b * s and length):      # nothing to replay: no launch
         rows = state if state is not None else ctl.conv_row_zero(cfg, (b, s),
                                                                  dev)
@@ -252,6 +296,8 @@ def ext_scan(cfg: MorpheusConfig, tag: torch.Tensor, write: torch.Tensor,
     if not 0 < cfg.ext_max_ways <= _MAX_EXT_WAYS:
         raise ValueError(f"ext_scan: ext_max_ways={cfg.ext_max_ways} "
                          f"outside 1..{_MAX_EXT_WAYS}")
+    if state is not None:
+        check_row_contract("ext", state)
     if not (b * s and length):      # nothing to replay: no launch
         rows = state if state is not None else ctl.ext_row_zero(cfg, (b, s),
                                                                 dev)

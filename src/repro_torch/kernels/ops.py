@@ -1,7 +1,9 @@
 """The port's kernels under the names of the reference's
 ``repro.kernels.ops``: the serving pool's ``tag_lookup``,
 ``bloom_query``, ``bdi_compress``, ``bdi_decompress``, ``gather_blocks``
-and the fused ``cached_block_read`` (all in ``kernels/pool.py``), and the
+and the fused ``cached_block_read``, with the pool's batched
+``bloom_record`` and two-tier ``read_rows`` (all in ``kernels/pool.py``),
+and the
 two attention kernels ``decode_attention`` and ``flash_attention``
 (``kernels/attention.py``), each with its launch counts in its module.
 
@@ -13,4 +15,5 @@ a Pallas mode and tile and have no counterpart.
 """
 from .attention import decode_attention, flash_attention  # noqa: F401
 from .pool import (bdi_compress, bdi_decompress, bloom_query,  # noqa: F401
-                   cached_block_read, gather_blocks, tag_lookup)
+                   bloom_record, cached_block_read, gather_blocks,
+                   read_rows, tag_lookup)

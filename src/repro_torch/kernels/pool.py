@@ -14,10 +14,24 @@
   * ``bloom_query`` replaces ``_query_kernel`` of
     ``src/repro/kernels/bloom_query.py`` (:33, called at :69).  Query
     ``q`` hashes ``tags[q]`` with the ``NUM_HASHES`` multiply-shift hashes
-    of ``core.bloom`` into bits of its (already gathered) filter row
-    ``filters[q]``: ``pred[q]`` is whether all those bits are set, and
-    ``masks[q]`` the row with exactly those bits set (an insert's
-    OR-mask).  ``bloom_query_kernel`` gives one thread to one query.
+    of ``core.bloom`` into bits of its filter row: ``pred[q]`` is whether
+    all those bits are set, and ``masks[q]`` the row with exactly those
+    bits set (an insert's OR-mask).  The reference takes the rows
+    pre-gathered (``filters[q]``); given ``rows``, the kernel reads row
+    ``rows[q]`` of the whole filter store itself (a row outside the store
+    reads an empty filter).  ``bloom_query_kernel`` gives one thread to
+    one query.
+  * ``bloom_record`` replaces the reference pool's per-key
+    ``_bloom_record`` (``src/repro/serving/paged_kv.py:390``: two
+    ``bloom_query`` calls a key, the ORs and the MRU count on the host)
+    for a whole batch of (set, tag) keys, in place and in batch order: the
+    insert mask, ``in_bf2`` tested on bf2 before the OR, the mask ORed
+    into both filters, ``n_mru[s] += 1`` unless ``in_bf2``, and the swap
+    (bf1 = bf2, bf2 = 0, ``n_mru[s] = 0``) once ``n_mru[s] >= ways``.  The
+    wrapper orders the keys by set on the host (a stable sort, so each
+    set's keys keep their batch order) and ``bloom_record_kernel`` gives
+    one warp to one set's run, with both filters and the count in
+    registers; sets are independent, so the order across sets is free.
   * ``bdi_compress`` (paper §4.3.1) replaces ``_compress_kernel`` of
     ``src/repro/kernels/bdi.py`` (:28, called at :67).  A block is 32
     four-byte segments; segment 0 is the base and the mod-2^32 deltas of
@@ -35,17 +49,24 @@
     ``kernels/ops.py::cached_block_read`` (gather, then decompress) fused
     into one pass, and ``bdi_decompress`` (``_decompress_kernel``,
     ``bdi.py:45``, called at :87: ``base + payload`` mod 2^32, or the
-    payload when ``UNCOMP``) is the same read over 1-way sets.  All three
+    payload when ``UNCOMP``) is the same read over 1-way sets.
+    ``read_rows`` is the pool's ``read_pages`` in one call: row ``n`` is
+    ``conv[set, way]`` on tier 0, ``ext[set, way]`` restored with the
+    level and base stored at ``[set, way]`` on tier 1, and zeros on tier
+    2 or where the set or way lies outside its tier's store.  All four
     run ``block_read_kernel``: one warp an output row, lane = word, which
-    reads only the selected row and, given a level and base, restores it
-    on the way out.
+    reads only the selected row of the store in place and restores it on
+    the way out.
 
 Every kernel moves each byte once and is bound by device-memory bytes.
 The reference tiles 256 sets (``tag_lookup``), 512 queries
 (``bloom_query``), 256 blocks (BDI) and 64 sets (``gather_blocks``) per
 program and asserts that the size is at most one tile or a multiple of
 it; the kernels take any size (a bounds-checked grid), so parity inputs
-keep to the sizes the reference accepts.
+keep to the sizes the reference accepts.  The serving path calls them a
+few rows at a time, where a launch costs more than its bytes: so one
+``lookup_batch`` makes one ``bloom_query`` and one ``bloom_record``
+launch, and one ``read_pages`` one ``read_rows`` launch.
 
 Dtypes: tags, LRU counters, requests, filter words, masks, blocks, bases
 and payloads are int32 tensors holding the uint32 bit pattern; valid bits
@@ -59,6 +80,7 @@ import ctypes
 import functools
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -69,8 +91,10 @@ from ..core.compression import HIGH, LOW, UNCOMP
 from ..core.tag_store import LRU_MAX
 
 SEGMENTS = 32
-WRAPPERS = ("tag_lookup", "bloom_query", "bdi_compress", "bdi_decompress",
-            "gather_blocks", "cached_block_read")
+MAX_RECORD_WORDS = 256         # bloom_record_kernel: 8 words a lane
+WRAPPERS = ("tag_lookup", "bloom_query", "bloom_record", "bdi_compress",
+            "bdi_decompress", "gather_blocks", "cached_block_read",
+            "read_rows")
 
 # Launches of each wrapper's kernel since the last ``reset_launches``,
 # and runs of each plain version (which never count as launches).
@@ -135,29 +159,42 @@ def tag_lookup(tags: torch.Tensor, valid: torch.Tensor, lru: torch.Tensor,
 
 # ------------------------------------------------------------ Bloom query
 
-def bloom_query_plain(filters: torch.Tensor, tags: torch.Tensor
+def bloom_query_plain(filters: torch.Tensor, tags: torch.Tensor,
+                      rows: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``bloom_query`` (same arguments)."""
     plain_runs["bloom_query"] += 1
     words = filters.shape[1]
+    if rows is not None:
+        n = filters.shape[0]
+        ok = (rows >= 0) & (rows < n)
+        filters = torch.where(ok[:, None],
+                              filters[rows.long().clamp(0, n - 1)], 0)
     bits = bloom._hash_bits(tags, words * 32)
     pred = bloom._test(filters, bits).to(torch.int32)
     return pred, bloom._bit_mask(bits, words)
 
 
-def bloom_query(filters: torch.Tensor, tags: torch.Tensor
+def bloom_query(filters: torch.Tensor, tags: torch.Tensor,
+                rows: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """filters (Q, words), tags (Q,) -> (pred (Q,) int32, insert masks
-    (Q, words) int32)."""
-    if filters.dim() != 2 or filters.shape[1] < 1:
-        raise ValueError(f"filters must be (Q, words) with words >= 1, got "
+    (Q, words) int32).  With ``rows`` (Q,) int32, ``filters`` is the whole
+    (S, words) store and query ``q`` tests its row ``rows[q]``."""
+    if filters.dim() != 2 or filters.shape[1] < 1 or (
+            rows is not None and filters.shape[0] < 1):
+        raise ValueError(f"filters must be (Q, words), or (S, words) with "
+                         f"S >= 1 given rows, with words >= 1, got "
                          f"{tuple(filters.shape)}")
-    q, words = filters.shape
+    n, words = filters.shape
     dev = filters.device
-    _build.check("filters", filters, torch.int32, (q, words), dev)
+    q = n if rows is None else tags.shape[0]
+    _build.check("filters", filters, torch.int32, (n, words), dev)
     _build.check("tags", tags, torch.int32, (q,), dev)
+    if rows is not None:
+        _build.check("rows", rows, torch.int32, (q,), dev)
     if dev.type == "cpu":
-        return bloom_query_plain(filters, tags)
+        return bloom_query_plain(filters, tags, rows)
     _build.require_cuda(dev, "bloom_query")
     pred = torch.empty((q,), dtype=torch.int32, device=dev)
     masks = torch.empty((q, words), dtype=torch.int32, device=dev)
@@ -165,12 +202,88 @@ def bloom_query(filters: torch.Tensor, tags: torch.Tensor
         return pred, masks
     ptr = _build.ptr
     with torch.cuda.device(dev):
-        err = _lib().bloom_query_launch(ptr(filters), ptr(tags), q, words,
-                                        ptr(pred), ptr(masks),
-                                        _build.stream(dev))
+        err = _lib().bloom_query_launch(ptr(filters), n, ptr(rows),
+                                        ptr(tags), q, words, ptr(pred),
+                                        ptr(masks), _build.stream(dev))
     _build.raise_on(err, "bloom_query")
     launches["bloom_query"] += 1
     return pred, masks
+
+
+# ----------------------------------------------------------- Bloom record
+
+def bloom_record_plain(bf1: torch.Tensor, bf2: torch.Tensor,
+                       n_mru: torch.Tensor, sets: np.ndarray,
+                       tags: np.ndarray, ways: int) -> None:
+    """Plain PyTorch version of ``bloom_record`` (same arguments): the
+    reference's per-key record, key by key in batch order."""
+    plain_runs["bloom_record"] += 1
+    words = bf1.shape[1]
+    t = torch.from_numpy(np.ascontiguousarray(tags, np.uint32).view(np.int32))
+    masks = bloom._bit_mask(bloom._hash_bits(t.to(bf1.device), words * 32),
+                            words)
+    for s, m in zip(np.asarray(sets).tolist(), masks):
+        in_bf2 = ((bf2[s] & m) == m).all()
+        bf1[s] |= m
+        bf2[s] |= m
+        n_mru[s] += (~in_bf2).to(torch.int32)
+        swap = n_mru[s] >= ways             # swap (paper Fig. 6 (9))
+        bf1[s] = torch.where(swap, bf2[s], bf1[s])
+        bf2[s] = torch.where(swap, 0, bf2[s])
+        n_mru[s] = torch.where(swap, 0, n_mru[s])
+
+
+def record_plan(sets: np.ndarray, tags: np.ndarray) -> Tuple[np.ndarray, int]:
+    """(plan, runs) of ``bloom_record_kernel``: the keys ordered by set,
+    stably (each set's keys keep their batch order), as one int32 array
+    of the runs' sets (runs), their offsets into the ordered tags (runs +
+    1) and those tags (K, uint32 bit patterns)."""
+    order = np.argsort(sets, kind="stable")
+    s = sets[order]
+    starts = np.flatnonzero(np.r_[True, s[1:] != s[:-1]])
+    plan = np.concatenate([s[starts], starts, [len(s)],
+                           tags[order].view(np.int32)]).astype(np.int32)
+    return plan, len(starts)
+
+
+def bloom_record(bf1: torch.Tensor, bf2: torch.Tensor, n_mru: torch.Tensor,
+                 sets, tags, ways: int) -> None:
+    """In place: record the keys (``sets[k]``, ``tags[k]``) in order into
+    the (S, words) filters ``bf1``/``bf2`` and the (S,) int32 MRU counts
+    ``n_mru``; ``sets`` and ``tags`` are host arrays (the wrapper plans the
+    launch on the host), ``ways`` the count that triggers a swap."""
+    if bf1.dim() != 2 or bf1.shape[1] < 1:
+        raise ValueError(f"bf1 must be (S, words) with words >= 1, got "
+                         f"{tuple(bf1.shape)}")
+    (n, words), dev = bf1.shape, bf1.device
+    _build.check("bf1", bf1, torch.int32, (n, words), dev)
+    _build.check("bf2", bf2, torch.int32, (n, words), dev)
+    _build.check("n_mru", n_mru, torch.int32, (n,), dev)
+    sets = np.asarray(sets, np.int64)
+    tags = np.asarray(tags, np.uint32)
+    if sets.ndim != 1 or tags.shape != sets.shape:
+        raise ValueError(f"sets and tags must be (K,), got {sets.shape} and "
+                         f"{tags.shape}")
+    if sets.size and (sets.min() < 0 or sets.max() >= n):
+        raise ValueError(f"sets: outside [0, {n})")
+    if dev.type == "cpu":
+        bloom_record_plain(bf1, bf2, n_mru, sets, tags, ways)
+        return
+    _build.require_cuda(dev, "bloom_record")
+    if words > MAX_RECORD_WORDS:
+        raise ValueError(f"bloom_record: {words} filter words, the kernel "
+                         f"takes at most {MAX_RECORD_WORDS}")
+    if not sets.size:               # nothing to record: no launch
+        return
+    plan, runs = record_plan(sets, tags)
+    plan = torch.from_numpy(plan).to(dev)           # one copy to the card
+    ptr = _build.ptr
+    with torch.cuda.device(dev):
+        err = _lib().bloom_record_launch(ptr(bf1), ptr(bf2), ptr(n_mru),
+                                         ptr(plan), runs, words, int(ways),
+                                         _build.stream(dev))
+    _build.raise_on(err, "bloom_record")
+    launches["bloom_record"] += 1
 
 
 # ------------------------------------------------------------ BDI
@@ -274,6 +387,54 @@ def cached_block_read(data: torch.Tensor, way: torch.Tensor,
     return _read("cached_block_read", data, way, level, base)
 
 
+def read_rows_plain(conv, ext, ext_level, ext_base, tier, set_idx, way
+                    ) -> torch.Tensor:
+    """Plain PyTorch version of ``read_rows`` (same arguments)."""
+    plain_runs["read_rows"] += 1
+    out = torch.zeros((tier.shape[0], conv.shape[2]), dtype=torch.int32,
+                      device=conv.device)
+    for t, store in enumerate((conv, ext)):
+        n_sets, n_ways = store.shape[:2]
+        ok = ((tier == t) & (set_idx >= 0) & (set_idx < n_sets) & (way >= 0)
+              & (way < n_ways))
+        s = set_idx.long().clamp(0, n_sets - 1)
+        w = way.long().clamp(0, n_ways - 1)
+        rows = store[s, w]
+        if t == 1:
+            rows = _restore(ext_level[s, w], ext_base[s, w], rows)
+        out = torch.where(ok[:, None], rows, out)
+    return out
+
+
+def read_rows(conv: torch.Tensor, ext: torch.Tensor, ext_level: torch.Tensor,
+              ext_base: torch.Tensor, tier: torch.Tensor,
+              set_idx: torch.Tensor, way: torch.Tensor) -> torch.Tensor:
+    """The pool's block read over both tiers: conv (Sc, Wc, words), ext
+    (Se, We, words) with ext_level and ext_base (Se, We), and tier,
+    set_idx, way (N,) int32 -> (N, words): ``conv[set, way]`` on tier 0,
+    ``ext[set, way]`` restored on tier 1, zeros on tier 2 or out of the
+    store."""
+    for name, t in (("conv", conv), ("ext", ext)):
+        if t.dim() != 3 or t.shape[0] < 1 or t.shape[1] < 1:
+            raise ValueError(f"{name} must be (S, W, words) with S, W >= 1, "
+                             f"got {tuple(t.shape)}")
+    (sc, wc, words), (se, we, _), dev = conv.shape, ext.shape, conv.device
+    n = tier.shape[0] if tier.dim() == 1 else -1
+    _build.check("conv", conv, torch.int32, (sc, wc, words), dev)
+    _build.check("ext", ext, torch.int32, (se, we, words), dev)
+    _build.check("ext_level", ext_level, torch.int32, (se, we), dev)
+    _build.check("ext_base", ext_base, torch.int32, (se, we), dev)
+    for name, t in (("tier", tier), ("set_idx", set_idx), ("way", way)):
+        _build.check(name, t, torch.int32, (n,), dev)
+    if dev.type == "cpu":
+        return read_rows_plain(conv, ext, ext_level, ext_base, tier,
+                               set_idx, way)
+    _build.require_cuda(dev, "read_rows")
+    return _launch_read("read_rows", n, words, dev, conv=conv, ext=ext,
+                        level=ext_level, base=ext_base, tier=tier,
+                        set_idx=set_idx, way=way)
+
+
 _PLAIN_READS = {
     "gather_blocks": lambda d, w, l, b: gather_blocks_plain(d, w),
     "cached_block_read": cached_block_read_plain,
@@ -284,9 +445,11 @@ _PLAIN_READS = {
 def _read(name: str, data: torch.Tensor, way: Optional[torch.Tensor],
           level: Optional[torch.Tensor], base: Optional[torch.Tensor]
           ) -> torch.Tensor:
-    """The three block-read wrappers: check data (S, W, words) int32 and,
-    where given, (S,) int32 way, level and base on data's device; run the
-    plain version on the CPU, else launch ``block_read_kernel``."""
+    """The three reference-signature block reads: check data (S, W, words)
+    int32 and, where given, (S,) int32 way, level and base on data's
+    device; run the plain version on the CPU, else launch
+    ``block_read_kernel`` with row r reading set r (tier 0 without a
+    level, tier 1 restored with the row's level and base)."""
     if data.dim() != 3 or data.shape[1] < 1:
         raise ValueError(f"data must be (S, W, words) with W >= 1, got "
                          f"{tuple(data.shape)}")
@@ -300,14 +463,29 @@ def _read(name: str, data: torch.Tensor, way: Optional[torch.Tensor],
     if dev.type == "cpu":
         return _PLAIN_READS[name](data, way, level, base)
     _build.require_cuda(dev, name)
-    out = torch.empty((s, words), dtype=torch.int32, device=dev)
-    if s == 0 or words == 0:        # nothing to read: no launch
+    if level is None:
+        return _launch_read(name, s, words, dev, conv=data, way=way)
+    return _launch_read(name, s, words, dev, ext=data, level=level,
+                        base=base, level_per_row=True, fixed_tier=1, way=way)
+
+
+def _launch_read(name: str, n: int, words: int, dev: torch.device, *,
+                 conv=None, ext=None, level=None, base=None,
+                 level_per_row=False, tier=None, fixed_tier=0, set_idx=None,
+                 way=None) -> torch.Tensor:
+    """Launch ``block_read_kernel`` for ``n`` output rows (null pointers
+    for the arguments not given: see the kernel)."""
+    out = torch.empty((n, words), dtype=torch.int32, device=dev)
+    if n == 0 or words == 0:        # nothing to read: no launch
         return out
+    sc, wc = conv.shape[:2] if conv is not None else (0, 0)
+    se, we = ext.shape[:2] if ext is not None else (0, 0)
     ptr = _build.ptr
     with torch.cuda.device(dev):
-        err = _lib().block_read_launch(ptr(data), ptr(way), ptr(level),
-                                       ptr(base), s, w, words, ptr(out),
-                                       _build.stream(dev))
+        err = _lib().block_read_launch(
+            ptr(conv), sc, wc, ptr(ext), se, we, ptr(level), ptr(base),
+            int(level_per_row), ptr(tier), fixed_tier, ptr(set_idx),
+            ptr(way), n, words, ptr(out), _build.stream(dev))
     _build.raise_on(err, name)
     launches[name] += 1
     return out
@@ -315,13 +493,15 @@ def _read(name: str, data: torch.Tensor, way: Optional[torch.Tensor],
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """The built ``csrc/pool.cu`` with its four launchers declared."""
+    """The built ``csrc/pool.cu`` with its five launchers declared."""
     lib = _build.load("pool")
     p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn, args in (("tag_lookup_launch", [p] * 4 + [n, i, i] + [p] * 4),
-                     ("bloom_query_launch", [p, p, n, i, p, p, p]),
+                     ("bloom_query_launch", [p, n, p, p, n, i, p, p, p]),
+                     ("bloom_record_launch", [p] * 4 + [i, i, i, p]),
                      ("bdi_compress_launch", [p, n, p, p, p, p]),
-                     ("block_read_launch", [p] * 4 + [n, i, i, p, p])):
+                     ("block_read_launch", [p, n, i, p, n, i, p, p, i, p, i,
+                                            p, p, n, i, p, p])):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = i
     return lib

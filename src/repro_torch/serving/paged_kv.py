@@ -12,24 +12,32 @@ Pages (KV blocks, MLA latents, or expert/embedding rows) are cached in
 
 ``lookup_batch`` routes a batch of page keys, queries and updates the
 predictor and tag stores through the pool kernels (``kernels.ops``:
-``tag_lookup``, ``bloom_query``) and returns a ``GatherPlan``;
-``write_page`` installs a payload (``bdi_compress`` on the extended
-tier) and ``read_pages`` reads hit pages (``gather_blocks``, and the
-fused gather + decompress ``cached_block_read``).
+``tag_lookup``, ``bloom_query``, ``bloom_record``) and returns a
+``GatherPlan``; ``write_page`` installs a payload (``bdi_compress`` on the
+extended tier) and ``read_pages`` reads hit pages of both tiers
+(``read_rows``: the Indirect-MOV gather, fused with BDI decompression on
+the extended tier).
 
-The planning stays numpy on the host, as in the reference, including
-its per-key loops and whole-array host copies; the state tensors live on
-the pool's device.  ``MorpheusPagePool(cfg)`` runs on the CUDA card and
-raises ``BackendError`` without one; ``device="cpu"`` runs the kernels'
-plain versions.  Where the reference rebuilds an array (``.at[].set``),
-the port writes the same elements in place; no caller holds the old
-arrays, so the results are the same.
+The planning stays numpy on the host, as in the reference; the state
+tensors live on the pool's device.  Where the reference gathers filter
+rows and data tiles on the host or loops over keys, the port hands the
+kernels the whole stores and row indices: one ``bloom_query`` reads the
+predictor's filter rows, one ``bloom_record`` records a batch's extended
+keys, one ``read_rows`` reads a plan's pages, each after one copy of its
+indices to the device.  The conventional tier's per-round lookups, the
+extended tier's tag match and the fills still read state rows back to
+the host.  ``MorpheusPagePool(cfg)`` runs on the CUDA card and raises
+``BackendError`` without one; ``device="cpu"`` runs the kernels' plain
+versions.  Where the reference rebuilds an array (``.at[].set``), the
+port writes the same elements in place; no caller holds the old arrays,
+so the results are the same.
 
 Dtypes: tags, LRU counters, Bloom words, payload words and BDI bases are
 int32 tensors holding the uint32 bit pattern, valid bits are bool, BDI
-levels int32.  ``ext_size``, ``ext_used`` and ``n_mru`` are host numpy
-arrays, as in the reference.  ``pool_from_numpy``/``pool_to_numpy``
-carry a pool's state from and to the reference's numpy dtypes.
+levels and the Bloom MRU counts ``n_mru`` int32.  ``ext_size`` and
+``ext_used`` are host numpy arrays, as in the reference (which keeps
+``n_mru`` there too).  ``pool_from_numpy``/``pool_to_numpy`` carry a
+pool's state from and to the reference's numpy dtypes.
 
 Behaviours of the reference that the port keeps on purpose:
 
@@ -41,7 +49,7 @@ Behaviours of the reference that the port keeps on purpose:
     request to one set in a batch is counted nowhere and gets tier 2;
   * a key repeated within a batch is looked up once on the extended tier
     but filled once per occurrence, so one set can hold its tag twice;
-  * ``_bloom_record`` ORs bf1's insert mask into both filters.
+  * a Bloom record ORs bf1's insert mask into both filters.
 
 Not ported yet: ``TraceRecorder.save`` (needs the trace corpus of the
 runtime slice) and ``MorpheusPagePool.content_snapshot`` (needs
@@ -168,11 +176,11 @@ class GatherPlan(NamedTuple):
 
 
 # State arrays and their reference dtypes (``pool_to_numpy``); the rest
-# are int32 (``ext_level``).
+# are int32 (``ext_level``, ``n_mru``).
 _U32_STATE = ("conv_tags", "conv_lru", "ext_tags", "ext_lru", "bf1", "bf2",
               "conv_data", "ext_data", "ext_base")
 _BOOL_STATE = ("conv_valid", "ext_valid")
-_HOST_STATE = ("ext_size", "ext_used", "n_mru")
+_HOST_STATE = ("ext_size", "ext_used")
 STATE_FIELDS = ("conv_tags", "conv_valid", "conv_lru", "ext_tags",
                 "ext_valid", "ext_lru", "ext_size", "ext_used", "bf1", "bf2",
                 "n_mru", "conv_data", "ext_data", "ext_level", "ext_base")
@@ -223,7 +231,7 @@ class MorpheusPagePool:
         self.ext_used = np.zeros((es,), np.int32)
         self.bf1 = zeros(es, cfg.bloom_words)
         self.bf2 = zeros(es, cfg.bloom_words)
-        self.n_mru = np.zeros((es,), np.int32)
+        self.n_mru = zeros(es)
         # payload pools (uint32 words); extended pool stores BDI payloads
         self.conv_data = zeros(cs, w, cfg.page_words)
         self.ext_data = zeros(es, mw, cfg.page_words)
@@ -318,9 +326,9 @@ class MorpheusPagePool:
         if ext_mask.any() and amap.ext_sets > 0:
             idx = np.nonzero(ext_mask)[0]
             sets = local[idx]
-            # predictor (batched bloom kernel over pre-gathered filters)
-            filt = self._to_dev(_host(self.bf1)[sets])
-            pred, _ = K.bloom_query(filt, self._to_dev(tags[idx]))
+            # predictor: one query of the batch's bf1 rows, read in place
+            qt = self._to_dev(np.stack([tags[idx].view(np.int32), sets]))
+            pred, _ = K.bloom_query(self.bf1, qt[0], qt[1])
             if cfg.predictor == "none":
                 pred = np.ones(len(idx), bool)
             else:
@@ -342,7 +350,13 @@ class MorpheusPagePool:
                     add["ext_pred_miss"] += 1
                     add["backing_fetches"] += 1
                     add["time_ns"] += c.local_hbm.miss_latency_ns
-                self._bloom_record(sets[j], tags[idx[j]])
+            # The reference records each key inside the loop above; one
+            # record of the batch after it is the same: the predictor read
+            # bf1 before the loop, the stats do not read the filters, and
+            # _ext_fill touches no Bloom state.  bloom_record keeps each
+            # set's keys in batch order.
+            K.bloom_record(self.bf1, self.bf2, self.n_mru, sets, tags[idx],
+                           cfg.ways)
             self._ext_fill(sets[~ehit], tags[idx[~ehit]])
 
         self.stats = self.stats + PoolStats(**add)
@@ -391,27 +405,13 @@ class MorpheusPagePool:
     def read_pages(self, plan: GatherPlan) -> torch.Tensor:
         """Gather hit pages per plan, as (N, page_words) int32 bit
         patterns on the device (tier 2 rows are zeros: the caller fetches
-        those from the backing store)."""
-        n = len(plan.tier)
-        out = np.zeros((n, self.cfg.page_words), np.uint32)
-        conv = plan.tier == 0
-        if conv.any():
-            sets = self._to_dev(plan.set_idx[conv].astype(np.int64))
-            rows = K.gather_blocks(self.conv_data[sets],
-                                   self._to_dev(plan.way[conv]))
-            out[conv] = _host_u32(rows)
-        ext = plan.tier == 1
-        if ext.any():
-            sets = plan.set_idx[ext]
-            ways = self._to_dev(plan.way[ext])
-            # fused Indirect-MOV gather + BDI decompress-on-read
-            lvl = self._to_dev(_host(self.ext_level)[sets, plan.way[ext]])
-            base = self._to_dev(_host(self.ext_base)[sets, plan.way[ext]])
-            rows = K.cached_block_read(
-                self.ext_data[self._to_dev(sets.astype(np.int64))], ways,
-                lvl, base)
-            out[ext] = _host_u32(rows)
-        return self._to_dev(out)
+        those from the backing store): one copy of the plan to the device
+        and one ``read_rows`` (the fused Indirect-MOV gather + BDI
+        decompress-on-read) over both tiers' stores."""
+        cols = self._to_dev(np.stack([plan.tier, plan.set_idx, plan.way]
+                                     ).astype(np.int32))
+        return K.read_rows(self.conv_data, self.ext_data, self.ext_level,
+                           self.ext_base, cols[0], cols[1], cols[2])
 
     # ------------------------------------------------------------ internals
     def _probe(self, tags, valid, s: int, tag: int) -> Tuple[bool, int]:
@@ -469,20 +469,6 @@ class MorpheusPagePool:
             self.ext_tags[s, w] = _i32(tag)
             self.ext_valid[s, w] = True
             self.ext_lru[s, w] = 0xFFF
-
-    def _bloom_record(self, s: int, tag: int):
-        s = int(s)
-        t = self._to_dev(np.asarray([tag], np.uint32))
-        _, mask = K.bloom_query(self.bf1[s][None], t)
-        in_bf2, _ = K.bloom_query(self.bf2[s][None], t)
-        self.bf1[s] |= mask[0]
-        self.bf2[s] |= mask[0]
-        if not bool(in_bf2[0]):
-            self.n_mru[s] += 1
-        if self.n_mru[s] >= self.cfg.ways:   # swap (paper Fig. 6 (9))
-            self.bf1[s] = self.bf2[s]
-            self.bf2[s] = 0
-            self.n_mru[s] = 0
 
     # ------------------------------------------------------------- metrics
     def hit_rate(self) -> float:
@@ -593,7 +579,7 @@ def page_key(seq_hash: int, layer: int, page: int) -> int:
 def pool_to_numpy(pool: MorpheusPagePool) -> Dict[str, object]:
     """The pool's state as numpy arrays in the reference's dtypes (uint32
     tags, LRU, Bloom words, payloads and bases; bool valid bits; int32
-    levels and host counters), plus ``"stats"``."""
+    levels, MRU counts and host counters), plus ``"stats"``."""
     out: Dict[str, object] = {}
     for name in STATE_FIELDS:
         x = getattr(pool, name)

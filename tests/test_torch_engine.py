@@ -2,6 +2,7 @@
 with the reference (among the cases, the widest extended set the
 engine-scan kernel takes and a set forced into four evictions), the
 epoch-carry contract, the backend switch and the import guard."""
+import functools
 import os
 import subprocess
 import sys
@@ -23,6 +24,7 @@ from repro_torch.core import cache_sim as t_cs  # noqa: E402
 from repro_torch.core import controller as t_ctl  # noqa: E402
 from repro_torch.core import engine as t_engine  # noqa: E402
 from repro_torch.core import policy as t_policy  # noqa: E402
+from repro_torch.kernels import engine_scan as t_scan  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -189,6 +191,61 @@ def test_reference_state_carried_across():
     for k in dec_r:
         np.testing.assert_array_equal(np.asarray(dec_r[k]),
                                       np.asarray(dec_g[k]), err_msg=k)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_rows():
+    """The (conv, ext) rows of a reference state after an epoch through
+    the reference's Pallas ``run_packed_state`` (interpret mode), carried
+    into the port."""
+    cfg, pcfg = tp.small_cfg(compression=True)
+    traces = _batch(seed=41, n=(400, 300), warm=(0, 0))
+    j_state, _ = j_engine.advance_packed(
+        cfg, j_engine.pack(cfg, traces), j_engine.init_state(cfg, 2),
+        backend="pallas")
+    st = t_engine.state_from_numpy(pcfg, jax.tree.map(np.asarray, j_state),
+                                   device="cpu")
+    conv = t_ctl.ConvRow(*[getattr(st, f) for f in t_engine._CONV_FIELDS])
+    ext = t_ctl.ExtRow(*[getattr(st, f) for f in t_engine._EXT_FIELDS])
+    return conv, ext
+
+
+def test_row_contract_passes_the_rows_the_engine_makes():
+    conv, ext = _reference_rows()
+    assert conv.valid.any() and ext.valid.any()
+    assert set(ext.size[ext.valid].tolist()) >= {32, 64, 128}
+    t_scan.check_row_contract("conv", conv)
+    t_scan.check_row_contract("ext", ext)
+    t_state = _epochs(tp.small_cfg(compression=True)[1],
+                      (*tp.trace(n=900, seed=42), 0), (300, 600))
+    t_scan.check_row_contract("ext", t_ctl.ExtRow(
+        *[getattr(t_state, f) for f in t_engine._EXT_FIELDS]))
+
+
+@pytest.mark.parametrize("tier,field", [("conv", "lru"), ("conv", "tags"),
+                                        ("ext", "lru"), ("ext", "size"),
+                                        ("ext", "tags")])
+def test_row_contract_names_the_first_bad_row(tier, field):
+    """One out-of-contract row of each kind (lru 0x1000, size 48, a tag
+    valid in a second way of its set) raises, naming field and row."""
+    rows = _reference_rows()[tier == "ext"]
+    rows = type(rows)(*[x.clone() for x in rows])
+    b, s = 1, 2
+    w = int(rows.valid[b, s].to(torch.int32).argmax())
+    if field == "lru":
+        rows.lru[b, s, w] = 0x1000
+        msg = "lru 4096"
+    elif field == "size":
+        rows.size[b, s, w] = 48
+        msg = "size 48"
+    else:
+        other = (w + 1) % rows.tags.shape[-1]
+        rows.tags[b, s, other] = rows.tags[b, s, w]
+        rows.valid[b, s, other] = True
+        w = max(w, other)
+        msg = r"tag \d+ valid in two ways"
+    with pytest.raises(ValueError, match=rf"\({b}, {s}, way {w}\): {msg}"):
+        t_scan.check_row_contract(tier, rows)
 
 
 def test_entry_points_need_a_card_or_cpu(monkeypatch):

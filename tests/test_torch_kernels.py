@@ -25,7 +25,8 @@ from repro_torch.kernels import engine_scan as scan  # noqa: E402
 from repro_torch.kernels import pool as pool_ops  # noqa: E402
 from repro_torch.kernels.pool import (  # noqa: E402
     bdi_compress_plain, bdi_decompress_plain, bloom_query_plain,
-    cached_block_read_plain, gather_blocks_plain, tag_lookup_plain)
+    bloom_record_plain, cached_block_read_plain, gather_blocks_plain,
+    read_rows_plain, tag_lookup_plain)
 from repro_torch.models import LM, params_from_numpy  # noqa: E402
 from repro_torch.models import seeded_numpy_params  # noqa: E402
 from repro_torch.serving import paged_kv  # noqa: E402
@@ -186,6 +187,41 @@ def test_empty_input_launches_nothing(cuda_device):
                                z.bool(), state=rows, keep_state=True)
     assert scan.launches["conv_scan"] == 0
     assert not i.any() and not f.any() and torch.equal(out.lru, rows.lru)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier,field", [("conv", "lru"), ("conv", "tags"),
+                                        ("ext", "lru"), ("ext", "size"),
+                                        ("ext", "tags")])
+def test_scans_raise_on_out_of_contract_state(cuda_device, tier, field):
+    """State-in rows the engine does not make (lru 0x1000, an extended
+    size of 48 bytes, a tag valid in two ways of a set) raise before a
+    launch: the packed way words cannot hold them."""
+    cfg = _cfg(compression=True)
+    pt, cmask, emask = _packed(cfg, cuda_device, 5)
+    if tier == "conv":
+        kernel, plain = scan.conv_scan, scan.conv_scan_plain
+        args = (cfg, pt.conv_tag, pt.conv_write, pt.conv_active, cmask)
+    else:
+        kernel, plain = scan.ext_scan, scan.ext_scan_plain
+        args = (cfg, pt.ext_tag, pt.ext_write, pt.ext_level, pt.ext_active,
+                emask)
+    rows = plain(*args, keep_state=True)[2]
+    kernel(*args, state=rows)                    # the engine's rows pass
+    w = int(rows.valid[1, 3].to(torch.int32).argmax())
+    if field == "lru":
+        rows.lru[1, 3, w] = 0x1000
+    elif field == "size":
+        rows.size[1, 3, w] = 48
+    else:
+        other = (w + 1) % rows.tags.shape[-1]
+        rows.tags[1, 3, other] = rows.tags[1, 3, w]
+        rows.valid[1, 3, other] = True
+    scan.reset_launches()
+    msg = {"lru": "lru 4096", "size": "size 48", "tags": "valid in two ways"}
+    with pytest.raises(ValueError, match=msg[field]):
+        kernel(*args, state=rows)
+    assert scan.launches[f"{tier}_scan"] == 0
 
 
 def _columns(seed, b, s, length, span):
@@ -350,6 +386,77 @@ def test_bloom_query_kernel_matches_plain(cuda_device, q, words):
            bloom_query_plain(filters, tags), f"bloom_query {q}x{words}")
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,words", [(4096, 51200, 8), (1, 64, 8),
+                                       (300, 7, 40)])
+def test_bloom_query_by_row_kernel_matches_plain(cuda_device, q, n, words):
+    rng = np.random.default_rng(q + n)
+    store = (_u32(rng, (n, words)) & _u32(rng, (n, words))).to(cuda_device)
+    tags = _u32(rng, (q,)).to(cuda_device)
+    rows = torch.from_numpy(rng.integers(-2, n + 2, size=q).astype(np.int32)
+                            ).to(cuda_device)        # some outside
+    _, masks = bloom_query_plain(store, tags, rows)
+    inside = rows[::2][(rows[::2] >= 0) & (rows[::2] < n)].long()
+    store[inside] |= masks[::2][(rows[::2] >= 0) & (rows[::2] < n)]
+    pool_ops.reset_launches()
+    out = pool_ops.bloom_query(store, tags, rows)
+    assert pool_ops.launches["bloom_query"] == 1
+    _equal(out, bloom_query_plain(store, tags, rows), f"bloom_query rows {q}")
+    assert out[0].any() or q == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,words,ways", [(51200, 4096, 8, 8),
+                                            (20, 700, 8, 2), (9, 300, 40, 3),
+                                            (5, 64, 1, 2), (3, 40, 200, 2)])
+def test_bloom_record_kernel_matches_plain(cuda_device, n, k, words, ways):
+    """A batch's records in one launch equal the per-key plain version:
+    random sets with repeats, one set taking a quarter of the keys, tags
+    repeated (bf2 hits), and swaps within a run."""
+    rng = np.random.default_rng(n + k + words)
+    sets = rng.integers(0, n, size=k)
+    sets[::4] = sets[1]
+    tags = rng.integers(0, 1 << 32, size=k, dtype=np.uint64).astype(np.uint32)
+    tags[3::5] = tags[rng.integers(0, 3, size=len(tags[3::5]))]
+    bf = _u32(rng, (2, n, words)) & _u32(rng, (2, n, words))
+    n_mru = torch.from_numpy(rng.integers(0, ways, size=n).astype(np.int32))
+    card = [x.to(cuda_device) for x in (bf[0], bf[1], n_mru)]
+    plain = [x.clone() for x in card]
+    pool_ops.reset_launches()
+    pool_ops.bloom_record(*card, sets, tags, ways)
+    assert pool_ops.launches["bloom_record"] == 1
+    bloom_record_plain(*plain, sets, tags, ways)
+    _equal(card, plain, f"bloom_record {n}x{words}, {k} keys")
+    assert not torch.equal(card[0].cpu(), bf[0])
+
+
+def _read_stores(rng, sc, wc, se, we, words, dev):
+    conv = _u32(rng, (sc, wc, words)).to(dev)
+    ext = _u32(rng, (se, we, words)).to(dev)
+    level = torch.from_numpy(rng.integers(0, 3, size=(se, we)).astype(
+        np.int32)).to(dev)
+    return conv, ext, level, _u32(rng, (se, we)).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sc,wc,se,we,words,n", [
+    (51200, 8, 51200, 32, 32, 512),          # the full-scale pool's stores
+    (64, 4, 128, 16, 32, 1), (7, 8, 9, 32, 40, 300), (1, 1, 1, 1, 32, 8)])
+def test_read_rows_kernel_matches_plain(cuda_device, sc, wc, se, we, words,
+                                        n):
+    """Both tiers, tier 2, and sets and ways outside their store."""
+    rng = np.random.default_rng(sc + se + n)
+    stores = _read_stores(rng, sc, wc, se, we, words, cuda_device)
+    cols = [torch.from_numpy(c.astype(np.int32)).to(cuda_device) for c in (
+        rng.integers(0, 3, size=n),
+        rng.integers(-1, max(sc, se) + 1, size=n),
+        rng.integers(-1, max(wc, we) + 1, size=n))]
+    pool_ops.reset_launches()
+    out = pool_ops.read_rows(*stores, *cols)
+    assert pool_ops.launches["read_rows"] == 1
+    assert torch.equal(out, read_rows_plain(*stores, *cols))
+
+
 def _bdi_blocks(rng, n):
     """Blocks of every level, boundary deltas and bases near 2^32."""
     base = rng.integers(0, 1 << 32, size=(n, 1), dtype=np.int64)
@@ -406,6 +513,12 @@ def test_pool_kernels_launch_nothing_on_empty_inputs(cuda_device):
     data = torch.zeros((0, 4, 32), dtype=torch.int32, device=cuda_device)
     pool_ops.gather_blocks(data, e)
     pool_ops.cached_block_read(data, e, e, e)
+    store = torch.zeros((4, 4, 32), dtype=torch.int32, device=cuda_device)
+    flat = torch.zeros((4, 4), dtype=torch.int32, device=cuda_device)
+    pool_ops.bloom_query(flat, e, e)
+    pool_ops.bloom_record(flat, flat.clone(), flat[0], [], [], 2)
+    assert pool_ops.read_rows(store, store, flat, flat, e, e, e).shape == (
+        0, 32)
     assert set(pool_ops.launches.values()) == {0}
     assert set(pool_ops.plain_runs.values()) == {0}
 
@@ -439,7 +552,8 @@ def test_pool_on_the_card_matches_the_cpu(cuda_device, kw):
     for name in paged_kv.STATE_FIELDS:
         assert np.array_equal(a[name], c[name]), name
     runs = pool_ops.launches
-    assert runs["tag_lookup"] and runs["bloom_query"] and runs["gather_blocks"]
+    assert runs["tag_lookup"] and runs["bloom_query"] and runs["read_rows"]
+    assert runs["bloom_record"] == runs["bloom_query"]
 
 
 # ------------------------------------- attention kernels, on the card only

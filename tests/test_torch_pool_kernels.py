@@ -4,6 +4,11 @@ port's ``repro_torch.kernels.ops`` (plain PyTorch versions on the CPU) on
 the same seeded inputs.  The kernels are integer functions, so outputs
 must be bit-identical (tolerance 0).
 
+The port's batched ``bloom_record`` is held to the reference pool's
+per-key ``_bloom_record``, the by-row ``bloom_query`` to the reference's
+query of the pre-gathered rows, and ``read_rows`` to the reference
+pool's ``read_pages``.
+
 Sizes keep to what the reference's tiling accepts (S <= 256 or a
 multiple of it for tag_lookup, Q <= 512 for bloom_query, N <= 256 for
 BDI, S <= 64 or a multiple of it for gather_blocks); the port takes any.
@@ -16,8 +21,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as j_ops  # noqa: E402
+from repro.serving import paged_kv as j_kv  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels import pool as t_pool  # noqa: E402
+from torch_parity import pool_payload  # noqa: E402
 
 MAX = (1 << 32) - 1
 
@@ -103,6 +110,100 @@ def test_bloom_query_matches_reference(q):
     assert pred[::3].all() and not pred.all()
 
 
+@pytest.mark.parametrize("q", [512, 37])
+def test_bloom_query_by_row_matches_reference(q):
+    """``rows`` names each query's row of the whole store: the reference's
+    query on the pre-gathered ``bf1[rows]`` gives the same answers."""
+    store, _ = _bloom_inputs(40, 8, seed=q + 1)      # S = 40 rows
+    _, tags = _bloom_inputs(q, 8, seed=q + 2)
+    rows = np.random.default_rng(q).integers(0, 40, size=q).astype(np.int32)
+    _, rm = j_ops.bloom_query(jnp.asarray(store[rows]), jnp.asarray(tags))
+    store[rows[::3]] |= np.asarray(rm)[::3]          # some members
+    rp, rm = j_ops.bloom_query(jnp.asarray(store[rows]), jnp.asarray(tags))
+    pp, pm = t_ops.bloom_query(_t(store), _t(tags), _t(rows))
+    _same(rp, pp, "pred")
+    _same(rm, pm, "masks")
+    pred = np.asarray(rp).astype(bool)
+    assert pred.any() and not pred.all()
+
+
+def test_bloom_query_row_outside_the_store_reads_an_empty_filter():
+    store, tags = _bloom_inputs(8, 8, seed=5)
+    store[:] = MAX                                   # every bit set
+    rows = np.asarray([0, -1, 8, 7, 100, 3, -50, 1], np.int32)
+    pred, masks = t_ops.bloom_query(_t(store), _t(tags), _t(rows))
+    np.testing.assert_array_equal(pred.numpy(), [1, 0, 0, 1, 0, 1, 0, 1])
+    _same(j_ops.bloom_query(jnp.asarray(store), jnp.asarray(tags))[1],
+          masks, "masks depend on the tag only")
+
+
+# ---------------------------------------------------------- Bloom record
+
+def _record_batch(n_sets, k, seed):
+    """K keys that revisit a few sets out of order, with repeated tags."""
+    rng = np.random.default_rng(seed)
+    sets = rng.choice(rng.permutation(n_sets)[:5], size=k)
+    tags = rng.integers(0, 1 << 32, size=k, dtype=np.uint64).astype(np.uint32)
+    tags[3::4] = tags[rng.integers(0, 3, size=len(tags[3::4]))]
+    return sets.astype(np.int32), tags
+
+
+@pytest.mark.parametrize("words,seed", [(8, 0), (3, 1)])
+def test_bloom_record_matches_the_reference_record(words, seed):
+    """``bloom_record`` of a batch (its plain version, on the CPU) leaves
+    the filters and MRU counts the reference pool's ``_bloom_record``
+    leaves, called key by key; ways = 2 makes the swap fire several times
+    within one set."""
+    ref = j_kv.MorpheusPagePool(j_kv.PoolConfig(
+        conv_sets=16, ext_sets_per_chip=8, num_cache_chips=2, ways=2,
+        bloom_words=words))
+    n = ref.bf1.shape[0]
+    rng = np.random.default_rng(seed + 10)
+    bf = (rng.integers(0, 1 << 32, size=(2, n, words), dtype=np.uint64)
+          & rng.integers(0, 1 << 32, size=(2, n, words), dtype=np.uint64)
+          ).astype(np.uint32)
+    n_mru = rng.integers(0, 2, size=n).astype(np.int32)
+    ref.bf1, ref.bf2 = jnp.asarray(bf[0]), jnp.asarray(bf[1])
+    ref.n_mru = n_mru.copy()
+    sets, tags = _record_batch(n, 48, seed)
+    swaps = np.zeros(n, int)
+    for s, t in zip(sets, tags):
+        ref._bloom_record(int(s), int(t))
+        swaps[s] += not np.asarray(ref.bf2[int(s)]).any()
+    state = [_t(bf[0]), _t(bf[1]), torch.from_numpy(n_mru.copy())]
+    t_pool.reset_launches()
+    t_ops.bloom_record(*state, sets, tags, 2)
+    assert t_pool.plain_runs["bloom_record"] == 1
+    _same(ref.bf1, state[0], "bf1")
+    _same(ref.bf2, state[1], "bf2")
+    _same(ref.n_mru, state[2], "n_mru")
+    assert swaps.max() >= 2
+
+
+def test_record_plan_orders_keys_by_set_stably():
+    sets = np.asarray([4, 1, 4, 0, 1, 4], np.int64)
+    tags = np.asarray([10, 11, 12, 13, 14, MAX], np.uint32)
+    plan, runs = t_pool.record_plan(sets, tags)
+    assert runs == 3 and plan.dtype == np.int32
+    np.testing.assert_array_equal(plan[:3], [0, 1, 4])          # run sets
+    np.testing.assert_array_equal(plan[3:7], [0, 1, 3, 6])      # offsets
+    np.testing.assert_array_equal(plan[7:].view(np.uint32),
+                                  [13, 11, 14, 10, 12, MAX])    # batch order
+
+
+def test_bloom_record_checks_its_arguments():
+    bf = torch.zeros((4, 8), dtype=torch.int32)
+    n_mru = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="outside"):
+        t_ops.bloom_record(bf, bf.clone(), n_mru, [0, 4], [1, 2], 2)
+    with pytest.raises(ValueError, match="sets and tags"):
+        t_ops.bloom_record(bf, bf.clone(), n_mru, [0, 1], [1], 2)
+    with pytest.raises(ValueError, match="n_mru"):
+        t_ops.bloom_record(bf, bf.clone(), n_mru[:3], [0], [1], 2)
+    t_ops.bloom_record(bf, bf.clone(), n_mru, [], [], 2)     # no keys
+    assert not bf.any() and not n_mru.any()
+
+
 # ------------------------------------------------------------------ BDI
 
 def _bdi_blocks(seed):
@@ -186,6 +287,52 @@ def test_gather_of_a_way_out_of_range_reads_zeros():
     assert not _u(pg)[:4].any()
 
 
+def test_read_rows_matches_reference_read_pages():
+    """``read_rows`` on a reference pool's stores and plan gives what the
+    reference's ``read_pages`` gives: hits on both tiers, extended blocks
+    at every BDI level, tier-2 rows as zeros."""
+    ref = j_kv.MorpheusPagePool(j_kv.PoolConfig(conv_sets=64,
+                                                ext_sets_per_chip=16,
+                                                ways=4))
+    total = ref.cfg.amap.total_sets
+    keys = np.asarray([total * 3 + s for s in range(0, total, 5)], np.uint32)
+    ref.lookup_batch(keys)
+    for k in keys:
+        ref.write_page(int(k), jnp.asarray(pool_payload(int(k))))
+    fresh = np.asarray([total * 9 + 1, total * 9 + 70], np.uint32)
+    plan = ref.lookup_batch(np.concatenate([keys, fresh]))
+    assert set(plan.tier) == {0, 1, 2}
+    ext = plan.tier == 1
+    levels = np.asarray(ref.ext_level)[plan.set_idx[ext], plan.way[ext]]
+    assert set(levels) == {0, 1, 2}
+    want = np.asarray(ref.read_pages(plan))
+    got = t_ops.read_rows(*[_t(np.array(getattr(ref, f))) for f in (
+        "conv_data", "ext_data", "ext_level", "ext_base")],
+        *[_t(c) for c in plan])
+    _same(want, got, "read_rows")
+    assert not want[plan.tier == 2].any() and want[plan.tier != 2].any()
+
+
+def test_read_rows_outside_the_stores_reads_zeros():
+    rng = np.random.default_rng(4)
+    conv, _, _, _ = _read_inputs(6, 4, seed=5)
+    ext, _, _, _ = _read_inputs(5, 8, seed=6)
+    level = rng.integers(0, 3, size=(5, 8)).astype(np.int32)
+    base = rng.integers(0, 1 << 32, size=(5, 8), dtype=np.uint64).astype(
+        np.uint32)
+    tier = np.asarray([0, 0, 0, 1, 1, 1, 2, 3, -1], np.int32)
+    sets = np.asarray([5, 6, -1, 4, 5, 0, 0, 0, 0], np.int32)
+    ways = np.asarray([3, 0, 0, 7, 0, 8, 0, 0, 0], np.int32)
+    got = _u(t_ops.read_rows(_t(conv), _t(ext), _t(level), _t(base),
+                             _t(tier), _t(sets), _t(ways)))
+    np.testing.assert_array_equal(got[0], conv[5, 3])
+    assert not got[[1, 2, 4, 5, 6, 7, 8]].any()
+    row = np.asarray(j_ops.cached_block_read(
+        jnp.asarray(ext[4:5]), jnp.asarray([7], np.int32),
+        jnp.asarray(level[4, 7:8]), jnp.asarray(base[4, 7:8])))[0]
+    np.testing.assert_array_equal(got[3], row)
+
+
 # ------------------------------------------------------------- wrappers
 
 def test_wrappers_run_plain_versions_on_the_cpu_and_check_arguments():
@@ -196,8 +343,9 @@ def test_wrappers_run_plain_versions_on_the_cpu_and_check_arguments():
     t_ops.bdi_decompress(*t_ops.bdi_compress(_t(blocks)))
     assert set(t_pool.launches.values()) == {0}
     assert t_pool.plain_runs == {
-        "tag_lookup": 1, "bloom_query": 0, "bdi_compress": 1,
-        "bdi_decompress": 1, "gather_blocks": 0, "cached_block_read": 0}
+        "tag_lookup": 1, "bloom_query": 0, "bloom_record": 0,
+        "bdi_compress": 1, "bdi_decompress": 1, "gather_blocks": 0,
+        "cached_block_read": 0, "read_rows": 0}
     with pytest.raises(TypeError, match="valid"):
         t_ops.tag_lookup(_t(tags), _t(valid.astype(np.int32)), _t(lru),
                          _t(req))

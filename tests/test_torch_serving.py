@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 from repro.serving import paged_kv as j_kv  # noqa: E402
 from repro_torch.core.engine import BackendError  # noqa: E402
+from repro_torch.kernels import pool as t_pool  # noqa: E402
 from repro_torch.serving import paged_kv as t_kv  # noqa: E402
 from torch_parity import pool_payload, pool_stream  # noqa: E402
 
@@ -127,6 +128,45 @@ def test_reference_behaviours_the_port_keeps():
     assert (st["ext_valid"][s] & (st["ext_tags"][s] == k // total)).sum() == 2
     # bf1's insert mask went into both filters of the set
     assert st["bf1"][s].any() and (st["bf1"][s] == st["bf2"][s]).all()
+
+
+def test_a_batch_of_extended_keys_is_recorded_in_one_run():
+    """One ``lookup_batch`` of K extended keys (repeated sets, one key
+    twice) runs the predictor's query once and ``bloom_record`` once,
+    where the reference's per-key record made 2K + 1 queries; the filters
+    and MRU counts stay the reference's."""
+    ref, port = _pair(**dict(ENGINE_POOL, ways=2))
+    total, conv = ref.cfg.amap.total_sets, ref.cfg.conv_sets
+    sets = [conv + s for s in (5, 9, 5, 70, 9, 5, 5, 9)]
+    keys = np.asarray([s + total * (3 + j) for j, s in enumerate(sets)]
+                      + [sets[0] + total * 3], np.uint32)
+    for b in range(3):
+        t_pool.reset_launches()
+        plan = port.lookup_batch(keys)
+        assert (plan.tier != 0).all()
+        assert t_pool.plain_runs["bloom_query"] == 1
+        assert t_pool.plain_runs["bloom_record"] == 1
+        assert t_pool.plain_runs["read_rows"] == 0
+        ref.lookup_batch(keys)
+        _assert_same_state(ref, port, f"batch {b}")
+        _assert_same_stats(ref, port, f"batch {b}")
+    assert t_kv.pool_to_numpy(port)["n_mru"].any()
+
+
+def test_read_pages_is_one_read_of_both_tiers():
+    port = t_kv.MorpheusPagePool(t_kv.PoolConfig(**ENGINE_POOL),
+                                 device="cpu")
+    total = port.cfg.amap.total_sets
+    keys = np.asarray([total * 2 + s for s in range(0, total, 3)], np.uint32)
+    port.lookup_batch(keys)
+    for k in keys:
+        port.write_page(int(k), pool_payload(int(k)))
+    plan = port.lookup_batch(keys)
+    assert set(plan.tier) == {0, 1}
+    t_pool.reset_launches()
+    port.read_pages(plan)
+    assert {k: v for k, v in t_pool.plain_runs.items() if v} == {
+        "read_rows": 1}
 
 
 def test_written_payloads_read_back_at_every_level():
