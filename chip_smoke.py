@@ -34,14 +34,17 @@ Phases (one line each; any failure exits non-zero and prints no result):
      dispatch by CUDA events, and the scan kernels' own device time from
      a profiled pass);
   5. pool kernels vs plain at large shapes: ``tag_lookup`` on (51200, 8)
-     and (51200, 32), ``bloom_query`` on 4096 queries (pre-gathered, and
-     by row of a (51200, 8) store), ``bloom_record`` of 4096 keys over
-     51 200 sets with repeats, ``bdi_compress`` of 65 536 blocks of every
-     level and the decompress round trip, the block read (plain and fused
-     with decompression) of 4096 rows of (4096, 32, 32), and ``read_rows``
-     of 4096 rows of both tiers from phase 8's stores, each equal to its
-     plain version (tolerance 0), with times and bounds, and the floor of
-     a launch (a one-element ``add_``);
+     and (51200, 32), ``lookup_fill`` of 512 requests (4 rounds) on
+     (51200, 8), ``bloom_query`` on 4096 queries (pre-gathered, and by row
+     of a (51200, 8) store), ``bloom_record`` of 4096 keys over 51 200
+     sets with repeats, ``bdi_compress`` of 65 536 blocks of every level
+     and the decompress round trip, ``page_write`` of 4096 pages into
+     phase 8's (51200, 32) extended store with BDI, the block read (plain
+     and fused with decompression) of 4096 rows of (4096, 32, 32), and
+     ``read_rows`` of 4096 rows of both tiers from phase 8's stores, each
+     equal to its plain version (tolerance 0; the in-place wrappers on
+     copies of their state), with times and bounds, and the floor of a
+     launch (a one-element ``add_``);
   6. golden pool: the serving pool on the card replays the three cells
      of ``tests/data/torch_golden_pool.json``; stats and crcs of plans,
      pages read and final state equal the reference's;
@@ -52,20 +55,24 @@ Phases (one line each; any failure exits non-zero and prints no result):
      share Zipf-popular system prompts and continue earlier
      conversations; a fetch installs the prefix's blake2b digest, every
      hit must read back what was installed; the working set exceeds the
-     pool, so pages are evicted; launches by wrapper (one predictor query
-     and one Bloom record an extended lookup, one block read a hit, or
-     the phase fails), keys per second, hit rate, evictions, and a
-     profiled window of host against device time;
+     pool, so pages are evicted; launches by wrapper (one ``lookup_fill``
+     a conventional lookup, one predictor query and one Bloom record an
+     extended lookup, one ``page_write`` a ``write_page``, one block read
+     a hit, no ``tag_lookup`` or ``bdi_compress``, or the phase fails),
+     keys per second, hit rate, evictions, and a profiled window of host
+     against device time;
   8. full-scale pool: 51 200 conventional sets (50 MiB of 128-byte
      blocks) and 4 x 12 800 extended sets of 4 x 8 BDI slots under a
      batched synthetic mix (128 rounds of 512 keys from 32 sequences x 36
      layers x 16 pages, payloads of every BDI level), with the same
-     checks (at most two Bloom launches and one block read a round); it
+     checks (at most one ``lookup_fill``, two Bloom launches and one block
+     read a round); it
      evicts nothing and stands for no user's traffic: it runs the kernels
      at the full store's shapes with the state on the card;
   9. every pool-kernel call of phases 7 and 8, one per input shape,
-     replayed against its plain version (tolerance 0), and the most
-     frequent and the largest shape of each timed with its bound;
+     replayed against its plain version (tolerance 0; the in-place
+     wrappers on copies of their inputs), and the most frequent and the
+     largest shape of each timed with its bound;
   10. attention kernels vs plain at large shapes: decode with B = 8,
      H = 32, KV = 8, hd = 128, T = 1088 and flash with B = 8, S = T =
      1024, causal, in f32 and bf16; the bf16 calls gemma3-27b's serving
@@ -520,12 +527,17 @@ POOL_SERVING = dict(conv_sets=51200, ext_sets_per_chip=12800,
                     predictor="bloom")
 ROUNDS, ROUND_KEYS = 128, 512
 PROFILED_ROUNDS = 4
-# the wrappers the serving pool calls, and their kernels
-POOL_WRAPPERS = ("tag_lookup", "bloom_query", "bloom_record", "bdi_compress",
+# the wrappers the serving pool calls, and their kernels; the reference
+# signatures tag_lookup and bdi_compress run the first and fourth kernel
+# too, in phase 5 only
+POOL_WRAPPERS = ("lookup_fill", "bloom_query", "bloom_record", "page_write",
                  "read_rows")
-POOL_KERNELS = ("tag_lookup_kernel", "bloom_query_kernel",
-                "bloom_record_kernel", "bdi_compress_kernel",
+POOL_KERNELS = ("lookup_fill_kernel", "bloom_query_kernel",
+                "bloom_record_kernel", "page_write_kernel",
                 "block_read_kernel")
+# the wrappers that work in place on host plans: their kernels are timed
+# by a graph of the bare launch and replayed on copies
+IN_PLACE = ("bloom_record", "lookup_fill", "page_write")
 
 
 def pool_payload(keys: np.ndarray, words: int = 32) -> np.ndarray:
@@ -570,6 +582,19 @@ def pool_bound(name: str, args) -> tuple:
     if name == "tag_lookup":
         s, w = args[0].shape
         return bytes_bound(s * w * (4 + 1 + 4 + 4) + s * 12, 4 * s * w)
+    if name == "lookup_fill":      # the store, plan and records; the rows
+        tags, _, _, sets, _ = args              # of the sets asked about
+        (s, w), k = tags.shape, len(sets)
+        runs = np.unique(sets, return_counts=True)[1]
+        r = min(4, int(runs.max()))             # the pool's 4 rounds a batch
+        return bytes_bound(s * w * 9 + (s + 1 + 2 * k) * 4 + k * 20
+                           + len(runs) * w * 9, 4 * s * w * r)
+    if name == "page_write":       # keys, the probed rows, pages in and out
+        tags, _, data, level, _, sets, _, _ = args
+        n, w, words = len(sets), tags.shape[1], data.shape[2]
+        return bytes_bound(n * (8 + 5 * w + 8 * words
+                                + 8 * (level is not None)),
+                           n * (2 * w + 6 * words))
     if name == "bloom_query":                  # (+ 4 B a row index)
         q, words = args[1].shape[0], args[0].shape[1]
         return bytes_bound(q * (words * 8 + 8 + 4 * (len(args) > 2)),
@@ -658,6 +683,15 @@ def phase_pool_kernels(env: Env, dev) -> dict:
         **times(lambda: kp.bloom_query(filters, tags),
                 lambda: kp.bloom_query_plain(filters, tags), 50, 5),
         bound=pool_bound("bloom_query", (filters, tags)))
+    # a batch's conventional rounds and fills: 512 requests over phase 8's
+    # (51200, 8) store, one set taking 6 of them (4 rounds)
+    largs = fill_args(rng, POOL_SERVING["conv_sets"], POOL_SERVING["ways"],
+                      512, dev)
+    out["lookup_fill"] = dict(
+        err=inplace_exact(env, "lookup_fill", largs, "lookup_fill"),
+        shape=[*largs[0].shape, len(largs[3])],
+        **inplace_times(env, "lookup_fill", largs, 50, 5),
+        bound=pool_bound("lookup_fill", largs))
     # BDI: 65 536 blocks of every level, and the round trip
     n = 65536
     blocks = bdi_blocks(rng, n, dev)
@@ -674,6 +708,15 @@ def phase_pool_kernels(env: Env, dev) -> dict:
         **times(lambda: kp.bdi_compress(blocks),
                 lambda: kp.bdi_compress_plain(blocks), 50, 5),
         bound=pool_bound("bdi_compress", (blocks,)))
+    # write_page of 4096 pages of every level into phase 8's extended
+    # store (51200, 32) with BDI, each probing its set
+    wargs = write_args(rng, 4096, dev)
+    out["page_write"] = dict(
+        err=inplace_exact(env, "page_write", wargs, "page_write"),
+        shape=[*wargs[2].shape, len(wargs[5])],
+        **inplace_times(env, "page_write", wargs, 50, 1),
+        bound=pool_bound("page_write", wargs))
+    del wargs
     out["bdi_decompress"] = dict(
         err=err_d, shape=[n, 32],
         **times(lambda: kp.bdi_decompress(*comp),
@@ -722,8 +765,9 @@ def phase_pool_kernels(env: Env, dev) -> dict:
     # set taking 256 of them, a fifth of the tags repeated
     rec = record_args(rng, n_sets, 4096, words, POOL_SERVING["ways"], dev)
     out["bloom_record"] = dict(
-        err=record_exact(env, rec, "bloom_record"),
-        shape=[n_sets, words, 4096], **record_times(env, rec, 50, 1),
+        err=inplace_exact(env, "bloom_record", rec, "bloom_record"),
+        shape=[n_sets, words, 4096],
+        **inplace_times(env, "bloom_record", rec, 50, 1),
         bound=pool_bound("bloom_record", rec))
     # read_rows: 4096 rows of both tiers and tier 2 from phase 8's stores
     # (52 MB conventional, 210 MB extended: past the 50 MB L2)
@@ -771,37 +815,106 @@ def copy_arg(a):
         a.copy() if isinstance(a, np.ndarray) else a)
 
 
-def record_exact(env: Env, args, ctx: str) -> int:
-    """``bloom_record`` and its plain version on two copies of ``args``:
-    the filters and counts they leave must be identical."""
+def fill_args(rng, s: int, w: int, k: int, dev):
+    """``lookup_fill``'s arguments: an (s, w) store on the card (few tag
+    values, every other set full, LRU ties, a valid tag 0 in some sets)
+    and ``k`` requests, one set taking 6 of them."""
+    tags = u32(rng, (s, w), dev, hi=6)
+    valid = torch.from_numpy(rng.random((s, w)) < 0.7).to(dev)
+    valid[::2] = True
+    tags[5::9, 0] = 0
+    lru = u32(rng, (s, w), dev, hi=1 << 12)
+    lru[::3] = lru[::3, :1]
+    sets = rng.integers(0, s, size=k)
+    sets[: 6 * 7: 7] = sets[0]
+    req = rng.integers(0, 8, size=k).astype(np.uint32)
+    return tags, valid, lru, sets, req
+
+
+def write_args(rng, n: int, dev):
+    """``page_write``'s arguments on phase 8's extended store with BDI:
+    ``n`` distinct (set, tag) keys, most held by their set, and pages of
+    every BDI level."""
+    sets, ways = POOL_SERVING["conv_sets"], 4 * POOL_SERVING["ways"]
+    keys = rng.choice(sets * 5, size=n, replace=False)
+    return (u32(rng, (sets, ways), dev, hi=5),
+            torch.from_numpy(rng.random((sets, ways)) < 0.8).to(dev),
+            u32(rng, (sets, ways, 32), dev),
+            torch.from_numpy(rng.integers(0, 3, size=(sets, ways)).astype(
+                np.int32)).to(dev),
+            u32(rng, (sets, ways), dev), keys // 5,
+            (keys % 5).astype(np.uint32),
+            bdi_blocks(rng, n, "cpu").numpy().view(np.uint32))
+
+
+def inplace_outputs(name: str, args, result) -> tuple:
+    """What an in-place wrapper leaves: the state it changes (and its
+    records, for ``lookup_fill``)."""
+    if name == "lookup_fill":
+        return (result, *args[:3])
+    if name == "page_write":
+        return tuple(a for a in args[2:5] if a is not None)
+    return args[:3]
+
+
+def inplace_exact(env: Env, name: str, args, ctx: str) -> int:
+    """An in-place wrapper and its plain version on two copies of
+    ``args``: what they leave must be identical."""
     kp = env.pool
     a, b = [tuple(copy_arg(x) for x in args) for _ in range(2)]
-    kp.bloom_record(*a)
-    kp.bloom_record_plain(*b)
-    return exact(a[:3], b[:3], ctx)
+    got = inplace_outputs(name, a, getattr(kp, name)(*a))
+    want = inplace_outputs(name, b, getattr(kp, name + "_plain")(*b))
+    return exact(got, want, ctx)
 
 
-def record_times(env: Env, args, reps: int, plain_reps: int) -> dict:
-    """``times`` of ``bloom_record`` on a copy of ``args`` (it works in
-    place): the kernel's device ms by graph replay of its launch on a plan
-    copied to the card beforehand (a graph cannot capture the wrapper's
-    copy from the host), the wrapper's ms a call back to back (host plan
-    and copy included), and the plain version's ms back to back."""
+def bare_launch(env: Env, name: str, args):
+    """A closure that launches in-place wrapper ``name``'s kernel on
+    ``args`` with its host plan copied to the card beforehand: the part of
+    the wrapper a CUDA graph can capture."""
     kp, b = env.pool, env.build
-    bf1, bf2, n_mru, sets, tags, ways = [copy_arg(x) for x in args]
-    plan, runs = kp.record_plan(np.asarray(sets, np.int64),
-                                np.asarray(tags, np.uint32))
-    plan = torch.from_numpy(plan).to(bf1.device)
-
-    def launch():
-        b.raise_on(kp._lib().bloom_record_launch(
+    dev = args[0].device
+    if name == "bloom_record":
+        bf1, bf2, n_mru, sets, tags, ways = args
+        plan, runs = kp.record_plan(np.asarray(sets, np.int64),
+                                    np.asarray(tags, np.uint32))
+        plan = torch.from_numpy(plan).to(dev)
+        return lambda: b.raise_on(kp._lib().bloom_record_launch(
             b.ptr(bf1), b.ptr(bf2), b.ptr(n_mru), b.ptr(plan), runs,
-            bf1.shape[1], ways, b.stream(bf1.device)), "bloom_record")
-    call = (bf1, bf2, n_mru, sets, tags, ways)
-    return dict(ms=device_ms(launch, reps),
-                call_ms=timed_cuda(lambda: kp.bloom_record(*call), reps),
-                plain_ms=timed_cuda(lambda: kp.bloom_record_plain(*call),
-                                    plain_reps),
+            bf1.shape[1], ways, b.stream(dev)), "bloom_record")
+    if name == "lookup_fill":
+        tags, valid, lru, sets, req = args
+        plan, n_rounds = kp.fill_plan(np.asarray(sets, np.int64),
+                                      np.asarray(req, np.uint32),
+                                      tags.shape[0])
+        plan = torch.from_numpy(plan).to(dev)
+        rec = torch.empty((len(kp.REC_FIELDS), len(sets)),
+                          dtype=torch.int32, device=dev)
+        return lambda: kp._launch_lookup(
+            "lookup_fill", tags, valid, lru, lru, plan, len(sets), n_rounds,
+            rec, None, None, None)
+    tags, valid, data, level, base, sets, ptags, pages = args
+    keys = torch.from_numpy(np.concatenate([
+        np.asarray(sets, np.int64), np.asarray(ptags, np.uint32).view(
+            np.int32)]).astype(np.int32)).to(dev)
+    if isinstance(pages, np.ndarray):
+        pages = torch.from_numpy(pages.view(np.int32)).to(dev)
+    return lambda: kp._launch_write("page_write", tags, valid, data, level,
+                                    base, keys, pages, len(sets))
+
+
+def inplace_times(env: Env, name: str, args, reps: int,
+                  plain_reps: int) -> dict:
+    """``times`` of an in-place wrapper on a copy of ``args``: the
+    kernel's device ms by graph replay of its bare launch (a graph cannot
+    capture the wrapper's copy from the host), the wrapper's ms a call
+    back to back (host plan and copy included), and the plain version's ms
+    back to back.  Each call works on the state the previous one left."""
+    kp = env.pool
+    call = tuple(copy_arg(x) for x in args)
+    kernel, plain = getattr(kp, name), getattr(kp, name + "_plain")
+    return dict(ms=device_ms(bare_launch(env, name, call), reps),
+                call_ms=timed_cuda(lambda: kernel(*call), reps),
+                plain_ms=timed_cuda(lambda: plain(*call), plain_reps),
                 library_ms=None)
 
 
@@ -991,11 +1104,13 @@ def chat_prompts(n: int, seed: int = 0):
         yield prompt
 
 
-def serve_request(pool, page_key, prompt, installed: dict, ctx: str) -> None:
+def serve_request(pool, page_key, prompt, installed: dict, ctx: str) -> int:
     """``Engine.run``'s page-cache consultation for one prompt: one
     ``lookup_batch`` per page key ``page_key(prefix hash, 0, page)``; a
     backing fetch installs the prefix's digest; a hit is read back and
-    held to what was installed under its key."""
+    held to what was installed under its key.  Returns the number of
+    ``write_page`` calls."""
+    writes = 0
     for pg in range(len(prompt) // PAGE_TOKENS):
         prefix = prompt[: (pg + 1) * PAGE_TOKENS]
         key = page_key(prefix_hash(prefix), 0, pg)
@@ -1003,11 +1118,13 @@ def serve_request(pool, page_key, prompt, installed: dict, ctx: str) -> None:
         if plan.tier[0] == 2:
             installed[key] = digest_page(prefix)
             pool.write_page(key, installed[key])
+            writes += 1
             continue
         got = pool.read_pages(plan).cpu().numpy().view(np.uint32)[0]
         if not np.array_equal(got, installed[key]):
             fail(f"{ctx}: key {key} (tier {int(plan.tier[0])}) read back "
                  f"another page")
+    return writes
 
 
 def phase_engine_serving(env: Env, dev) -> dict:
@@ -1020,11 +1137,12 @@ def phase_engine_serving(env: Env, dev) -> dict:
     rec = pool.attach_recorder(kv.TraceRecorder(1 << 20))
     installed = {}
     lookups = sum(len(p) // PAGE_TOKENS for p in prompts[:ENGINE_REQUESTS])
+    writes = []
 
     def serve():
         for i, prompt in enumerate(prompts[:ENGINE_REQUESTS]):
-            serve_request(pool, kv.page_key, prompt, installed,
-                          f"engine request {i}")
+            writes.append(serve_request(pool, kv.page_key, prompt, installed,
+                                        f"engine request {i}"))
     run = drive(env, "engine serving path", serve)
     stats, events, hit_rate = pool.stats, rec.counts(), pool.hit_rate()
     distinct = len(installed)
@@ -1036,12 +1154,16 @@ def phase_engine_serving(env: Env, dev) -> dict:
     if stats.lookups != lookups:
         fail(f"engine serving path: {stats.lookups} lookups, expected "
              f"{lookups}")
-    # one predictor query and one Bloom record an extended lookup, one
-    # block read a hit (each read_pages call)
+    # one lookup_fill a conventional lookup, one predictor query and one
+    # Bloom record an extended lookup, one page_write a write_page, one
+    # block read a hit (each read_pages call), and no reference-signature
+    # launch
     ext_lookups = stats.ext_hits + stats.ext_false_pos + stats.ext_pred_miss
+    conv_lookups = stats.conv_hits + stats.conv_misses
     hits = stats.conv_hits + stats.ext_hits
-    want = {"bloom_query": ext_lookups, "bloom_record": ext_lookups,
-            "read_rows": hits}
+    want = {"lookup_fill": conv_lookups, "bloom_query": ext_lookups,
+            "bloom_record": ext_lookups, "page_write": sum(writes),
+            "read_rows": hits, "tag_lookup": 0, "bdi_compress": 0}
     got = {k: run["launches"][k] for k in want}
     if got != want:
         fail(f"engine serving path: launches {got}, expected {want}")
@@ -1054,13 +1176,15 @@ def phase_engine_serving(env: Env, dev) -> dict:
         f"pages against {cap} slots, in {run['wall_s']:.3f} s "
         f"({keys_s:.1f} keys/s); hit rate {hit_rate:.4f} ({stats}); "
         f"events {json.dumps(events)}; launches by wrapper "
-        f"{json.dumps(run['launches'])}, plain runs 0; Bloom launches "
-        f"{got['bloom_query'] + got['bloom_record']} (a query and a record "
-        f"each) for {ext_lookups} extended lookups, block reads "
-        f"{got['read_rows']} for {hits} hits; "
+        f"{json.dumps(run['launches'])}, plain runs 0; lookup_fill launches "
+        f"{got['lookup_fill']} for {conv_lookups} conventional lookups, Bloom "
+        f"launches {got['bloom_query'] + got['bloom_record']} (a query and a "
+        f"record each) for {ext_lookups} extended lookups, page_write "
+        f"launches {got['page_write']} for {sum(writes)} write_page calls, "
+        f"block reads {got['read_rows']} for {hits} hits; "
         + window_text(window, f"{ENGINE_PROFILED} more prompts"))
     return dict(run, keys_per_s=keys_s, lookups=lookups,
-                distinct=distinct, slots=cap,
+                writes=sum(writes), distinct=distinct, slots=cap,
                 hit_rate=hit_rate, stats=stats._asdict(),
                 events=events, window=window)
 
@@ -1109,10 +1233,13 @@ def phase_full_scale(env: Env, dev) -> dict:
         fail(f"full-scale pool: a tier never hit ({stats})")
     n = run["launches"]
     bloom = n["bloom_query"] + n["bloom_record"]
-    if bloom > 2 * ROUNDS or n["read_rows"] > ROUNDS:
+    if bloom > 2 * ROUNDS or n["read_rows"] > ROUNDS or \
+            n["lookup_fill"] > ROUNDS or n["tag_lookup"] or n["bdi_compress"]:
         fail(f"full-scale pool: {bloom} Bloom launches (at most "
-             f"{2 * ROUNDS}) and {n['read_rows']} block reads (at most "
-             f"{ROUNDS}) in {ROUNDS} rounds")
+             f"{2 * ROUNDS}), {n['read_rows']} block reads and "
+             f"{n['lookup_fill']} lookup_fill launches (at most {ROUNDS} "
+             f"each), {n['tag_lookup']} tag_lookup and {n['bdi_compress']} "
+             f"bdi_compress launches (none) in {ROUNDS} rounds")
     window = profiled_window(lambda: [
         serve_round(pool, keys, pages, index, "profiled round")
         for keys in traffic[ROUNDS:]])
@@ -1121,7 +1248,8 @@ def phase_full_scale(env: Env, dev) -> dict:
         f"keys in {run['wall_s']:.3f} s ({keys_s:.1f} keys/s), hit rate "
         f"{hit_rate:.4f} ({stats}); launches by wrapper "
         f"{json.dumps(run['launches'])}, plain runs 0; Bloom launches "
-        f"{bloom}, block reads {n['read_rows']}; "
+        f"{bloom}, lookup_fill launches {n['lookup_fill']}, page_write "
+        f"launches {n['page_write']}, block reads {n['read_rows']}; "
         + window_text(window, f"{PROFILED_ROUNDS} more rounds"))
     return dict(run, keys_per_s=keys_s, hit_rate=hit_rate,
                 stats=stats._asdict(), window=window)
@@ -1129,7 +1257,8 @@ def phase_full_scale(env: Env, dev) -> dict:
 
 def call_rows(name: str, args) -> int:
     """The rows (queries, keys, blocks, sets) of one pool-wrapper call."""
-    i = {"bloom_query": 1, "bloom_record": 3, "read_rows": 4}.get(name, 0)
+    i = {"bloom_query": 1, "bloom_record": 3, "read_rows": 4,
+         "lookup_fill": 3, "page_write": 5}.get(name, 0)
     return args[i].shape[0]
 
 
@@ -1143,8 +1272,8 @@ def replay_path(env: Env, cell: str, calls: PathCalls) -> dict:
         if not call_rows(name, args):
             continue
         ctx = f"{cell}: {name} {shapes}"
-        if name == "bloom_record":
-            err = record_exact(env, args, ctx)
+        if name in IN_PLACE:
+            err = inplace_exact(env, name, args, ctx)
         else:
             err = exact(getattr(kp, name)(*args),
                         getattr(kp, name + "_plain")(*args), ctx)
@@ -1165,7 +1294,7 @@ def replay_path(env: Env, cell: str, calls: PathCalls) -> dict:
                 # the conventional rows' gather, where the call has some
                 conv = [c[args[4] == 0].long() for c in args[5:]]
                 library = (lambda a=args, c=conv: a[0][c[0], c[1]])
-            t = (record_times(env, args, 50, 5) if name == "bloom_record"
+            t = (inplace_times(env, name, args, 50, 5) if name in IN_PLACE
                  else times(lambda a=args: kernel(*a),
                             lambda a=args: plain(*a), 50, 5,
                             library=library))
@@ -1586,8 +1715,10 @@ def phase_serving(env: Env, dev) -> dict:
         fail(f"serving: attention launches {counts}, expected {want}")
     if any(plain.values()) or any(pool_plain.values()):
         fail(f"serving: plain versions ran ({plain}, {pool_plain})")
-    if not pool_counts["tag_lookup"]:
-        fail("serving: the pool's tag lookup never launched")
+    if not pool_counts["lookup_fill"] or pool_counts["tag_lookup"]:
+        fail(f"serving: the pool's conventional tier launched lookup_fill "
+             f"{pool_counts['lookup_fill']} and tag_lookup "
+             f"{pool_counts['tag_lookup']} times")
     tok = {r["round"]: r["tokens"] for r in results}
     vocab = cfg.padded_vocab()
     for r in results:
@@ -1724,19 +1855,21 @@ def pool_kernel_rows(pk: dict, cells: dict, paths: dict) -> list:
     """The pool kernels' entries of the kernels line: launches and times
     at the shape the engine-traffic cell (the main path) launched most,
     the other shapes timed on the path, and the large shapes of phase 5
-    (``large``, and for the indexed query and the two-tier read
-    ``large_by_row``)."""
+    (``large``, and ``large_<entry>`` for the path's wrapper where phase 5
+    times it apart from the reference signature)."""
     src = "src/repro_torch/kernels/csrc/pool.cu"
-    rows = {  # name: (replaces, kernel, wrappers, the phase-5 entries)
+    rows = {  # name: (replaces, kernel, wrappers, more phase-5 entries)
         "tag_lookup": ("src/repro/kernels/tag_lookup.py:26",
-                       "tag_lookup_kernel", ("tag_lookup",), ()),
+                       "lookup_fill_kernel", ("lookup_fill", "tag_lookup"),
+                       ("lookup_fill",)),
         "bloom_query": ("src/repro/kernels/bloom_query.py:33",
                         "bloom_query_kernel", ("bloom_query",),
                         ("bloom_query_rows",)),
         "bloom_record": ("src/repro/kernels/bloom_query.py:33",
                          "bloom_record_kernel", ("bloom_record",), ()),
         "bdi_compress": ("src/repro/kernels/bdi.py:28",
-                         "bdi_compress_kernel", ("bdi_compress",), ()),
+                         "page_write_kernel", ("page_write", "bdi_compress"),
+                         ("page_write",)),
         "bdi_decompress": ("src/repro/kernels/bdi.py:45",
                            "block_read_kernel",
                            ("read_rows", "bdi_decompress"), ("read_rows",)),
@@ -1745,7 +1878,16 @@ def pool_kernel_rows(pk: dict, cells: dict, paths: dict) -> list:
                           ("read_rows", "gather_blocks", "cached_block_read"),
                           ("read_rows",)),
     }
-    notes = {"bloom_record": "the reference pool's per-key _bloom_record "
+    notes = {"tag_lookup": "on the serving path the pool's conventional tier "
+             "(the reference's round loop of tag_lookup and _conv_fill, "
+             "src/repro/serving/paged_kv.py:221-253, 353) runs as one "
+             "lookup_fill launch a batch; tag_lookup is the same kernel, one "
+             "round",
+             "bdi_compress": "on the serving path write_page (the reference's "
+             "_probe, bdi_compress and three .at[].set, "
+             "src/repro/serving/paged_kv.py:293-313) runs as one page_write "
+             "launch; bdi_compress is the same kernel without the probe",
+             "bloom_record": "the reference pool's per-key _bloom_record "
              "(src/repro/serving/paged_kv.py:390: two _query_kernel "
              "launches and two ORs a key) as one launch a batch",
              "bdi_decompress": "on the serving path the decompression runs "
@@ -1755,7 +1897,7 @@ def pool_kernel_rows(pk: dict, cells: dict, paths: dict) -> list:
              "tiers in one launch; cached_block_read (gather + decompress) "
              "is the same kernel with per-row level/base"}
     out = []
-    for name, (replaces, kernel, wrappers, by_row) in rows.items():
+    for name, (replaces, kernel, wrappers, more) in rows.items():
         head = paths["engine"][wrappers[0]]["timed"][0]
         timed = [dict(wrapper=w, **{k: v for k, v in t.items()
                                     if k != "bound"},
@@ -1767,7 +1909,7 @@ def pool_kernel_rows(pk: dict, cells: dict, paths: dict) -> list:
                      "plain_ms": pk[k]["plain_ms"],
                      "bound_ms": pk[k]["bound"][0],
                      "library_ms": pk[k]["library_ms"]}
-                 for k in (name, *by_row)}
+                 for k in (name, *more)}
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "kernel": kernel,
@@ -1784,7 +1926,7 @@ def pool_kernel_rows(pk: dict, cells: dict, paths: dict) -> list:
             "shape": head["shape"], "path_shapes": timed,
             "launch_floor_ms": pk["launch_floor_ms"],
             "large": large.pop(name),
-            **({"large_by_row": large[by_row[0]]} if by_row else {}),
+            **{f"large_{k}": v for k, v in large.items()},
             **({"note": notes[name]} if name in notes else {})})
     return out
 

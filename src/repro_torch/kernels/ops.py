@@ -2,9 +2,9 @@
 ``repro.kernels.ops``: the serving pool's ``tag_lookup``,
 ``bloom_query``, ``bdi_compress``, ``bdi_decompress``, ``gather_blocks``
 and the fused ``cached_block_read``, with the pool's batched
-``bloom_record`` and two-tier ``read_rows`` (all in ``kernels/pool.py``),
-and the
-two attention kernels ``decode_attention`` and ``flash_attention``
+``lookup_fill`` and ``bloom_record``, its ``page_write`` and its two-tier
+``read_rows`` (all in ``kernels/pool.py``), and the two attention
+kernels ``decode_attention`` and ``flash_attention``
 (``kernels/attention.py``), each with its launch counts in its module.
 
 Each takes its device from its tensors, as ``engine_scan`` does: CUDA
@@ -16,4 +16,4 @@ a Pallas mode and tile and have no counterpart.
 from .attention import decode_attention, flash_attention  # noqa: F401
 from .pool import (bdi_compress, bdi_decompress, bloom_query,  # noqa: F401
                    bloom_record, cached_block_read, gather_blocks,
-                   read_rows, tag_lookup)
+                   lookup_fill, page_write, read_rows, tag_lookup)

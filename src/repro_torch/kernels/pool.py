@@ -7,10 +7,20 @@
     ``way[s]`` the first such way (0 on a miss, as ``argmax`` of an
     all-false row gives), and the new LRU row sets the hit way to
     ``LRU_MAX`` and decrements every other way, saturating at 0, on hit
-    rows only.  ``tag_lookup_kernel`` puts the ways of a set on the lanes
-    of a warp: the hit is a ballot and the way ``__ffs`` of it.  A set of
-    W <= 32 ways takes next_pow2(W) lanes, so a warp serves several
-    narrow sets; a wider set loops over 32-way chunks.
+    rows only.
+  * ``lookup_fill`` is the reference pool's conventional tier for a whole
+    batch (``src/repro/serving/paged_kv.py:221-253``: up to 4 rounds, each
+    a ``tag_lookup`` over the whole store with tag 0 for the sets it does
+    not ask about, then ``_conv_fill`` of each miss, ``:353``), in place.
+    The wrapper orders the requests by set on the host (stably) and copies
+    that plan once; it returns one record a request, read back once.
+    Both run ``lookup_fill_kernel``: a lane holds 4 ways of a set (a
+    uint4 of tags and of LRU counters and a word of valid bytes where the
+    rows allow), a set of G = ceil(W / 4) groups takes next_pow2(G) lanes
+    of a warp, the hit is a ballot and the way ``__ffs`` of it, and the
+    LRU victim (the least counter, invalid ways first, the lowest way on
+    ties) one segment-wide minimum of packed (counter, way) words.  A set
+    replays its rounds in registers and writes back once.
   * ``bloom_query`` replaces ``_query_kernel`` of
     ``src/repro/kernels/bloom_query.py`` (:33, called at :69).  Query
     ``q`` hashes ``tags[q]`` with the ``NUM_HASHES`` multiply-shift hashes
@@ -38,9 +48,14 @@
     every segment from it give the level: ``HIGH`` when all fit int8 (as
     unsigned values, ``d <= 127`` or ``d >= 2^32 - 128``), ``LOW`` when
     they fit int16, else ``UNCOMP``; the payload is the deltas, or the raw
-    block when ``UNCOMP``.  ``bdi_compress_kernel`` maps one block onto
-    one warp: the base comes from lane 0 by ``__shfl_sync`` and the fit
-    tests are ``__all_sync`` votes.
+    block when ``UNCOMP``.  ``page_write`` is the reference pool's
+    ``write_page`` after its routing (``paged_kv.py:293``: ``_probe``
+    ``:339``, then ``bdi_compress`` and three ``.at[].set`` writes on the
+    extended tier, a raw write otherwise) for N pages.  Both run
+    ``page_write_kernel``, one warp a page: the probe is a ballot and
+    ``__ffs``, the base comes from lane 0 by ``__shfl_sync`` and the fit
+    tests are ``__all_sync`` votes; payload, level and base go straight
+    into the store's (set, way) row.
   * ``gather_blocks``, the Indirect-MOV (§4.3.2), replaces
     ``_gather_kernel`` of ``src/repro/kernels/gather_blocks.py`` (:26,
     called at :47): the row ``way[s]`` of each set's (W, words) tile; a
@@ -62,11 +77,13 @@ Every kernel moves each byte once and is bound by device-memory bytes.
 The reference tiles 256 sets (``tag_lookup``), 512 queries
 (``bloom_query``), 256 blocks (BDI) and 64 sets (``gather_blocks``) per
 program and asserts that the size is at most one tile or a multiple of
-it; the kernels take any size (a bounds-checked grid), so parity inputs
-keep to the sizes the reference accepts.  The serving path calls them a
-few rows at a time, where a launch costs more than its bytes: so one
-``lookup_batch`` makes one ``bloom_query`` and one ``bloom_record``
-launch, and one ``read_pages`` one ``read_rows`` launch.
+it; the kernels take any size (a bounds-checked grid, up to ``MAX_WAYS``
+ways), so parity inputs keep to the sizes the reference accepts.  The
+serving path calls them a few rows at a time, where a launch costs more
+than its bytes: so one ``lookup_batch`` makes one ``lookup_fill``, one
+``bloom_query`` and one ``bloom_record`` launch, one ``write_page`` one
+``page_write`` launch and no read-back, and one ``read_pages`` one
+``read_rows`` launch.
 
 Dtypes: tags, LRU counters, requests, filter words, masks, blocks, bases
 and payloads are int32 tensors holding the uint32 bit pattern; valid bits
@@ -92,9 +109,13 @@ from ..core.tag_store import LRU_MAX
 
 SEGMENTS = 32
 MAX_RECORD_WORDS = 256         # bloom_record_kernel: 8 words a lane
-WRAPPERS = ("tag_lookup", "bloom_query", "bloom_record", "bdi_compress",
-            "bdi_decompress", "gather_blocks", "cached_block_read",
-            "read_rows")
+MAX_WAYS = 256                 # lookup_fill_kernel: 4 ways a lane, 2 x 32
+ROUNDS = 4                     # the reference pool's conventional rounds a
+#                                batch (one request a set a round)
+REC_FIELDS = ("round", "hit", "way", "evicted", "victim_tag")
+WRAPPERS = ("tag_lookup", "lookup_fill", "bloom_query", "bloom_record",
+            "bdi_compress", "page_write", "bdi_decompress", "gather_blocks",
+            "cached_block_read", "read_rows")
 
 # Launches of each wrapper's kernel since the last ``reset_launches``,
 # and runs of each plain version (which never count as launches).
@@ -107,13 +128,10 @@ def reset_launches() -> None:
         launches[k] = plain_runs[k] = 0
 
 
-# ------------------------------------------------------------ tag lookup
+# ----------------------------------------------------- lookup and fill
 
-def tag_lookup_plain(tags: torch.Tensor, valid: torch.Tensor,
-                     lru: torch.Tensor, req: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of ``tag_lookup`` (same arguments)."""
-    plain_runs["tag_lookup"] += 1
+def _lookup(tags, valid, lru, req):
+    """One round of Algorithm 1 over every set (``tag_lookup``)."""
     match = valid & (tags == req[:, None])
     hit = match.any(dim=1)
     way = match.to(torch.int32).argmax(dim=1).to(torch.int32)  # first index
@@ -124,19 +142,58 @@ def tag_lookup_plain(tags: torch.Tensor, valid: torch.Tensor,
     return hit.to(torch.int32), way, new_lru
 
 
+def tag_lookup_plain(tags: torch.Tensor, valid: torch.Tensor,
+                     lru: torch.Tensor, req: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``tag_lookup`` (same arguments)."""
+    plain_runs["tag_lookup"] += 1
+    return _lookup(tags, valid, lru, req)
+
+
+def _check_store(name: str, tags, valid, lru=None) -> Tuple[int, int]:
+    """(S, W) of a tier's (S, W) int32 tags, bool valid bits and, where
+    given, int32 LRU counters, checked."""
+    if tags.dim() != 2 or tags.shape[1] < 1:
+        raise ValueError(f"{name}: tags must be (S, W) with W >= 1, got "
+                         f"{tuple(tags.shape)}")
+    s, w = tags.shape
+    _build.check("tags", tags, torch.int32, (s, w), tags.device)
+    _build.check("valid", valid, torch.bool, (s, w), tags.device)
+    if lru is not None:
+        _build.check("lru", lru, torch.int32, (s, w), tags.device)
+    return s, w
+
+
+def _launch_lookup(name: str, tags, valid, lru, lru_out, plan, n_req,
+                   rounds, rec, req, hit, way) -> None:
+    """Launch ``lookup_fill_kernel`` (null pointers for the arguments of
+    the other mode: see the kernel)."""
+    dev = tags.device
+    s, w = tags.shape
+    if w > MAX_WAYS:
+        raise ValueError(f"{name}: {w} ways, the kernel takes at most "
+                         f"{MAX_WAYS}")
+    # 4 ways a lane as one uint4 of tags and LRU and one word of valid bytes
+    vec = w % 4 == 0 and all(t.data_ptr() % 16 == 0
+                             for t in (tags, lru, lru_out)) \
+        and valid.data_ptr() % 4 == 0
+    ptr = _build.ptr
+    with torch.cuda.device(dev):
+        err = _lib().lookup_fill_launch(
+            ptr(tags), ptr(valid), ptr(lru), ptr(lru_out), s, w, ptr(plan),
+            n_req, rounds, ptr(rec), ptr(req), ptr(hit), ptr(way), int(vec),
+            _build.stream(dev))
+    _build.raise_on(err, name)
+    launches[name] += 1
+
+
 def tag_lookup(tags: torch.Tensor, valid: torch.Tensor, lru: torch.Tensor,
                req: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """tags/valid/lru (S, W), req (S,) -> (hit (S,) int32, way (S,) int32,
-    new_lru (S, W) int32)."""
-    if tags.dim() != 2 or tags.shape[1] < 1:
-        raise ValueError(f"tags must be (S, W) with W >= 1, got "
-                         f"{tuple(tags.shape)}")
-    s, w = tags.shape
+    new_lru (S, W) int32): one round, no fill, a new LRU array."""
+    s, w = _check_store("tag_lookup", tags, valid, lru)
     dev = tags.device
-    _build.check("tags", tags, torch.int32, (s, w), dev)
-    _build.check("valid", valid, torch.bool, (s, w), dev)
-    _build.check("lru", lru, torch.int32, (s, w), dev)
     _build.check("req", req, torch.int32, (s,), dev)
     if dev.type == "cpu":
         return tag_lookup_plain(tags, valid, lru, req)
@@ -146,15 +203,110 @@ def tag_lookup(tags: torch.Tensor, valid: torch.Tensor, lru: torch.Tensor,
     new_lru = torch.empty((s, w), dtype=torch.int32, device=dev)
     if s == 0:                      # nothing to look up: no launch
         return hit, way, new_lru
-    seg_log2 = min(5, (w - 1).bit_length())   # next_pow2(W) lanes a set
-    ptr = _build.ptr
-    with torch.cuda.device(dev):
-        err = _lib().tag_lookup_launch(
-            ptr(tags), ptr(valid), ptr(lru), ptr(req), s, w, seg_log2,
-            ptr(hit), ptr(way), ptr(new_lru), _build.stream(dev))
-    _build.raise_on(err, "tag_lookup")
-    launches["tag_lookup"] += 1
+    _launch_lookup("tag_lookup", tags, valid, lru, new_lru, None, 0, 1, None,
+                   req, hit, way)
     return hit, way, new_lru
+
+
+def _ranks(sets: np.ndarray) -> np.ndarray:
+    """Each request's place among its set's requests, in batch order."""
+    order = np.argsort(sets, kind="stable")
+    s = sets[order]
+    starts = np.flatnonzero(np.r_[True, s[1:] != s[:-1]])
+    lengths = np.diff(np.r_[starts, len(s)])
+    rank = np.empty(len(s), np.int64)
+    rank[order] = np.arange(len(s)) - np.repeat(starts, lengths)
+    return rank
+
+
+def lookup_fill_plain(tags: torch.Tensor, valid: torch.Tensor,
+                      lru: torch.Tensor, sets: np.ndarray, req: np.ndarray
+                      ) -> torch.Tensor:
+    """Plain PyTorch version of ``lookup_fill`` (same arguments): the
+    reference's round loop, a ``tag_lookup`` over the whole store and the
+    fills of its misses a round."""
+    plain_runs["lookup_fill"] += 1
+    dev = tags.device
+    sets = np.asarray(sets, np.int64)
+    req = np.ascontiguousarray(req, np.uint32).view(np.int32)
+    rank = _ranks(sets)
+    rec = torch.zeros((len(REC_FIELDS), len(sets)), dtype=torch.int32,
+                      device=dev)
+    rec[0] = -1
+    n_rounds = min(ROUNDS, int(rank.max()) + 1) if len(sets) else 0
+    for r in range(n_rounds):
+        sel = np.flatnonzero(rank == r)
+        k = torch.from_numpy(sel).to(dev)
+        s = torch.from_numpy(sets[sel]).to(dev)
+        q = torch.from_numpy(req[sel]).to(dev)
+        full = torch.zeros(tags.shape[0], dtype=torch.int32, device=dev)
+        full[s] = q
+        hit, way, new_lru = _lookup(tags, valid, lru, full)
+        lru.copy_(new_lru)
+        h = hit[s].bool()
+        rec[0, k] = r
+        rec[1, k] = h.to(torch.int32)
+        rec[2, k] = torch.where(h, way[s], 0)
+        # each miss fills its set's LRU victim: the least counter, invalid
+        # ways (as -1) first, the lowest way on ties
+        ms, mk = s[~h], k[~h]
+        vw = torch.where(valid[ms], _u32.to_u(lru[ms]), -1).argmin(dim=1)
+        rec[2, mk] = vw.to(torch.int32)
+        rec[3, mk] = valid[ms, vw].to(torch.int32)
+        rec[4, mk] = tags[ms, vw]
+        tags[ms, vw] = q[~h]
+        valid[ms, vw] = True
+        lru[ms, vw] = LRU_MAX
+    return rec
+
+
+def fill_plan(sets: np.ndarray, req: np.ndarray, n_sets: int
+              ) -> Tuple[np.ndarray, int]:
+    """(plan, rounds run) of ``lookup_fill_kernel``: one int32 array of the
+    requests ordered by set, stably (each set's requests keep their batch
+    order), as a CSR offset per set (n_sets + 1), the ordered tags (K,
+    uint32 bit patterns) and each one's place in the batch (K), and
+    min(ROUNDS, the longest run)."""
+    order = np.argsort(sets, kind="stable")
+    counts = np.bincount(sets, minlength=n_sets)
+    plan = np.concatenate([np.r_[0, np.cumsum(counts)],
+                           req[order].view(np.int32), order]).astype(np.int32)
+    return plan, min(ROUNDS, int(counts.max()))
+
+
+def lookup_fill(tags: torch.Tensor, valid: torch.Tensor, lru: torch.Tensor,
+                sets, req) -> torch.Tensor:
+    """The pool's conventional tier for one batch, in place on the (S, W)
+    store ``tags``/``valid``/``lru``: requests (``sets[k]``, ``req[k]``),
+    host arrays in batch order, served as the reference serves them.
+    Round r (r < min(ROUNDS, the longest run)) looks up each set's r-th
+    request, and tag 0 in every other set, with ``tag_lookup``'s LRU
+    update; a request that misses fills its set's LRU victim (tag, valid,
+    LRU_MAX).  Requests past the rounds are not run.  Returns the records
+    (len(REC_FIELDS), K) int32 on the store's device: the round (-1: not
+    run), hit, the hit or filled way, whether the victim was valid, and
+    the tag the fill replaced (0 on a hit)."""
+    s, w = _check_store("lookup_fill", tags, valid, lru)
+    dev = tags.device
+    sets = np.asarray(sets, np.int64)
+    req = np.asarray(req, np.uint32)
+    if sets.ndim != 1 or req.shape != sets.shape:
+        raise ValueError(f"sets and req must be (K,), got {sets.shape} and "
+                         f"{req.shape}")
+    if sets.size and (sets.min() < 0 or sets.max() >= s):
+        raise ValueError(f"sets: outside [0, {s})")
+    if dev.type == "cpu":
+        return lookup_fill_plain(tags, valid, lru, sets, req)
+    _build.require_cuda(dev, "lookup_fill")
+    rec = torch.empty((len(REC_FIELDS), len(sets)), dtype=torch.int32,
+                      device=dev)
+    if not sets.size:               # nothing to look up: no launch
+        return rec
+    plan, n_rounds = fill_plan(sets, req, s)
+    plan = torch.from_numpy(plan).to(dev)           # one copy to the card
+    _launch_lookup("lookup_fill", tags, valid, lru, lru, plan, len(sets),
+                   n_rounds, rec, None, None, None)
+    return rec
 
 
 # ------------------------------------------------------------ Bloom query
@@ -286,12 +438,10 @@ def bloom_record(bf1: torch.Tensor, bf2: torch.Tensor, n_mru: torch.Tensor,
     launches["bloom_record"] += 1
 
 
-# ------------------------------------------------------------ BDI
+# ------------------------------------------------------ BDI, page write
 
-def bdi_compress_plain(blocks: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of ``bdi_compress`` (same arguments)."""
-    plain_runs["bdi_compress"] += 1
+def _compress(blocks: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     x = _u32.to_u(blocks)
     d = (x - x[:, :1]) & _u32.MASK
     fits8 = ((d <= 127) | (d >= (1 << 32) - 128)).all(dim=1)
@@ -300,6 +450,13 @@ def bdi_compress_plain(blocks: torch.Tensor
                         ).to(torch.int32)
     payload = torch.where((level == UNCOMP)[:, None], blocks, _u32.to_i32(d))
     return level, blocks[:, 0].clone(), payload
+
+
+def bdi_compress_plain(blocks: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``bdi_compress`` (same arguments)."""
+    plain_runs["bdi_compress"] += 1
+    return _compress(blocks)
 
 
 def bdi_compress(blocks: torch.Tensor
@@ -319,14 +476,117 @@ def bdi_compress(blocks: torch.Tensor
     payload = torch.empty((n, SEGMENTS), dtype=torch.int32, device=dev)
     if n == 0:                      # nothing to compress: no launch
         return level, base, payload
-    ptr = _build.ptr
-    with torch.cuda.device(dev):
-        err = _lib().bdi_compress_launch(ptr(blocks), n, ptr(level),
-                                         ptr(base), ptr(payload),
-                                         _build.stream(dev))
-    _build.raise_on(err, "bdi_compress")
-    launches["bdi_compress"] += 1
+    _launch_write("bdi_compress", None, None, payload, level, base, None,
+                  blocks, n)
     return level, base, payload
+
+
+def _pages(pages, n: int, words: int, dev: torch.device):
+    """``page_write``'s pages: a host (N, words) uint32 array, or an int32
+    tensor on the store's device, checked."""
+    if isinstance(pages, torch.Tensor):
+        _build.check("pages", pages, torch.int32, (n, words), dev)
+        return pages
+    pages = np.ascontiguousarray(pages, np.uint32)
+    if pages.shape != (n, words):
+        raise ValueError(f"pages: shape {pages.shape}, expected "
+                         f"{(n, words)}")
+    return pages
+
+
+def page_write_plain(tags: torch.Tensor, valid: torch.Tensor,
+                     data: torch.Tensor, level: Optional[torch.Tensor],
+                     base: Optional[torch.Tensor], sets: np.ndarray,
+                     page_tags: np.ndarray, pages) -> None:
+    """Plain PyTorch version of ``page_write`` (same arguments): the
+    reference's probe, then the compression and the writes, page by
+    page."""
+    plain_runs["page_write"] += 1
+    if isinstance(pages, np.ndarray):
+        pages = torch.from_numpy(pages.view(np.int32)).to(data.device)
+    for i, (s, t) in enumerate(zip(np.asarray(sets).tolist(),
+                                   np.asarray(page_tags, np.uint32).view(
+                                       np.int32).tolist())):
+        m = valid[s] & (tags[s] == t)
+        if not bool(m.any()):
+            continue                # a miss writes nothing
+        w = int(m.to(torch.int32).argmax())         # the first way
+        if level is None:
+            data[s, w] = pages[i]
+            continue
+        lv, b, pay = _compress(pages[i:i + 1])
+        level[s, w], base[s, w], data[s, w] = lv[0], b[0], pay[0]
+
+
+def page_write(tags: torch.Tensor, valid: torch.Tensor, data: torch.Tensor,
+               level: Optional[torch.Tensor], base: Optional[torch.Tensor],
+               sets, page_tags, pages) -> None:
+    """In place: the pool's ``write_page`` for N pages.  Page n goes to row
+    (``sets[n]``, w) of the (S, W, words) store ``data``, where w is the
+    first valid way of that set whose tag in the (S, W) ``tags``/``valid``
+    is ``page_tags[n]``; a page no way holds is not written.  With
+    ``level`` and ``base`` ((S, W) int32) the page is BDI-compressed
+    (words = 32) and its level and base written beside it.  ``sets`` and
+    ``page_tags`` are host arrays (N,) with no (set, tag) twice;
+    ``pages`` a host (N, words) uint32 array or an int32 tensor on the
+    store's device."""
+    s, w = _check_store("page_write", tags, valid)
+    dev = tags.device
+    if data.dim() != 3:
+        raise ValueError(f"data must be (S, W, words), got "
+                         f"{tuple(data.shape)}")
+    words = data.shape[2]
+    _build.check("data", data, torch.int32, (s, w, words), dev)
+    if (level is None) != (base is None):
+        raise ValueError("level and base: give both or neither")
+    if level is not None:
+        _build.check("level", level, torch.int32, (s, w), dev)
+        _build.check("base", base, torch.int32, (s, w), dev)
+        if words != SEGMENTS:
+            raise ValueError(f"data: BDI compresses pages of {SEGMENTS} "
+                             f"words, got {words}")
+    sets = np.asarray(sets, np.int64)
+    page_tags = np.asarray(page_tags, np.uint32)
+    if sets.ndim != 1 or page_tags.shape != sets.shape:
+        raise ValueError(f"sets and page_tags must be (N,), got "
+                         f"{sets.shape} and {page_tags.shape}")
+    if sets.size and (sets.min() < 0 or sets.max() >= s):
+        raise ValueError(f"sets: outside [0, {s})")
+    pairs = sets << 32 | page_tags.astype(np.int64)
+    if len(np.unique(pairs)) != len(pairs):
+        raise ValueError("page_write: a (set, tag) key is repeated; the "
+                         "pages would race for one row")
+    pages = _pages(pages, len(sets), words, dev)
+    if dev.type == "cpu":
+        page_write_plain(tags, valid, data, level, base, sets, page_tags,
+                         pages)
+        return
+    _build.require_cuda(dev, "page_write")
+    if not sets.size:               # nothing to write: no launch
+        return
+    keys = np.concatenate([sets, page_tags.view(np.int32)])
+    if isinstance(pages, np.ndarray):       # keys and pages: one copy
+        keys = np.concatenate([keys, pages.ravel().view(np.int32)])
+    buf = torch.from_numpy(keys.astype(np.int32)).to(dev)
+    if isinstance(pages, np.ndarray):
+        pages = buf[2 * len(sets):]
+    _launch_write("page_write", tags, valid, data, level, base, buf[:2 * len(
+        sets)], pages, len(sets))
+
+
+def _launch_write(name: str, tags, valid, data, level, base, keys, pages,
+                  n: int) -> None:
+    """Launch ``page_write_kernel`` on ``n`` pages (without ``tags``, page
+    p into row p of ``data``)."""
+    s, w = tags.shape if tags is not None else (0, 0)
+    ptr = _build.ptr
+    with torch.cuda.device(data.device):
+        err = _lib().page_write_launch(
+            ptr(tags), ptr(valid), s, w, ptr(data), ptr(level), ptr(base),
+            data.shape[-1], ptr(keys), ptr(pages), n,
+            _build.stream(data.device))
+    _build.raise_on(err, name)
+    launches[name] += 1
 
 
 def _restore(level, base, payload) -> torch.Tensor:
@@ -496,10 +756,12 @@ def _lib() -> ctypes.CDLL:
     """The built ``csrc/pool.cu`` with its five launchers declared."""
     lib = _build.load("pool")
     p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn, args in (("tag_lookup_launch", [p] * 4 + [n, i, i] + [p] * 4),
+    for fn, args in (("lookup_fill_launch", [p] * 4 + [n, i, p, i, i]
+                      + [p] * 4 + [i, p]),
                      ("bloom_query_launch", [p, n, p, p, n, i, p, p, p]),
                      ("bloom_record_launch", [p] * 4 + [i, i, i, p]),
-                     ("bdi_compress_launch", [p, n, p, p, p, p]),
+                     ("page_write_launch", [p, p, n, i, p, p, p, i, p, p, n,
+                                            p]),
                      ("block_read_launch", [p, n, i, p, n, i, p, p, i, p, i,
                                             p, p, n, i, p, p])):
         getattr(lib, fn).argtypes = args

@@ -12,11 +12,12 @@ Pages (KV blocks, MLA latents, or expert/embedding rows) are cached in
 
 ``lookup_batch`` routes a batch of page keys, queries and updates the
 predictor and tag stores through the pool kernels (``kernels.ops``:
-``tag_lookup``, ``bloom_query``, ``bloom_record``) and returns a
-``GatherPlan``; ``write_page`` installs a payload (``bdi_compress`` on the
-extended tier) and ``read_pages`` reads hit pages of both tiers
-(``read_rows``: the Indirect-MOV gather, fused with BDI decompression on
-the extended tier).
+``lookup_fill``, ``bloom_query``, ``bloom_record``) and returns a
+``GatherPlan``; ``write_page`` installs a payload (``page_write``: the
+probe, BDI compression on the extended tier and the store write) and
+``read_pages`` reads hit pages of both tiers (``read_rows``: the
+Indirect-MOV gather, fused with BDI decompression on the extended
+tier).
 
 The planning stays numpy on the host, as in the reference; the state
 tensors live on the pool's device.  Where the reference gathers filter
@@ -41,10 +42,10 @@ pool's state from and to the reference's numpy dtypes.
 
 Behaviours of the reference that the port keeps on purpose:
 
-  * ``lookup_batch`` runs ``tag_lookup`` over the whole conventional
-    store with request tag 0 for the sets outside a round, so a set that
-    holds a valid tag-0 page (a key below ``total_sets``) "hits" and its
-    LRU row is rewritten;
+  * each conventional round of ``lookup_batch`` looks up the whole
+    conventional store with request tag 0 for the sets outside the round,
+    so a set that holds a valid tag-0 page (a key below ``total_sets``)
+    "hits" and its LRU row is rewritten;
   * the conventional tier serves at most 4 rounds per batch: a 5th
     request to one set in a batch is counted nowhere and gets tier 2;
   * a key repeated within a batch is looked up once on the extended tier
@@ -287,39 +288,32 @@ class MorpheusPagePool:
                    energy_nJ=0.0)
         c = self.costs
 
-        # ---- conventional tier (batched kernel over the full store)
+        # ---- conventional tier: the batch's rounds and fills in one
+        # lookup_fill over the full store, its records read back once
         conv_mask = tier == asep.CONVENTIONAL
         if conv_mask.any():
             idx = np.nonzero(conv_mask)[0]
-            req = np.zeros(self.conv_tags.shape[0], np.uint32)
-            req_set = local[idx]
-            # serialize duplicate sets within one batch (one request per
-            # set per round: the paper's one-warp-one-request rule)
-            for rnd in range(4):
-                first = _first_per_set(req_set)
-                if first.size == 0:
-                    break
-                sel = idx[first]
-                req[:] = 0
-                req[local[sel]] = tags[sel]
-                hit, way, new_lru = K.tag_lookup(
-                    self.conv_tags, self.conv_valid, self.conv_lru,
-                    self._to_dev(req))
-                hit = _host(hit).astype(bool)[local[sel]]
-                way = _host(way)[local[sel]]
-                self.conv_lru = new_lru
-                for gi, h, w_ in zip(sel, hit, way):
-                    if h:
-                        out_tier[gi] = 0
-                        out_way[gi] = w_
-                        add["conv_hits"] += 1
-                        add["time_ns"] += c.local_hbm.hit_latency_ns
-                    else:
-                        self._conv_fill(local[gi], tags[gi])
-                        add["conv_misses"] += 1
-                        add["backing_fetches"] += 1
-                        add["time_ns"] += c.local_hbm.miss_latency_ns
-                req_set, idx = _drop_first(req_set, idx, first)
+            rnd, hit, way, evicted, victim = _host(K.lookup_fill(
+                self.conv_tags, self.conv_valid, self.conv_lru, local[idx],
+                tags[idx]))
+            for j in _round_order(rnd):
+                gi = idx[j]
+                if hit[j]:
+                    out_tier[gi] = 0
+                    out_way[gi] = way[j]
+                    add["conv_hits"] += 1
+                    add["time_ns"] += c.local_hbm.hit_latency_ns
+                else:
+                    if self.recorder is not None:
+                        s = int(local[gi])
+                        if evicted[j]:
+                            self.recorder.record(EV_EVICT, self._key_of(
+                                s, int(victim[j]) & _u32.MASK), 0)
+                        self.recorder.record(EV_INSERT,
+                                             self._key_of(s, tags[gi]), 0)
+                    add["conv_misses"] += 1
+                    add["backing_fetches"] += 1
+                    add["time_ns"] += c.local_hbm.miss_latency_ns
 
         # ---- extended tier: predictor -> remote lookup
         ext_mask = tier == asep.EXTENDED
@@ -365,42 +359,38 @@ class MorpheusPagePool:
         return GatherPlan(out_tier, out_set, out_way)
 
     # ------------------------------------------------------------ payloads
-    def _words(self, payload) -> torch.Tensor:
-        """A page payload as a (page_words,) int32 tensor on the device:
-        a numpy array of uint32 values, or an int32 bit-pattern tensor."""
+    def _words(self, payload):
+        """A page payload as one (1, page_words) page: a host uint32 array
+        (from a numpy array of uint32 values), or an int32 bit-pattern
+        tensor moved to the device."""
         if isinstance(payload, torch.Tensor):
             if payload.dtype != torch.int32:
                 raise TypeError(f"payload tensor dtype {payload.dtype}, "
                                 f"expected torch.int32 (bit patterns)")
             words = payload.to(self.device)
         else:
-            words = self._to_dev(np.asarray(payload, np.uint32))
+            words = np.asarray(payload, np.uint32)
         if tuple(words.shape) != (self.cfg.page_words,):
             raise ValueError(f"payload shape {tuple(words.shape)}, expected "
                              f"({self.cfg.page_words},)")
-        return words
+        return words.reshape(1, -1)
 
     def write_page(self, key: int, payload_words) -> None:
-        """Install a page payload after a backing fetch (insert path)."""
+        """Install a page payload after a backing fetch (insert path): one
+        ``page_write`` (the probe of the key's set, BDI compression on the
+        extended tier, the store write) after one copy of the key and a
+        host payload to the device, and no read-back."""
         cfg = self.cfg
-        tier, local, tag = (int(x[0]) for x in
-                            self._route(np.asarray([key], np.uint32)))
-        words = self._words(payload_words)
-        if tier == asep.CONVENTIONAL:
-            hit, way = self._probe(self.conv_tags, self.conv_valid,
-                                   local, tag)
-            if hit:
-                self.conv_data[local, way] = words
+        tier, local, tag = self._route(np.asarray([key], np.uint32))
+        page = self._words(payload_words)
+        if tier[0] == asep.CONVENTIONAL:
+            K.page_write(self.conv_tags, self.conv_valid, self.conv_data,
+                         None, None, local, tag, page)
             return
-        hit, way = self._probe(self.ext_tags, self.ext_valid, local, tag)
-        if hit:
-            if cfg.compression:
-                lvl, base, pay = K.bdi_compress(words[None])
-                self.ext_level[local, way] = lvl[0]
-                self.ext_base[local, way] = base[0]
-                self.ext_data[local, way] = pay[0]
-            else:
-                self.ext_data[local, way] = words
+        comp = cfg.compression
+        K.page_write(self.ext_tags, self.ext_valid, self.ext_data,
+                     self.ext_level if comp else None,
+                     self.ext_base if comp else None, local, tag, page)
 
     def read_pages(self, plan: GatherPlan) -> torch.Tensor:
         """Gather hit pages per plan, as (N, page_words) int32 bit
@@ -414,14 +404,6 @@ class MorpheusPagePool:
                            self.ext_base, cols[0], cols[1], cols[2])
 
     # ------------------------------------------------------------ internals
-    def _probe(self, tags, valid, s: int, tag: int) -> Tuple[bool, int]:
-        row_t = _host_u32(tags[s])
-        row_v = _host(valid[s])
-        m = row_v & (row_t == np.uint32(tag))
-        if m.any():
-            return True, int(np.argmax(m))
-        return False, 0
-
     def _key_of(self, gset: int, tag: int) -> int:
         """Inverse of route/tag_of: the page key resident at (global set,
         tag): key = tag * total_sets + gset."""
@@ -436,18 +418,6 @@ class MorpheusPagePool:
         row_l[~row_v] = -1
         w = int(np.argmin(row_l))
         return w, bool(row_v[w])
-
-    def _conv_fill(self, s: int, tag: int):
-        s = int(s)
-        w, was_valid = self._victim(self.conv_valid, self.conv_lru, s)
-        if self.recorder is not None:
-            if was_valid:
-                old = int(self.conv_tags[s, w]) & _u32.MASK
-                self.recorder.record(EV_EVICT, self._key_of(s, old), 0)
-            self.recorder.record(EV_INSERT, self._key_of(s, tag), 0)
-        self.conv_tags[s, w] = _i32(tag)
-        self.conv_valid[s, w] = True
-        self.conv_lru[s, w] = 0xFFF
 
     def _ext_lookup(self, sets: np.ndarray, tags: np.ndarray):
         t = _host_u32(self.ext_tags)[sets]
@@ -551,16 +521,13 @@ def replace_cfg(cfg: PoolConfig, num_cache_chips: int) -> PoolConfig:
     return replace(cfg, num_cache_chips=num_cache_chips)
 
 
-def _first_per_set(req_set: np.ndarray) -> np.ndarray:
-    """Indices of the first occurrence of each set in the batch."""
-    _, first = np.unique(req_set, return_index=True)
-    return np.sort(first)
-
-
-def _drop_first(req_set: np.ndarray, idx: np.ndarray, first: np.ndarray):
-    mask = np.ones(len(req_set), bool)
-    mask[first] = False
-    return req_set[mask], idx[mask]
+def _round_order(rnd: np.ndarray) -> np.ndarray:
+    """The requests that ran (round ``rnd >= 0``) in the reference's
+    accounting order: round by round, and within a round in batch order
+    (its ``_first_per_set``); those past the rounds (-1) get tier 2 and
+    are counted nowhere."""
+    ran = np.flatnonzero(rnd >= 0)
+    return ran[np.lexsort((ran, rnd[ran]))]
 
 
 def page_key(seq_hash: int, layer: int, page: int) -> int:

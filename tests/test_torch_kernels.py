@@ -26,7 +26,7 @@ from repro_torch.kernels import pool as pool_ops  # noqa: E402
 from repro_torch.kernels.pool import (  # noqa: E402
     bdi_compress_plain, bdi_decompress_plain, bloom_query_plain,
     bloom_record_plain, cached_block_read_plain, gather_blocks_plain,
-    read_rows_plain, tag_lookup_plain)
+    lookup_fill_plain, page_write_plain, read_rows_plain, tag_lookup_plain)
 from repro_torch.models import LM, params_from_numpy  # noqa: E402
 from repro_torch.models import seeded_numpy_params  # noqa: E402
 from repro_torch.serving import paged_kv  # noqa: E402
@@ -374,6 +374,119 @@ def test_tag_lookup_kernel_matches_plain(cuda_device, s, w):
     assert hit.any() and not hit.all()
 
 
+def _conv_store(rng, s, w):
+    """tags (few values), valid bits (every other set full) and LRU
+    counters (ties, a valid tag 0 in some sets)."""
+    tags = _u32(rng, (s, w), hi=6)
+    valid = torch.from_numpy(rng.random((s, w)) < 0.7)
+    valid[::2] = True
+    tags[5::9, 0] = 0
+    lru = _u32(rng, (s, w), hi=1 << 12)
+    lru[::3] = lru[::3, :1]
+    lru[1::3, -1] = 0xFFF
+    return [tags, valid, lru]
+
+
+def _unaligned(x, dev):
+    """``x`` on ``dev`` as a view one element into a buffer, so its rows
+    are not 16-byte aligned and the kernel takes its scalar loads."""
+    buf = torch.zeros(x.numel() + 4, dtype=x.dtype, device=dev)
+    view = buf[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,w,k,offset", [
+    (64, 4, 1, False), (64, 4, 300, False),       # the engine pool
+    (51200, 8, 512, False),                       # phase 8's store
+    (300, 40, 700, False), (100, 132, 400, False), (37, 7, 90, False),
+    (64, 8, 200, True)])
+def test_lookup_fill_kernel_matches_plain(cuda_device, s, w, k, offset):
+    """A batch's rounds and fills in one launch, in place, equal the plain
+    round loop on a copy of the same state: records, tags, valid bits and
+    LRU counters."""
+    rng = np.random.default_rng(s + w + k)
+    sets = rng.integers(0, s, size=k)
+    sets[::4] = sets[0]                             # a set past 4 rounds
+    req = rng.integers(0, 8, size=k).astype(np.uint32)
+    card = [_unaligned(x, cuda_device) if offset else x.to(cuda_device)
+            for x in _conv_store(rng, s, w)]
+    assert bool(card[0].data_ptr() % 16) == offset
+    plain = [x.clone() for x in card]
+    pool_ops.reset_launches()
+    rec = pool_ops.lookup_fill(*card, sets, req)
+    assert pool_ops.launches["lookup_fill"] == 1
+    want = lookup_fill_plain(*plain, sets, req)
+    _equal((rec, *card), (want, *plain), f"lookup_fill {s}x{w}, {k} keys")
+    if k > 1:               # hits, evictions, 4 rounds, requests not run
+        assert rec[1].any() and rec[3].any()
+        assert (rec[0] == 3).any() and (rec[0] == -1).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sc,wc,se,we,n", [(64, 4, 128, 16, 1),
+                                           (64, 4, 128, 16, 300),
+                                           (51200, 8, 51200, 32, 512)])
+def test_page_write_kernel_matches_plain(cuda_device, sc, wc, se, we, n):
+    """The probe, the compression and the store write in one launch, on
+    the engine pool's and phase 8's stores, each tier with and without
+    BDI, pages from the host and on the card, hits and misses, tags held
+    in two ways."""
+    rng = np.random.default_rng(sc + se + n)
+    for (s, w), bdi in (((sc, wc), False), ((se, we), False), ((se, we),
+                                                               True)):
+        tags = _u32(rng, (s, w), hi=4)
+        tags[:, 1] = tags[:, 0]
+        valid = torch.from_numpy(rng.random((s, w)) < 0.8)
+        data = _u32(rng, (s, w, 32))
+        level = torch.from_numpy(rng.integers(0, 3, size=(s, w)).astype(
+            np.int32))
+        base = _u32(rng, (s, w))
+        keys = rng.choice(s * 5, size=n, replace=False)
+        sets, ptags = keys // 5, (keys % 5).astype(np.uint32)
+        pages = _bdi_blocks(rng, n).numpy().view(np.uint32)
+        card = [x.to(cuda_device).clone() for x in (tags, valid, data, level,
+                                                     base)]
+        if not bdi:
+            card[3] = card[4] = None
+        plain = [x.clone() if x is not None else None for x in card]
+        for src in (pages, torch.from_numpy(pages.view(np.int32)).to(
+                cuda_device)):
+            pool_ops.reset_launches()
+            pool_ops.page_write(*card, sets, ptags, src)
+            assert pool_ops.launches["page_write"] == 1
+            page_write_plain(*plain, sets, ptags, src)
+            _equal([x for x in card if x is not None],
+                   [x for x in plain if x is not None],
+                   f"page_write ({s}, {w}) bdi={bdi}")
+        if n > 1:
+            assert not torch.equal(card[2].cpu(), data)
+
+
+@pytest.mark.gpu
+def test_pool_wrappers_raise_on_bad_arguments_on_the_card(cuda_device):
+    wide = torch.zeros((4, 300), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="ways"):
+        pool_ops.tag_lookup(wide, wide.bool(), wide, wide[:, 0].contiguous())
+    with pytest.raises(ValueError, match="ways"):
+        pool_ops.lookup_fill(wide, wide.bool(), wide, [0], [1])
+    tags = torch.zeros((4, 4), dtype=torch.int32, device=cuda_device)
+    data = torch.zeros((4, 4, 32), dtype=torch.int32, device=cuda_device)
+    pages = np.zeros((2, 32), np.uint32)
+    with pytest.raises(ValueError, match="repeated"):
+        pool_ops.page_write(tags, tags.bool(), data, None, None, [1, 1],
+                            [3, 3], pages)
+    with pytest.raises(ValueError, match="pages: on cpu"):
+        pool_ops.page_write(tags, tags.bool(), data, None, None, [1, 2],
+                            [3, 3], torch.zeros((2, 32), dtype=torch.int32))
+    with pytest.raises(ValueError, match="outside"):
+        pool_ops.lookup_fill(tags, tags.bool(), tags, [4], [1])
+    with pytest.raises(ValueError, match=r"\(N, 32\)"):
+        pool_ops.bdi_compress(data[0, :, :16].contiguous())
+    assert set(pool_ops.launches.values()) <= {0, 1}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("q,words", [(4097, 8), (1, 8), (300, 3)])
 def test_bloom_query_kernel_matches_plain(cuda_device, q, words):
@@ -506,6 +619,12 @@ def test_pool_kernels_launch_nothing_on_empty_inputs(cuda_device):
     e = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
     pool_ops.reset_launches()
     pool_ops.tag_lookup(z, z.bool(), z, e)
+    four = torch.zeros((4, 4), dtype=torch.int32, device=cuda_device)
+    assert pool_ops.lookup_fill(four, four.bool(), four, [], []).shape \
+        == (5, 0)
+    pool_ops.page_write(four, four.bool(), torch.zeros(
+        (4, 4, 32), dtype=torch.int32, device=cuda_device), None, None, [],
+        [], np.zeros((0, 32), np.uint32))
     pool_ops.bloom_query(z, e)
     level, base, payload = pool_ops.bdi_compress(
         torch.zeros((0, 32), dtype=torch.int32, device=cuda_device))
@@ -552,8 +671,10 @@ def test_pool_on_the_card_matches_the_cpu(cuda_device, kw):
     for name in paged_kv.STATE_FIELDS:
         assert np.array_equal(a[name], c[name]), name
     runs = pool_ops.launches
-    assert runs["tag_lookup"] and runs["bloom_query"] and runs["read_rows"]
+    assert runs["lookup_fill"] and runs["bloom_query"] and runs["read_rows"]
     assert runs["bloom_record"] == runs["bloom_query"]
+    assert runs["page_write"] and not runs["tag_lookup"] + runs[
+        "bdi_compress"]
 
 
 # ------------------------------------- attention kernels, on the card only

@@ -1,4 +1,4 @@
-"""The serving pool's five kernel entries: the reference's
+"""The serving pool's kernel entries: the reference's
 ``repro.kernels.ops`` (Pallas, interpret mode on the CPU) against the
 port's ``repro_torch.kernels.ops`` (plain PyTorch versions on the CPU) on
 the same seeded inputs.  The kernels are integer functions, so outputs
@@ -6,8 +6,10 @@ must be bit-identical (tolerance 0).
 
 The port's batched ``bloom_record`` is held to the reference pool's
 per-key ``_bloom_record``, the by-row ``bloom_query`` to the reference's
-query of the pre-gathered rows, and ``read_rows`` to the reference
-pool's ``read_pages``.
+query of the pre-gathered rows, ``read_rows`` to the reference pool's
+``read_pages``, ``lookup_fill`` to the reference pool's round loop of
+``tag_lookup`` with its fill rule, and ``page_write`` to the reference
+pool's ``write_page``.
 
 Sizes keep to what the reference's tiling accepts (S <= 256 or a
 multiple of it for tag_lookup, Q <= 512 for bloom_query, N <= 256 for
@@ -22,8 +24,10 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as j_ops  # noqa: E402
 from repro.serving import paged_kv as j_kv  # noqa: E402
+from repro_torch.core import address_separation as t_asep  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels import pool as t_pool  # noqa: E402
+from repro_torch.serving import paged_kv as t_kv  # noqa: E402
 from torch_parity import pool_payload  # noqa: E402
 
 MAX = (1 << 32) - 1
@@ -80,6 +84,113 @@ def test_tag_lookup_matches_reference(s, w):
     hit = np.asarray(rh).astype(bool)
     assert hit.any() and not hit.all()               # both kinds of row
     assert not hit[:3].any()                         # invalid rows miss
+
+
+# ------------------------------------------------------ lookup and fill
+
+def _fill_store(s, w, seed):
+    """A conventional store with invalid ways, full sets (every other
+    one), LRU ties (runs of 0 and 0xFFF) and sets holding a valid tag 0."""
+    tags, valid, lru, _ = _tag_inputs(s, w, seed)
+    valid[4::2] = True
+    tags[5::9, 1] = 0                                # valid tag-0 pages
+    valid[5::9, 1] = True
+    lru[4::6] = lru[4::6, :1]                        # a whole row tied
+    return tags, valid, lru
+
+
+def _fill_requests(s, longest, seed):
+    """Requests in batch order over a few sets, one set taking
+    ``longest`` of them, with a tag repeated within a set's run and tag-0
+    requests."""
+    rng = np.random.default_rng(seed)
+    others = rng.choice(s, size=13, replace=False)
+    sets = np.concatenate([others[1:], [others[0]] * longest])
+    rng.shuffle(sets)
+    req = rng.integers(0, 8, size=len(sets)).astype(np.uint32)
+    req[sets == others[0]] = [3, 9, 3, 0, 9, 5][:longest]
+    req[sets == others[1]] = 0
+    return sets.astype(np.int64), req
+
+
+def _reference_rounds(tags, valid, lru, sets, req):
+    """The reference pool's conventional tier on a bare store: its round
+    loop over ``repro.kernels.tag_lookup.tag_lookup`` (interpret mode)
+    with ``_conv_fill``'s victim rule, as records (round, hit, way,
+    evicted, replaced tag) in batch order."""
+    from repro.kernels.tag_lookup import tag_lookup as ref_lookup
+    tags, valid, lru = (jnp.asarray(tags), jnp.asarray(valid),
+                        jnp.asarray(lru))
+    rec = np.zeros((5, len(sets)), np.int64)
+    rec[0] = -1
+    idx, req_set = np.arange(len(sets)), sets.copy()
+    for rnd in range(4):
+        first = j_kv._first_per_set(req_set)
+        if first.size == 0:
+            break
+        sel = idx[first]
+        q = np.zeros(tags.shape[0], np.uint32)
+        q[sets[sel]] = req[sel]
+        hit, way, lru = ref_lookup(tags, valid, lru, jnp.asarray(q))
+        hit, way = np.asarray(hit, bool), np.asarray(way)
+        for k in sel:
+            s = sets[k]
+            rec[:3, k] = rnd, hit[s], way[s] if hit[s] else 0
+            if hit[s]:
+                continue
+            row_v = np.asarray(valid[s])
+            row_l = np.asarray(lru[s]).astype(np.int64)
+            row_l[~row_v] = -1
+            w = int(np.argmin(row_l))
+            rec[2:, k] = w, row_v[w], int(np.asarray(tags[s, w]))
+            tags = tags.at[s, w].set(np.uint32(req[k]))
+            valid = valid.at[s, w].set(True)
+            lru = lru.at[s, w].set(0xFFF)
+        req_set, idx = j_kv._drop_first(req_set, idx, first)
+    return rec, tags, valid, lru
+
+
+@pytest.mark.parametrize("s,w,longest", [(64, 4, 1), (64, 4, 4),
+                                         (256, 8, 2), (256, 8, 6),
+                                         (256, 32, 3)])
+def test_lookup_fill_matches_the_reference_rounds(s, w, longest):
+    """A batch's rounds and fills in one call leave the store and give
+    the records of the reference's round loop: tag-0 lookups in the sets
+    outside a round, fills of the LRU victim (invalid ways first, the
+    lowest way on ties), a tag repeated in a run (a miss, then a hit),
+    requests past the 4th of a set not run."""
+    tags, valid, lru = _fill_store(s, w, seed=s + w + longest)
+    sets, req = _fill_requests(s, longest, seed=longest)
+    want, r_tags, r_valid, r_lru = _reference_rounds(tags, valid, lru, sets,
+                                                     req)
+    state = [_t(tags), _t(valid), _t(lru)]
+    t_pool.reset_launches()
+    rec = t_ops.lookup_fill(*state, sets, req)
+    assert t_pool.plain_runs["lookup_fill"] == 1
+    got = rec.numpy().astype(np.int64)
+    got[4] &= MAX
+    np.testing.assert_array_equal(got, want)
+    _same(r_tags, state[0], "tags")
+    _same(r_valid, state[1], "valid")
+    _same(r_lru, state[2], "lru")
+    assert (got[0] == min(longest, 4) - 1).any()
+    assert ((got[0] == -1).sum() == max(longest - 4, 0))
+    assert got[1].any() and not got[1].all()         # hits and fills
+    assert got[3].any() and not got[3][got[1] == 0].all()
+
+
+def test_fill_plan_orders_requests_by_set_stably():
+    sets = np.asarray([4, 1, 4, 0, 1, 4], np.int64)
+    req = np.asarray([10, 11, 12, 13, 14, MAX], np.uint32)
+    plan, rounds = t_pool.fill_plan(sets, req, 6)
+    assert rounds == 3 and plan.dtype == np.int32
+    np.testing.assert_array_equal(plan[:7], [0, 1, 3, 3, 3, 6, 6])  # CSR
+    np.testing.assert_array_equal(plan[7:13].view(np.uint32),
+                                  [13, 11, 14, 10, 12, MAX])
+    np.testing.assert_array_equal(plan[13:], [3, 1, 4, 0, 2, 5])  # slots
+    more = np.asarray([1, 2], np.uint32)           # set 4 takes 5: 4 run
+    assert t_pool.fill_plan(np.r_[sets, [4, 4]], np.r_[req, more], 6)[1] \
+        == t_pool.ROUNDS == 4
 
 
 # ----------------------------------------------------------- bloom query
@@ -251,6 +362,80 @@ def test_bdi_compress_and_decompress_match_reference(seed):
     np.testing.assert_array_equal(_u(pd), blocks)    # round trip
 
 
+def _write_cases(comp):
+    """A reference pool of the engine's shape whose stores hold random
+    tags (a tag in two ways of some sets), and keys of both tiers whose
+    tags their set holds or not."""
+    ref = j_kv.MorpheusPagePool(j_kv.PoolConfig(
+        conv_sets=64, ext_sets_per_chip=32, ways=4, compression=comp))
+    rng = np.random.default_rng(int(comp))
+    for tier in ("conv", "ext"):
+        shape = np.asarray(getattr(ref, f"{tier}_tags")).shape
+        tags = rng.integers(0, 4, size=shape).astype(np.uint32)
+        tags[::3, 2] = tags[::3, 0]                   # a tag held twice
+        setattr(ref, f"{tier}_tags", jnp.asarray(tags))
+        setattr(ref, f"{tier}_valid", jnp.asarray(rng.random(shape) < 0.8))
+    total, conv = ref.cfg.amap.total_sets, ref.cfg.conv_sets
+    keys = [tag * total + g for g in range(0, total, 5) for tag in (0, 2)]
+    return ref, np.asarray(keys, np.uint32)
+
+
+@pytest.mark.parametrize("comp", [True, False])
+def test_page_write_matches_the_reference_write_page(comp):
+    """``page_write`` (its plain version on the CPU) leaves the stores the
+    reference's ``write_page`` leaves (``_probe``, then ``bdi_compress``
+    and three ``.at[].set`` on the extended tier with compression, a raw
+    write otherwise): both tiers, hits and misses, the first of two ways
+    holding a tag, blocks of every BDI level."""
+    ref, keys = _write_cases(comp)
+    names = ("conv_tags", "conv_valid", "conv_data", "ext_tags", "ext_valid",
+             "ext_data", "ext_level", "ext_base")
+    st = {n: _t(np.array(getattr(ref, n))) for n in names}
+    amap = t_kv.PoolConfig(conv_sets=64, ext_sets_per_chip=32, ways=4).amap
+    t_pool.reset_launches()
+    for k in keys:
+        pay = pool_payload(int(k))
+        ref.write_page(int(k), jnp.asarray(pay))
+        tier, local = (int(x) for x in t_asep.route(amap, torch.tensor(
+            [int(k)], dtype=torch.int64)))
+        tag = int(t_asep.tag_of(amap, torch.tensor([int(k)],
+                                                   dtype=torch.int64))[0])
+        t = "conv" if tier == 0 else "ext"
+        bdi = comp and tier == 1
+        t_ops.page_write(st[f"{t}_tags"], st[f"{t}_valid"], st[f"{t}_data"],
+                         st["ext_level"] if bdi else None,
+                         st["ext_base"] if bdi else None, [local], [tag],
+                         pay[None])
+    assert t_pool.plain_runs["page_write"] == len(keys)
+    for n in names:
+        _same(getattr(ref, n), st[n], n)
+    level = np.asarray(ref.ext_level)
+    assert set(np.unique(level)) == ({0, 1, 2} if comp else {2})
+    written = np.asarray(ref.conv_data).any(axis=2)
+    assert written.any() and not written.all()
+
+
+def test_page_write_checks_its_arguments():
+    tags = torch.zeros((4, 4), dtype=torch.int32)
+    valid = torch.ones((4, 4), dtype=torch.bool)
+    data = torch.zeros((4, 4, 32), dtype=torch.int32)
+    page = np.zeros((2, 32), np.uint32)
+    with pytest.raises(ValueError, match="repeated"):
+        t_ops.page_write(tags, valid, data, None, None, [1, 1], [5, 5], page)
+    with pytest.raises(ValueError, match="outside"):
+        t_ops.page_write(tags, valid, data, None, None, [1, 4], [5, 6], page)
+    with pytest.raises(ValueError, match="both or neither"):
+        t_ops.page_write(tags, valid, data, tags, None, [1, 2], [5, 5], page)
+    with pytest.raises(ValueError, match="32 words"):
+        t_ops.page_write(tags, valid, data[:, :, :16].contiguous(), tags,
+                         tags.clone(), [1, 2], [5, 5], page[:, :16])
+    with pytest.raises(ValueError, match="pages"):
+        t_ops.page_write(tags, valid, data, None, None, [1, 2], [5, 5],
+                         page[:1])
+    t_ops.page_write(tags, valid, data, None, None, [1, 2], [0, 0], page + 7)
+    assert (data[1:3, 0] == 7).all() and not data[0].any()  # first way
+
+
 # ------------------------------------------------------------ block read
 
 def _read_inputs(s, w, seed):
@@ -343,14 +528,19 @@ def test_wrappers_run_plain_versions_on_the_cpu_and_check_arguments():
     t_ops.bdi_decompress(*t_ops.bdi_compress(_t(blocks)))
     assert set(t_pool.launches.values()) == {0}
     assert t_pool.plain_runs == {
-        "tag_lookup": 1, "bloom_query": 0, "bloom_record": 0,
-        "bdi_compress": 1, "bdi_decompress": 1, "gather_blocks": 0,
-        "cached_block_read": 0, "read_rows": 0}
+        "tag_lookup": 1, "lookup_fill": 0, "bloom_query": 0,
+        "bloom_record": 0, "bdi_compress": 1, "page_write": 0,
+        "bdi_decompress": 1, "gather_blocks": 0, "cached_block_read": 0,
+        "read_rows": 0}
     with pytest.raises(TypeError, match="valid"):
         t_ops.tag_lookup(_t(tags), _t(valid.astype(np.int32)), _t(lru),
                          _t(req))
     with pytest.raises(ValueError, match="req"):
         t_ops.tag_lookup(_t(tags), _t(valid), _t(lru), _t(req[:3]))
+    with pytest.raises(ValueError, match="outside"):
+        t_ops.lookup_fill(_t(tags), _t(valid), _t(lru), [0, 16], [1, 2])
+    with pytest.raises(ValueError, match="sets and req"):
+        t_ops.lookup_fill(_t(tags), _t(valid), _t(lru), [0, 1], [1])
     with pytest.raises(ValueError, match=r"\(N, 32\)"):
         t_ops.bdi_compress(_t(blocks[:, :16]))
     with pytest.raises(ValueError, match="contiguous"):
@@ -367,6 +557,14 @@ def test_empty_inputs_on_the_cpu():
     hit, way, lru = t_ops.tag_lookup(_t(z), _t(z.astype(bool)), _t(z),
                                      _t(np.zeros(0, np.uint32)))
     assert hit.shape == (0,) and lru.shape == (0, 4)
+    store = [_t(x) for x in _fill_store(8, 4, seed=1)]
+    before = [x.clone() for x in store]
+    rec = t_ops.lookup_fill(*store, [], [])
+    assert rec.shape == (5, 0)
+    assert all(torch.equal(a, b) for a, b in zip(store, before))
+    t_ops.page_write(store[0], store[1], torch.zeros((8, 4, 32),
+                                                     dtype=torch.int32),
+                     None, None, [], [], np.zeros((0, 32), np.uint32))
     level, base, payload = t_ops.bdi_compress(_t(np.zeros((0, 32),
                                                           np.uint32)))
     assert payload.shape == (0, 32)

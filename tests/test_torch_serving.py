@@ -153,6 +153,69 @@ def test_a_batch_of_extended_keys_is_recorded_in_one_run():
     assert t_kv.pool_to_numpy(port)["n_mru"].any()
 
 
+def _count_reads(monkeypatch) -> dict:
+    """Count the pool's reads of device tensors back to the host."""
+    reads = {"_host": 0, "_host_u32": 0}
+    for name in reads:
+        def read(t, name=name, fn=getattr(t_kv, name)):
+            reads[name] += 1
+            return fn(t)
+        monkeypatch.setattr(t_kv, name, read)
+    return reads
+
+
+@pytest.mark.parametrize("rounds", [1, 2, 4, 6])
+def test_a_batch_of_conventional_keys_is_one_lookup_fill(rounds,
+                                                         monkeypatch):
+    """One ``lookup_batch`` whose conventional keys need ``rounds`` rounds
+    (six keys to one set: four run, two get tier 2) makes one
+    ``lookup_fill`` and reads the card back once (``_host``), where the
+    reference ran a ``tag_lookup`` and two reads a round and two more a
+    fill; plans, stats, recorder events and state stay the reference's."""
+    ref, port = _pair(**ENGINE_POOL)
+    rec_r, rec_p = ref.attach_recorder(), port.attach_recorder()
+    total = ref.cfg.amap.total_sets
+    for b in range(3):                               # fills, then evictions
+        keys = np.asarray([s + total * (b * 7 + j) for j in range(rounds)
+                           for s in (3, 17, 40)] + [50 + total * (b + 1)],
+                          np.uint32)
+        t_pool.reset_launches()
+        with monkeypatch.context() as m:
+            reads = _count_reads(m)
+            plan = port.lookup_batch(keys)
+        assert t_pool.plain_runs["lookup_fill"] == 1
+        assert t_pool.plain_runs["tag_lookup"] == 0
+        assert reads == {"_host": 1, "_host_u32": 0}
+        np.testing.assert_array_equal(plan.tier, ref.lookup_batch(keys).tier)
+        _assert_same_state(ref, port, f"batch {b}")
+        _assert_same_stats(ref, port, f"batch {b}")
+    assert (plan.tier[3 * 4:-1] == 2).all()          # past the 4th round
+    for a, b in zip(rec_r.arrays(), rec_p.arrays()):
+        np.testing.assert_array_equal(a, b)
+    assert rec_p.counts()["insert"] and (rounds == 1
+                                         or rec_p.counts()["evict"])
+
+
+def test_write_page_is_one_page_write_and_no_read_back(monkeypatch):
+    port = t_kv.MorpheusPagePool(t_kv.PoolConfig(**ENGINE_POOL),
+                                 device="cpu")
+    total = port.cfg.amap.total_sets
+    keys = np.asarray([total * 2 + s for s in (3, 70, 100)], np.uint32)
+    port.lookup_batch(keys)
+    reads = _count_reads(monkeypatch)
+    for k in list(keys) + [total * 9 + 3]:           # the last one misses
+        t_pool.reset_launches()
+        port.write_page(int(k), pool_payload(int(k)))
+        assert {n: v for n, v in t_pool.plain_runs.items() if v} == {
+            "page_write": 1}
+    assert reads == {"_host": 0, "_host_u32": 0}
+    plan = port.lookup_batch(keys)
+    assert set(plan.tier) == {0, 1}
+    np.testing.assert_array_equal(
+        port.read_pages(plan).numpy().view(np.uint32),
+        [pool_payload(int(k)) for k in keys])
+
+
 def test_read_pages_is_one_read_of_both_tiers():
     port = t_kv.MorpheusPagePool(t_kv.PoolConfig(**ENGINE_POOL),
                                  device="cpu")
@@ -236,10 +299,15 @@ def test_pool_needs_a_card_unless_asked_for_the_cpu():
 def test_page_key_and_helpers_match_the_reference():
     for args in [(0, 0, 0), (123456789, 35, 15), (2**63, 7, 2**40)]:
         assert t_kv.page_key(*args) == j_kv.page_key(*args)
-    req_set = np.asarray([4, 1, 4, 4, 2, 1], np.int32)
-    idx = np.arange(6)
-    first = t_kv._first_per_set(req_set)
-    np.testing.assert_array_equal(first, j_kv._first_per_set(req_set))
-    for a, b in zip(t_kv._drop_first(req_set, idx, first),
-                    j_kv._drop_first(req_set, idx, first)):
-        np.testing.assert_array_equal(a, b)
+    # the conventional tier's accounting order is the reference's: rounds
+    # of _first_per_set over the batch, at most 4
+    req_set = np.asarray([4, 1, 4, 4, 2, 1, 4, 4, 4], np.int32)
+    rank = t_pool._ranks(req_set.astype(np.int64))
+    got = t_kv._round_order(np.where(rank < t_pool.ROUNDS, rank, -1))
+    idx, want = np.arange(len(req_set)), []
+    for _ in range(4):
+        first = j_kv._first_per_set(req_set)
+        want += list(idx[first])
+        req_set, idx = j_kv._drop_first(req_set, idx, first)
+    np.testing.assert_array_equal(got, want)
+    assert len(want) == 7 and req_set.size == 2   # set 4's 5th and 6th
