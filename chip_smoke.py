@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the Morpheus simulator, its serving
-page pool and its serving engine on one NVIDIA card.
+page pool, its serving engine and its online runtime on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -95,9 +95,32 @@ Phases (one line each; any failure exits non-zero and prints no result):
      profiled prefill and decode step;
   13. every attention call of phase 12, one per input shape, replayed
      against its plain version and timed with its bound and SDPA's time;
-  14. the ported kernels with their launches (phase 4 for the engine
-     scans, phase 7 for the pool, phase 12 for attention), errors, times
-     and bounds.
+  14. main path of the online runtime, at the full-profile cells of
+     ``benchmarks/fig_online.py`` and ``benchmarks/fig_serving.py``
+     (Morpheus-ALL on the 4-rung ladder (18, 32, 48, 68)): the stationary
+     ``cfd`` cell (240 000 requests, epochs of 3 000), the phased
+     ``("kmeans", "lib")`` cell (320 000), the two-tenant bursty cell
+     (``cfd,kmeans`` under MMPP, 240 000, ``SERVING_GCFG``) and the
+     stationary cell pinned at (48, 20), each through ``simulate_online``
+     with the scans' counts set to 0 before and read after (one stateful
+     ``conv_scan`` an epoch, one ``ext_scan`` an epoch whose split has
+     cache cores, no plain version) and held to
+     ``tests/data/torch_golden_online.json`` (decisions, splits and
+     integer Stats identical, floats within 1e-3 relative, per-tenant
+     Stats summing to the global ones); the stationary cell replayed to
+     epoch 40 (``advance_packed`` by CUDA events, a profiled window of 5
+     epochs), its state handed off to another split and the next epoch
+     through both stateful scans against their plain versions on the
+     same rows, timed; an ``EpochStream`` with ``ring=2`` against
+     ``ring=0``, and a mid-run snapshot through ``save_state`` and
+     ``load_state`` resumed to the uninterrupted run; ``ServingGovernor``
+     ticking once a prompt over ``demo_pool`` under phase 7's traffic on
+     the card and on the CPU, identical, with phase 7's launches a
+     lookup; wall s, epochs/s, simulated requests/s and the host split
+     (obs spans: trace generation, pack, advance, governor, handoffs);
+  15. the ported kernels with their launches (phase 4 for the engine
+     scans, phase 14 for their stateful twins, phase 7 for the pool,
+     phase 12 for attention), errors, times and bounds.
 
 The last lines are the card (``nvidia-smi``), the ``{"kernels": ...}``
 record, and ``{"ok": true, "device": ...}``.  Needs one CUDA card, the
@@ -124,6 +147,7 @@ SRC = ROOT / "src"
 GOLDEN = ROOT / "tests" / "data" / "torch_golden_stats.json"
 GOLDEN_POOL = ROOT / "tests" / "data" / "torch_golden_pool.json"
 GOLDEN_LM = ROOT / "tests" / "data" / "torch_golden_lm.json"
+GOLDEN_ONLINE = ROOT / "tests" / "data" / "torch_golden_online.json"
 SOURCES = ("engine_scan", "pool", "attention")
 
 # The device ms of the engine-scan kernels at phase 2's timed shape before
@@ -163,6 +187,9 @@ class Env:
         sys.path.insert(0, str(SRC))
         from repro_torch import configs
         from repro_torch import models
+        from repro_torch import obs
+        from repro_torch.runtime import governor, stream
+        from repro_torch.workloads.serving import bursty_workload
         from repro_torch.core import cache_sim, controller, engine, policy
         from repro_torch.kernels import (_build, attention, engine_scan, ops,
                                          pool)
@@ -173,6 +200,8 @@ class Env:
         self.ops, self.pool, self.kv = ops, pool, paged_kv
         self.att, self.configs, self.models = attention, configs, models
         self.serving = serving_engine
+        self.obs, self.governor, self.stream = obs, governor, stream
+        self.bursty = bursty_workload
 
 
 def timed_cuda(fn, reps: int) -> float:
@@ -1812,6 +1841,457 @@ def phase_attention_path(env: Env, calls: PathCalls) -> dict:
     return out
 
 
+# ------------------------------------------------------- online runtime
+
+ONLINE_SYSTEM = "Morpheus-ALL"
+HANDOFF_EPOCH = 40           # (c): the stationary cell's state after it
+PROFILED_EPOCHS = (30, 35)   # (f): the profiled window of the replay
+RING_EPOCHS, SNAPSHOT_EPOCH = 40, 20       # (d)
+GOVERNED_PROMPTS = 40        # (e): phase 7's traffic, one tick a prompt
+ONLINE_SPANS = ("online.replica", "online.pack", "online.advance",
+                "online.consume", "stream.handoff", "governor.decide")
+
+
+def online_cell(env: Env, cell: dict, dev):
+    """(result, candidates) of one golden cell through the port's
+    ``simulate_online``, as ``tests/test_torch_golden_online.py`` runs the
+    reference's."""
+    gov = env.governor
+    gcfg = gov.SERVING_GCFG if cell["gcfg"] == "serving" \
+        else gov.GovernorConfig()
+    fixed = tuple(cell["fixed_split"]) if cell["fixed_split"] else None
+    if "mix" in cell:
+        wl = env.bursty(cell["mix"], cell["arrival"], length=cell["length"],
+                        n_cores=cell["n_cores"], seed=cell["seed"])
+        cands = gov.candidates_for(wl.primary_app, ONLINE_SYSTEM,
+                                   grid=cell["ladder"],
+                                   length=cell["length"])
+        return gov.simulate_online(
+            wl, ONLINE_SYSTEM, target_epoch=cell["target_epoch"],
+            candidates=cands, gcfg=gcfg, fixed_split=fixed, device=dev), cands
+    phases = online_phases(cell)
+    cands = gov.candidates_for(online_primary(env, cell), ONLINE_SYSTEM,
+                               grid=cell["ladder"], length=cell["length"])
+    return gov.simulate_online(
+        phases, ONLINE_SYSTEM, length=cell["length"],
+        epoch_len=cell["epoch_len"], candidates=cands, gcfg=gcfg,
+        fixed_split=fixed, device=dev), cands
+
+
+def online_phases(cell: dict):
+    p = cell["phases"]
+    return p[0] if len(p) == 1 else tuple(p)
+
+
+def online_primary(env: Env, cell: dict) -> str:
+    p = cell["phases"]
+    if len(p) == 1:
+        return p[0]
+    return next((a for a in p if env.governor.tr.WORKLOADS[a].memory_bound),
+                p[0])
+
+
+def online_check(env: Env, cell: dict, r, cands) -> float:
+    """Hold one run to its golden record: candidates, decisions, splits
+    and integer Stats identical, float Stats within FLOAT_RTOL, per-tenant
+    integer Stats identical and summing to the global ones.  Returns the
+    largest relative float error."""
+    name = cell["name"]
+    got = {"candidates": [list(c) for c in cands],
+           "epochs": len(r.records), "switches": int(r.switches),
+           "decisions": [[d.epoch, d.trigger, list(d.from_split),
+                          list(d.to_split), int(d.flush_writebacks)]
+                         for d in r.decisions],
+           "splits": [[x.n_compute, x.n_cache] for x in r.records],
+           "int_stats": {f: int(np.asarray(getattr(r.stats, f)))
+                         for f in env.ctl._INT_FIELDS}}
+    for key, card in got.items():
+        ref = cell[key]
+        if card == ref:
+            continue
+        if isinstance(card, list):      # name the first differing entry
+            i = next((i for i, (a, b) in enumerate(zip(card, ref))
+                      if a != b), min(len(card), len(ref)))
+            card, ref = card[i:i + 1], ref[i:i + 1]
+            key = f"{key}[{i}]"
+        fail(f"online {name}: {key} differs from the reference's: card "
+             f"{card}, reference {ref}")
+    worst = 0.0
+    for f, want in cell["float_stats"].items():
+        v = float(np.asarray(getattr(r.stats, f)))
+        rel = abs(v - want) / max(abs(want), 1.0)
+        worst = max(worst, rel)
+        if rel > FLOAT_RTOL:
+            fail(f"online {name}: float {f} {v} vs the reference's {want}")
+    if "tenant_int_stats" in cell:
+        tenants = {n: {f: int(np.asarray(getattr(s, f)))
+                       for f in env.ctl._INT_FIELDS}
+                   for n, s in r.tenant_stats.items()}
+        if tenants != cell["tenant_int_stats"]:
+            fail(f"online {name}: per-tenant Stats differ from the "
+                 f"reference's")
+        for f, v in got["int_stats"].items():
+            if sum(t[f] for t in tenants.values()) != v:
+                fail(f"online {name}: per-tenant {f} does not sum to the "
+                     f"global {v}")
+    return worst
+
+
+def online_run(env: Env, cell: dict, dev) -> dict:
+    """One golden cell on the card, with the scan counts set to 0 just
+    before and read just after, the obs tracer's spans (the host split)
+    and counters on; fail unless each stateful scan launched once an
+    epoch that has its tier, no plain version ran, and the run equals the
+    reference's."""
+    obs, scan = env.obs, env.scan
+    obs.enable(trace=True, metrics=True)
+    torch.cuda.synchronize()
+    scan.reset_launches()
+    t0 = time.perf_counter()
+    r, cands = online_cell(env, cell, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(scan.launches), dict(scan.plain_runs)
+    spans = obs.tracer().summary()
+    counters = obs.bench_counters()
+    obs.disable()
+    err = online_check(env, cell, r, cands)
+    ext_epochs = sum(1 for x in r.records if x.n_cache > 0)
+    want = {"conv_scan": len(r.records), "ext_scan": ext_epochs}
+    if launches != want or any(plain.values()):
+        fail(f"online {cell['name']}: launches {launches} (expected {want} "
+             f"from the epochs' splits), plain runs {plain}")
+    if not counters["dispatches"] == len(r.records) == counters["epochs"]:
+        fail(f"online {cell['name']}: counters {counters}")
+    host = {k: spans.get(k, {}).get("total_us", 0.0) / 1e6
+            for k in ONLINE_SPANS}
+    n_req = sum(x.requests for x in r.records)
+    out = {"name": cell["name"], "wall_s": wall, "epochs": len(r.records),
+           "epochs_per_s": len(r.records) / wall,
+           "requests_per_s": n_req / wall, "requests": n_req,
+           "switches": int(r.switches), "decisions": len(r.decisions),
+           "launches": launches, "host_s": host, "float_rel_err": err,
+           "flush_writebacks": counters["flush_writebacks"],
+           "ipc": r.ipc, "converged_split": list(r.converged_split)}
+    log(f"phase 14: online {cell['name']}: {len(r.records)} epochs, "
+        f"{n_req} requests in {wall:.3f} s ({out['epochs_per_s']:.2f} "
+        f"epochs/s, {out['requests_per_s']:.0f} simulated requests/s); "
+        f"{len(r.decisions)} decisions, {r.switches} switches, decisions, "
+        f"splits and integer Stats == the reference's (float rel err "
+        f"{err:.3g}); launches {json.dumps(launches)}; host s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
+    return out
+
+
+def online_step(env: Env, rep, dev, ev=None) -> None:
+    """One epoch of an ``OnlineReplica`` as ``simulate_online`` runs it;
+    with ``ev`` (a list) the ``advance_packed`` call's CUDA-event ms is
+    appended."""
+    engine = env.engine
+    cfg, traces, pos0, count = rep.epoch_inputs()
+    pt = engine.pack(cfg, traces, pos0=pos0, count=count)
+    if ev is not None:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+    state, delta = engine.advance_packed(cfg, pt, rep.state, dev)
+    if ev is not None:
+        e1.record()
+    host = env.ctl.Stats(*[x.cpu().numpy() for x in delta])
+    if ev is not None:
+        ev.append(e0.elapsed_time(e1))
+    rep.consume(state, host)
+
+
+def state_bound(tier: str, pt, rows) -> tuple:
+    """``bound_ms`` of a stateful scan: the stateless bound plus its state
+    rows read once and written once."""
+    b_s = pt.conv_tag.shape[0] * pt.conv_tag.shape[1] if tier == "conv" \
+        else pt.ext_tag.shape[0] * pt.ext_tag.shape[1]
+    ways = rows.tags.shape[-1]
+    t, by = bound_ms(tier, pt, b_s, ways)
+    row_ms = 2 * sum(x.element_size() * x.numel() for x in rows) \
+        / HBM_BYTES_PER_S * 1e3
+    t_bytes = (t if by == "bytes" else 0.0) + row_ms
+    return (t_bytes, "bytes") if t_bytes >= t else (t, by)
+
+
+def online_handoff(env: Env, cell: dict, dev) -> dict:
+    """(c) and (f): the stationary cell replayed through ``OnlineReplica``
+    up to epoch ``HANDOFF_EPOCH`` (each ``advance_packed`` timed by CUDA
+    events, epochs ``PROFILED_EPOCHS`` profiled), its state handed off to
+    a split of the other size, and the next epoch through both stateful
+    scans on the card and their plain versions on the same rows."""
+    gov, engine, scan, stream = env.governor, env.engine, env.scan, \
+        env.stream
+    cands = gov.candidates_for(online_primary(env, cell), ONLINE_SYSTEM,
+                               grid=cell["ladder"], length=cell["length"])
+    rep = gov.OnlineReplica(online_phases(cell), ONLINE_SYSTEM,
+                            length=cell["length"],
+                            epoch_len=cell["epoch_len"], candidates=cands,
+                            device=dev)
+    ev_ms = []
+    window = None
+    while rep.epoch_i <= HANDOFF_EPOCH:
+        if rep.epoch_i == PROFILED_EPOCHS[0]:
+            n = PROFILED_EPOCHS[1] - PROFILED_EPOCHS[0]
+            wall, us = profiled(lambda: [online_step(env, rep, dev)
+                                         for _ in range(n)])
+            by = {k: sum(v for name, v in us.items() if k in name) / 1e3
+                  for k in ("conv_scan_kernel", "ext_scan_kernel")}
+            window = {"epochs": n, "wall_s": wall,
+                      "scan_ms": sum(by.values()),
+                      "device_busy_ms": sum(us.values()) / 1e3,
+                      "by_kernel_ms": by, "measured": bool(us)}
+            continue
+        online_step(env, rep, dev, ev_ms)
+    splits = [[x.n_compute, x.n_cache] for x in rep.records]
+    if splits != cell["splits"][:len(splits)]:
+        fail("online handoff: the replay's splits differ from the "
+             "reference's")
+    nc, nk = rep.gov.current
+    spec = env.cs.SYSTEMS[ONLINE_SYSTEM]
+    other = next(c for c in cands if c[1] > 0 and c[1] != nk)
+    old_cfg = env.cs.build_config(spec, nk)
+    new_cfg = env.cs.build_config(spec, other[1])
+    state, report = stream.handoff(old_cfg, rep.state, new_cfg,
+                                   migrate=True)
+    if not (report.migrated > 0 and report.resident_before > 0):
+        fail(f"online handoff: nothing migrated ({report})")
+    lo, hi = rep.epoch_bounds[rep.epoch_i]
+    a, w, l = rep.trace_of[other[0]]
+    pt = engine.to_device(engine.pack(new_cfg, [(a[lo:hi], w[lo:hi],
+                                                 l[lo:hi], 0)], pos0=[lo]),
+                          dev)
+    warm = pt.warmup[:, None, None]
+    crows = env.ctl.ConvRow(*[getattr(state, f)
+                              for f in engine._CONV_FIELDS])
+    erows = env.ctl.ExtRow(*[getattr(state, f) for f in engine._EXT_FIELDS])
+    cargs = (new_cfg, pt.conv_tag, pt.conv_write, pt.conv_active,
+             pt.conv_active & (pt.conv_pos >= warm))
+    eargs = (new_cfg, pt.ext_tag, pt.ext_write, pt.ext_level,
+             pt.ext_active, pt.ext_active & (pt.ext_pos >= warm))
+    scan.reset_launches()
+    err = {"conv_scan": compare(
+        scan.conv_scan(*cargs, state=crows, keep_state=True),
+        scan.conv_scan_plain(*cargs, state=crows, keep_state=True),
+        "online handoff conv_scan"),
+        "ext_scan": compare(
+        scan.ext_scan(*eargs, state=erows, keep_state=True),
+        scan.ext_scan_plain(*eargs, state=erows, keep_state=True),
+        "online handoff ext_scan")}
+    if scan.launches != {"conv_scan": 1, "ext_scan": 1}:
+        fail(f"online handoff: launches {scan.launches}")
+    timing = {}
+    reps = 20
+    for name, kernel, plain, tier, rows in (
+            ("conv_scan",
+             lambda: scan.conv_scan(*cargs, state=crows, keep_state=True),
+             lambda: scan.conv_scan_plain(*cargs, state=crows,
+                                          keep_state=True), "conv", crows),
+            ("ext_scan",
+             lambda: scan.ext_scan(*eargs, state=erows, keep_state=True),
+             lambda: scan.ext_scan_plain(*eargs, state=erows,
+                                         keep_state=True), "ext", erows)):
+        # the stateful wrappers read the row contract's verdict back to
+        # the host, so no CUDA graph holds them: the kernel's own device
+        # time comes from the profiler (CUDA events back to back if it
+        # recorded no device activity)
+        call_ms = timed_cuda(kernel, reps)
+        _, us = profiled(lambda: [kernel() for _ in range(reps)])
+        k_us = sum(v for k, v in us.items() if f"{tier}_scan_kernel" in k)
+        timing[name] = {"ms": k_us / 1e3 / reps if k_us else call_ms,
+                        "ms_by": "torch.profiler" if k_us else
+                        "CUDA events, back to back",
+                        "call_ms": call_ms,
+                        "plain_ms": timed_cuda(plain, 2),
+                        "bound": state_bound(tier, pt, rows),
+                        "shape": list(pt.conv_tag.shape if tier == "conv"
+                                      else pt.ext_tag.shape),
+                        "ways": rows.tags.shape[-1]}
+    adv = sorted(ev_ms)
+    out = {"from_split": [nc, nk], "to_split": list(other),
+           "report": {k: v for k, v in dataclasses.asdict(report).items()
+                      if k != "dropped_dirty_addr"},
+           "err": err, "timing": timing, "window": window,
+           "advance_ms_mean": sum(ev_ms) / len(ev_ms),
+           "advance_ms_median": adv[len(adv) // 2],
+           "advance_epochs": len(ev_ms)}
+    wtext = ("not measured (torch.profiler recorded no device activity)"
+             if not window["measured"] else
+             f"host {window['wall_s']:.4f} s, device "
+             f"{window['device_busy_ms']:.3f} ms, scans "
+             f"{window['scan_ms']:.3f} ms ({json.dumps(window['by_kernel_ms'])})")
+    log(f"phase 14: online handoff: the stationary cell's state after "
+        f"epoch {HANDOFF_EPOCH} at ({nc}, {nk}) handed off to {other} "
+        f"({out['report']}); the next epoch through both stateful scans == "
+        f"plain on the same rows (integer Stats and rows identical, max abs "
+        f"float err conv {err['conv_scan']:.3g}, ext {err['ext_scan']:.3g}); "
+        + "; ".join(f"{k} {v['shape']}, {v['ways']} ways: "
+                    f"{v['ms']:.5f} ms on the card ({v['ms_by']}), "
+                    f"{v['call_ms']:.4f} ms a call, "
+                    f"plain {v['plain_ms']:.2f} ms, bound "
+                    f"{v['bound'][0]:.5f} ms ({v['bound'][1]})"
+                    for k, v in timing.items())
+        + f"; advance_packed by CUDA events over {len(ev_ms)} epochs: mean "
+        f"{out['advance_ms_mean']:.3f} ms, median "
+        f"{out['advance_ms_median']:.3f} ms; profiled window of epochs "
+        f"{PROFILED_EPOCHS[0]}-{PROFILED_EPOCHS[1] - 1}: {wtext}")
+    return out
+
+
+def online_ring(env: Env, cell: dict, dev) -> None:
+    """(d): an ``EpochStream`` over the stationary cell's trace at the
+    split (48, 20) with ``ring=0``; the same with ``ring=2``, whose
+    snapshot at epoch ``SNAPSHOT_EPOCH`` goes through ``save_state`` and
+    ``load_state`` into a third stream (``ring=2``) that resumes: every
+    epoch's Stats, the final rows and Stats identical."""
+    stream, tr = env.stream, env.governor.tr
+    spec = env.cs.SYSTEMS[ONLINE_SYSTEM]
+    nc, nk = 48, 20
+    cfg = env.cs.build_config(spec, nk)
+    length = RING_EPOCHS * cell["epoch_len"]
+    a, w, l = tr.generate_phased([cell["phases"][0]], n_cores=nc,
+                                 length=cell["length"], seed=0,
+                                 ws_scale=1.0 / env.cs.SIM_SCALE)
+    a, w, l = a[:length], w[:length], l[:length]
+    path = ROOT / "build" / "chip_smoke" / "online_state.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    for ring in (0, 2):
+        s = stream.EpochStream(cfg, a, w, l, epoch_len=cell["epoch_len"],
+                               ring=ring, device=dev)
+        deltas = []
+        while not s.done:
+            if ring and s.epoch == SNAPSHOT_EPOCH:
+                stream.save_state(path, s.snapshot())
+            deltas.append([x.clone() for x in s.step()])
+        runs[ring] = (deltas, s.state)
+    resumed = stream.EpochStream(cfg, a, w, l, epoch_len=cell["epoch_len"],
+                                 ring=2, device=dev)
+    snap = stream.load_state(path, cfg)
+    resumed.restore(snap)
+    tail = [[x.clone() for x in resumed.step()] for _ in
+            range(RING_EPOCHS - SNAPSHOT_EPOCH)]
+    if not resumed.done:
+        fail("online ring: the resumed stream did not reach the end")
+    for i, (d0, d2) in enumerate(zip(runs[0][0], runs[2][0])):
+        if not all(torch.equal(x, y) for x, y in zip(d0, d2)):
+            fail(f"online ring: epoch {i} Stats of ring=2 != ring=0")
+    for i, (d0, d2) in enumerate(zip(runs[0][0][SNAPSHOT_EPOCH:], tail)):
+        if not all(torch.equal(x, y) for x, y in zip(d0, d2)):
+            fail(f"online resume: epoch {SNAPSHOT_EPOCH + i} Stats differ")
+    for st in (runs[2][1], resumed.state):
+        same = all(torch.equal(x, y) for x, y in
+                   zip(runs[0][1][:-2], st[:-2])) and \
+            all(torch.equal(x, y) for x, y in zip(runs[0][1].stats,
+                                                  st.stats)) and \
+            torch.equal(runs[0][1].pos, st.pos)
+        if not same:
+            fail("online ring/resume: final rows or Stats differ")
+    log(f"phase 14: online state file and ring: {RING_EPOCHS} epochs at "
+        f"({nc}, {nk}); ring=2 == ring=0 every epoch; snapshot at epoch "
+        f"{SNAPSHOT_EPOCH} -> save_state -> load_state -> resume == the "
+        f"uninterrupted run (rows, Stats, position)")
+
+
+def online_serving(env: Env, dev) -> dict:
+    """(e): ``ServingGovernor`` ticking once a prompt over ``demo_pool``
+    under phase 7's chat traffic, on the card and on the CPU: tick
+    records, ``PoolStats``, flushed pages and decisions identical; on the
+    card the pool launches what phase 7 requires per lookup."""
+    gov, kv, kp = env.governor, env.kv, env.pool
+    prompts = list(chat_prompts(GOVERNED_PROMPTS))
+    out = {}
+    for where in (dev, "cpu"):
+        pool = gov.demo_pool(4, device=where)
+        sg = gov.ServingGovernor(pool)
+        installed, writes = {}, 0
+        kp.reset_launches()
+        t0 = time.perf_counter()
+        for i, prompt in enumerate(prompts):
+            writes += serve_request(pool, kv.page_key, prompt, installed,
+                                    f"governed prompt {i}")
+            sg.tick()
+        wall = time.perf_counter() - t0
+        out[str(where)] = dict(history=sg.history, stats=tuple(pool.stats),
+                               decisions=[e.to_dict()
+                                          for e in sg.gov.decisions],
+                               launches=dict(kp.launches),
+                               plain=dict(kp.plain_runs), writes=writes,
+                               wall_s=wall)
+    card, cpu = out[str(dev)], out["cpu"]
+    for key in ("history", "stats", "decisions", "writes"):
+        if card[key] != cpu[key]:
+            fail(f"online serving governor: {key} on the card differs from "
+                 f"the CPU's")
+    s = kv.PoolStats(*card["stats"])
+    ext = s.ext_hits + s.ext_false_pos + s.ext_pred_miss
+    want = {"lookup_fill": s.conv_hits + s.conv_misses, "bloom_query": ext,
+            "bloom_record": ext, "page_write": card["writes"],
+            "read_rows": s.conv_hits + s.ext_hits, "tag_lookup": 0,
+            "bdi_compress": 0}
+    got = {k: card["launches"][k] for k in want}
+    if got != want or any(card["plain"].values()):
+        fail(f"online serving governor: launches {got}, expected {want}; "
+             f"plain runs {card['plain']}")
+    switched = sum(r["switched"] for r in card["history"])
+    flushed = sum(r["flushed_pages"] for r in card["history"])
+    log(f"phase 14: online serving governor: {GOVERNED_PROMPTS} prompts, "
+        f"one tick each, on the card in {card['wall_s']:.3f} s (CPU "
+        f"{cpu['wall_s']:.3f} s); tick records, PoolStats, decisions and "
+        f"{flushed} flushed pages over {switched} switches == the CPU's "
+        f"(chips {[r['chips'] for r in card['history']]}); launches "
+        f"{json.dumps(got)} as phase 7 requires")
+    return {"switches": switched, "flushed": flushed, "launches": got,
+            "wall_s": card["wall_s"]}
+
+
+def phase_online(env: Env, dev) -> dict:
+    """Phase 14: the online runtime on the card at the figure scripts'
+    full-profile cells, held to ``tests/data/torch_golden_online.json``."""
+    golden = json.loads(GOLDEN_ONLINE.read_text())
+    cells = [dict(c, ladder=golden["ladder_grid"]) for c in golden["cells"]]
+    runs = [online_run(env, c, dev) for c in cells]
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in ("conv_scan", "ext_scan")}
+    stationary = next(c for c in cells if c["name"] == "stationary")
+    handoff = online_handoff(env, stationary, dev)
+    online_ring(env, stationary, dev)
+    serving = online_serving(env, dev)
+    return {"cells": runs, "launches": launches, "handoff": handoff,
+            "serving": serving}
+
+
+def online_kernel_rows(online: dict, scan_ptxas: dict) -> list:
+    """The stateful scans' entries of the kernels line: launches of phase
+    14's cells, times at the online path's shape (the handed-off epoch)."""
+    source = "src/repro_torch/kernels/csrc/engine_scan.cu"
+    rows = {"conv_scan": ("conv_scan_state",
+                          "src/repro/kernels/engine_scan.py:248",
+                          "conv_scan_kernel with state pointers"),
+            "ext_scan": ("ext_scan_state",
+                         "src/repro/kernels/engine_scan.py:283",
+                         "ext_scan_kernel<K> with state pointers")}
+    out = []
+    for name, (row, replaces, kernel) in rows.items():
+        t = online["handoff"]["timing"][name]
+        out.append({
+            "name": row, "route": "cuda", "source": source,
+            "replaces": replaces, "kernel": kernel,
+            "launches": online["launches"][name],
+            "max_abs_err": online["handoff"]["err"][name],
+            "ms": t["ms"], "call_ms": t["call_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": None,
+            "shape_BSL": t["shape"], "ways": t["ways"],
+            "ms_by": t["ms_by"] + " (the wrapper reads the row contract's "
+                     "verdict back, so no CUDA graph holds it)",
+            "ptxas": {n: v for n, v in scan_ptxas.items()
+                      if n.startswith(name.split("_")[0])}})
+    return out
+
+
 def attention_kernel_rows(ak: dict, serving: dict, path: dict,
                           golden_err: float, ptxas: dict) -> list:
     """The attention kernels' entries of the kernels line: launches of the
@@ -2017,21 +2497,19 @@ def main() -> int:
     golden_lm = phase_golden_lm(env, dev)
     serving = phase_serving(env, dev)
     att_path = phase_attention_path(env, serving["calls"])
+    online = phase_online(env, dev)
 
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("the port imported jax or repro")
     source = "src/repro_torch/kernels/csrc/engine_scan.cu"
-    replaces = {"conv_scan": ("src/repro/kernels/engine_scan.py:97",
-                              "src/repro/kernels/engine_scan.py:248"),
-                "ext_scan": ("src/repro/kernels/engine_scan.py:135",
-                             "src/repro/kernels/engine_scan.py:283")}
+    replaces = {"conv_scan": "src/repro/kernels/engine_scan.py:97",
+                "ext_scan": "src/repro/kernels/engine_scan.py:135"}
     kernels = []
     for name in ("conv_scan", "ext_scan"):
         t = k["timing"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces[name][0],
-            "also_replaces": replaces[name][1],
+            "replaces": replaces[name],
             "launches": main_path["launches"][name],
             "max_abs_err": k["err"][name],
             "ms": t["ms"], "call_ms": t["call_ms"],
@@ -2044,10 +2522,11 @@ def main() -> int:
             "ptxas": {n: v for n, v in scan_ptxas.items()
                       if n.startswith(name.split("_")[0])},
         })
+    kernels += online_kernel_rows(online, scan_ptxas)
     kernels += pool_kernel_rows(pk, cells, paths)
     kernels += attention_kernel_rows(ak, serving, att_path, golden_lm["err"],
                                      att_ptxas)
-    log("phase 14: kernels " + ", ".join(
+    log("phase 15: kernels " + ", ".join(
         f"{x['name']} matched plain (max abs err {x['max_abs_err']:.3g}), "
         f"{x['ms']:.4g} ms on the card ({x['call_ms']:.4g} ms a call) vs "
         f"plain {x['plain_ms']:.4g} ms, bound {x['bound_ms']:.4g} ms "

@@ -17,6 +17,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from .. import obs
 from . import address_separation as asep
 from . import engine
 from . import traces as tr
@@ -283,21 +284,23 @@ def run_batch(points: Sequence[RunPoint], device=None) -> List[RunResult]:
         groups.setdefault(cfg, []).append(i)
 
     results: List[RunResult] = [None] * len(points)  # type: ignore
-    for cfg, idxs in groups.items():
-        done = 0
-        for blen in _chunk_lengths(len(idxs)):
-            chunk = idxs[done:done + blen]
-            done += len(chunk)
-            traces = [prepped[i][1] for i in chunk]
-            while len(traces) < blen:     # pad to the batch shape
-                traces.append(traces[-1])
-            stats_b = [x.cpu().numpy()
-                       for x in engine.simulate_batch(cfg, traces, dev)]
-            for j, i in enumerate(chunk):
-                stats = Stats(*[x[j] for x in stats_b])
-                _, _, n_compute, n_cache, n_acc = prepped[i]
-                results[i] = _finalize(points[i], n_compute, n_cache,
-                                       n_acc, stats)
+    with obs.span("cache_sim.run_batch", points=len(points),
+                  groups=len(groups)):
+        for cfg, idxs in groups.items():
+            done = 0
+            for blen in _chunk_lengths(len(idxs)):
+                chunk = idxs[done:done + blen]
+                done += len(chunk)
+                traces = [prepped[i][1] for i in chunk]
+                while len(traces) < blen:     # pad to the batch shape
+                    traces.append(traces[-1])
+                stats_b = [x.cpu().numpy()
+                           for x in engine.simulate_batch(cfg, traces, dev)]
+                for j, i in enumerate(chunk):
+                    stats = Stats(*[x[j] for x in stats_b])
+                    _, _, n_compute, n_cache, n_acc = prepped[i]
+                    results[i] = _finalize(points[i], n_compute, n_cache,
+                                           n_acc, stats)
     return results
 
 

@@ -36,6 +36,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from . import controller as ctl
 from .controller import MorpheusConfig, Stats
 from ..kernels import engine_scan
@@ -372,8 +373,9 @@ def _run_packed(cfg: MorpheusConfig, pt: PackedTraces,
 
 def advance_packed(cfg: MorpheusConfig, pt: PackedTraces, state: EngineState,
                    device=None) -> Tuple[EngineState, Stats]:
-    """Apply one packed epoch (numpy, from ``pack``) to an ``EngineState``
-    on ``device``; returns (new state, this epoch's Stats delta).
+    """Apply one packed epoch (numpy, from ``pack``, or tensors already on
+    ``device``, from ``to_device``) to an ``EngineState`` on ``device``;
+    returns (new state, this epoch's Stats delta).
 
     The slice must continue where ``state`` left off (pack with ``pos0 =
     state.pos``): integer Stats accumulated over any epoch partition are
@@ -381,7 +383,8 @@ def advance_packed(cfg: MorpheusConfig, pt: PackedTraces, state: EngineState,
     dev = resolve_device(device)
     if state.pos.device.type != dev.type:
         raise ValueError(f"state lies on {state.pos.device}, not {dev}")
-    tp = to_device(pt, dev)
+    obs.count("engine_dispatches", 1, path="epoch")
+    tp = pt if isinstance(pt.warmup, torch.Tensor) else to_device(pt, dev)
     delta, state = _run_packed(cfg, tp, state)
     n_req = (tp.conv_active.sum(dim=(1, 2)) + tp.ext_active.sum(dim=(1, 2))
              ).to(torch.int32)
@@ -397,6 +400,7 @@ def simulate_batch(cfg: MorpheusConfig,
     """Simulate a batch of traces under ONE config in one dispatch per
     tier.  Returns Stats with (B,) leaves on ``device``, in trace order."""
     dev = resolve_device(device)
+    obs.count("engine_dispatches", 1, path="batch")
     stats, _ = _run_packed(cfg, to_device(pack(cfg, traces), dev))
     return stats
 

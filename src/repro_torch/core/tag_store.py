@@ -7,3 +7,6 @@ counter, invalid ways first.  The transition itself lives in
 ``core.controller``.
 """
 LRU_MAX = 0xFFF  # paper Algorithm 1 line 9
+# the same value as a plain int, under the reference's name: the online
+# runtime's handoff writes ``LRU_MAX_INT - k`` into rebuilt rows
+LRU_MAX_INT = LRU_MAX

@@ -6,6 +6,8 @@ into a shared library with a plain C interface, at first use, into
 ``build/repro_torch/`` at the root of the checkout (listed in
 ``.gitignore``).  The library's name carries a hash of its source and
 flags, so an edited source is rebuilt and a stale library never loads.
+Each ``nvcc`` run is counted by ``obs.metrics.record_build`` (the
+``kernel_builds`` and ``kernel_build_seconds`` counters).
 """
 from __future__ import annotations
 
@@ -15,10 +17,13 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from ..obs import metrics as obs_metrics
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -58,7 +63,9 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    obs_metrics.record_build(time.perf_counter() - t0, source=name)
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -13,8 +13,11 @@ payload digest installed by ``write_page`` on a backing fetch, then the
 model's prefill and a greedy decode loop that reads the next tokens back
 to the host once a step.  ``Engine(model, params)`` runs on the model's
 device: the CUDA card unless the model was built with ``device="cpu"``.
-Not ported yet: the reference's ``obs.inspector()`` owner hook (the
-``obs/`` slice) and encoder-decoder models (refused by ``models.LM``).
+With the cache-content inspector on (``obs.enable(inspect=True)``) each
+consulted page key is noted with its request's tenant, as in the
+reference, so ``MorpheusPagePool.content_snapshot`` can attribute
+resident pages.  Not ported yet: encoder-decoder models (refused by
+``models.LM``).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..models.transformer import LM
 from ..models.weights import params_from_numpy
 from . import sampler as S
@@ -101,10 +105,16 @@ class Engine:
 
         # ---- page-cache consultation for prompt KV (prefix caching)
         n_pages = plen // PAGE_TOKENS
+        ins = obs.inspector()
         for r in requests:
             for pg in range(n_pages):
                 prefix = r.prompt[: (pg + 1) * PAGE_TOKENS]
                 key = page_key(_prefix_hash(prefix), 0, pg)
+                if ins is not None and r.tenant:
+                    # page keys carry no tenant bits; note ownership at
+                    # consult time so the pool's residency decode can
+                    # attribute resident pages back to tenants
+                    ins.note_owner(key, r.tenant)
                 plan = self.pool.lookup_batch(np.asarray([key], np.uint32))
                 if plan.tier[0] == 2:
                     self.pages_fetched += 1   # backing fetch = recompute

@@ -52,9 +52,9 @@ Behaviours of the reference that the port keeps on purpose:
     but filled once per occurrence, so one set can hold its tag twice;
   * a Bloom record ORs bf1's insert mask into both filters.
 
-Not ported yet: ``TraceRecorder.save`` (needs the trace corpus of the
-runtime slice) and ``MorpheusPagePool.content_snapshot`` (needs
-``obs.inspect``).
+``TraceRecorder.save`` writes the recorded events through
+``workloads.corpus``; ``MorpheusPagePool.content_snapshot`` decodes the
+pool's contents into an ``obs.inspect.Snapshot``.
 """
 from __future__ import annotations
 
@@ -122,6 +122,25 @@ class TraceRecorder:
         _, ev, _ = self.arrays()
         return {name: int((ev == code).sum())
                 for code, name in enumerate(EVENT_NAMES)}
+
+    def save(self, path, *, name: str = "pool_events"):
+        """Write the ring to a trace-corpus ``.npz`` (keys as addresses,
+        event codes as levels, mutating events as writes)."""
+        from ..workloads import corpus
+        keys, ev, tiers = self.arrays()
+        assert len(keys) > 0, "recorder is empty"
+        return corpus.save_trace(
+            path, keys, ev != EV_LOOKUP, ev.astype(np.int32),
+            name=name, like="pool_events", n_cores=0, seed=0, ws_scale=1.0,
+            extra={"kind": "pool_events",
+                   "event_codes": dict(enumerate(EVENT_NAMES)),
+                   "column_semantics": {
+                       "addrs": "page key", "levels": "event code",
+                       "writes": "mutating event (insert/evict)"},
+                   "events": self.counts(),
+                   "tier_counts": {str(t): int((tiers == t).sum())
+                                   for t in np.unique(tiers)},
+                   "dropped": max(self.total - self._count, 0)})
 
 
 @dataclass(frozen=True)
@@ -488,6 +507,39 @@ class MorpheusPagePool:
         if amap.ext_sets == 0:
             ext = ext[:0]
         return conv, ext
+
+    def content_snapshot(self, *, epoch: int = 0, replica: str = "serving",
+                         owners: Optional[Dict[int, str]] = None):
+        """Decoded cache-content ``obs.inspect.Snapshot`` of the pool.
+
+        ``owners`` maps page key -> tenant label (the serving engine's
+        consult-time notes, ``obs.Inspector.owners``); keys without a
+        note count under ``"?"``."""
+        from ..obs.inspect import Snapshot, bloom_fill_ratio
+        cv = _host(self.conv_valid)
+        ev = _host(self.ext_valid)
+        conv_occ = cv.sum(axis=1).astype(np.int64)
+        ext_occ = ev.sum(axis=1).astype(np.int64)
+        s = self.stats
+        fp, pm = s.ext_false_pos, s.ext_pred_miss
+        residency: Dict[str, int] = {}
+        if owners is not None:
+            conv_k, ext_k = self.resident_keys()
+            for k in np.concatenate([conv_k, ext_k]):
+                label = owners.get(int(k), "?")
+                residency[label] = residency.get(label, 0) + 1
+        chips = self.cfg.num_cache_chips
+        return Snapshot(
+            epoch=int(epoch), pos=int(s.lookups), replica=replica,
+            conv_set_occ=[int(x) for x in conv_occ],
+            ext_set_occ=[int(x) for x in ext_occ],
+            conv_occupancy=float(cv.mean()),
+            ext_occupancy=float(ev.mean()) if chips else 0.0,
+            byte_util=float(ev.mean()) if chips else 0.0,
+            bloom_fill=bloom_fill_ratio(_host_u32(self.bf1))
+            if chips else 0.0,
+            bloom_fp_rate=fp / max(fp + pm, 1),
+            residency=residency)
 
     # ------------------------------------------------------ mode transition
     def reconfigure(self, num_cache_chips: int) -> int:

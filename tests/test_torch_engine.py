@@ -17,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import torch_parity as tp  # noqa: E402
+from torch_parity import one_torch_thread  # noqa: E402,F401
 from repro.core import address_separation as asep  # noqa: E402
 from repro.core import controller as ctl  # noqa: E402
 from repro.core import engine as j_engine  # noqa: E402

@@ -816,3 +816,130 @@ def test_lm_on_the_card_matches_the_cpu(cuda_device, local):
     assert torch.equal(outs[0].argmax(-1), outs[1].argmax(-1))
     n = len(models[0].layers)
     assert att.launches == {"flash_attention": n, "decode_attention": 6 * n}
+
+
+# ------------------------------------------- the online runtime on the card
+
+def _online_cfgs(n_cache_old=36, n_cache_new=20):
+    from repro_torch.core import cache_sim as cs
+    spec = cs.SYSTEMS["Morpheus-ALL"]
+    return cs.build_config(spec, n_cache_old), cs.build_config(spec,
+                                                               n_cache_new)
+
+
+def _cfd_trace(length, seed=0):
+    from repro_torch.core import cache_sim as cs
+    from repro_torch.core import traces as tr
+    return tr.generate("cfd", n_cores=32, length=length, seed=seed,
+                       ws_scale=1.0 / cs.SIM_SCALE)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("migrate", [True, False])
+def test_stateful_scans_on_a_handed_off_state(cuda_device, migrate):
+    """A warmed-up state handed off to another split (rows rebuilt on the
+    host: lru = LRU_MAX_INT - k, sizes carried, one way a tag) passes the
+    row contract, and the next epoch through both stateful scans on the
+    card equals their plain versions on the same rows."""
+    from repro_torch.runtime import stream
+    old, new = _online_cfgs()
+    a, w, l = _cfd_trace(12_000)
+    state = engine.init_state(old, 1, device=cuda_device)
+    state, _ = engine.advance_packed(
+        old, engine.pack(old, [(a[:9000], w[:9000], l[:9000], 0)]), state,
+        device=cuda_device)
+    state, rep = stream.handoff(old, state, new, migrate=migrate)
+    assert rep.resident_before > 0 and (rep.migrated > 0) == migrate
+    pt = engine.to_device(engine.pack(
+        new, [(a[9000:], w[9000:], l[9000:], 0)], pos0=[9000]), cuda_device)
+    warm = pt.warmup[:, None, None]
+    crows = ctl.ConvRow(*[getattr(state, f) for f in engine._CONV_FIELDS])
+    erows = ctl.ExtRow(*[getattr(state, f) for f in engine._EXT_FIELDS])
+    cargs = (new, pt.conv_tag, pt.conv_write, pt.conv_active,
+             pt.conv_active & (pt.conv_pos >= warm))
+    eargs = (new, pt.ext_tag, pt.ext_write, pt.ext_level, pt.ext_active,
+             pt.ext_active & (pt.ext_pos >= warm))
+    scan.reset_launches()
+    _close(scan.conv_scan(*cargs, state=crows, keep_state=True),
+           scan.conv_scan_plain(*cargs, state=crows, keep_state=True),
+           f"conv after handoff migrate={migrate}")
+    _close(scan.ext_scan(*eargs, state=erows, keep_state=True),
+           scan.ext_scan_plain(*eargs, state=erows, keep_state=True),
+           f"ext after handoff migrate={migrate}")
+    assert scan.launches == {"conv_scan": 1, "ext_scan": 1}
+
+
+def _online_summary(r):
+    return ([(d.epoch, d.trigger, d.from_split, d.to_split,
+              d.flush_writebacks) for d in r.decisions],
+            [(x.n_compute, x.n_cache) for x in r.records],
+            {f: int(np.asarray(getattr(r.stats, f)))
+             for f in ctl._INT_FIELDS})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["phased", "tenants"])
+def test_simulate_online_on_the_card_matches_the_cpu(cuda_device, form):
+    """A short governed run on the card (the stateful scans once an epoch,
+    handoffs between) against the same run on the CPU: identical
+    decisions, splits and integer Stats; per-tenant sums equal the
+    global ones."""
+    from repro_torch.runtime import governor as gov
+    from repro_torch.workloads.serving import bursty_workload
+    grid = (18, 32, 48, 68)
+    if form == "phased":
+        cands = gov.candidates_for("kmeans", "Morpheus-ALL", grid=grid,
+                                   length=24_000)
+        runs = [gov.simulate_online(("kmeans", "lib"), "Morpheus-ALL",
+                                    length=24_000, epoch_len=1_500,
+                                    candidates=cands, device=d)
+                for d in (cuda_device, "cpu")]
+    else:
+        wl = bursty_workload("cfd,kmeans", "mmpp:4e5,6e6,2e-3,6e-4",
+                             length=12_000)
+        cands = gov.candidates_for(wl.primary_app, "Morpheus-ALL",
+                                   grid=grid, length=12_000)
+        runs = [gov.simulate_online(wl, "Morpheus-ALL", target_epoch=1_500,
+                                    candidates=cands, gcfg=gov.SERVING_GCFG,
+                                    device=d)
+                for d in (cuda_device, "cpu")]
+    card, cpu = runs
+    assert _online_summary(card) == _online_summary(cpu)
+    assert card.switches > 0
+    if form == "tenants":
+        for f in ctl._INT_FIELDS:
+            assert sum(int(getattr(s, f)) for s in
+                       card.tenant_stats.values()) == \
+                int(getattr(card.stats, f)), f
+
+
+@pytest.mark.gpu
+def test_epoch_stream_ring_matches_no_ring_on_the_card(cuda_device):
+    """Epochs parked on the card by the ring (pinned copies on a side
+    stream, ordered by an event) give the Stats and rows of the plain
+    stream; a snapshot taken mid-run resumes identically."""
+    from repro_torch.runtime import stream
+    cfg, _ = _online_cfgs()
+    a, w, l = _cfd_trace(24_000, seed=2)
+    runs = {}
+    for ring in (0, 2):
+        s = stream.EpochStream(cfg, a, w, l, epoch_len=3_000, ring=ring,
+                               device=cuda_device)
+        deltas = [s.step() for _ in range(3)]
+        snap = s.snapshot()
+        deltas += [s.step() for _ in range(5)]
+        assert s.done
+        runs[ring] = (deltas, s.state, snap)
+    for d0, d2 in zip(runs[0][0], runs[2][0]):
+        for x, y in zip(d0, d2):
+            assert torch.equal(x, y)
+    for x, y in zip(runs[0][1].stats, runs[2][1].stats):
+        assert torch.equal(x, y)
+    for x, y in zip(runs[0][1][:-2], runs[2][1][:-2]):
+        assert torch.equal(x, y)
+    again = stream.EpochStream(cfg, a, w, l, epoch_len=3_000, ring=2,
+                               device=cuda_device)
+    again.restore(runs[2][2])
+    again.run()
+    for x, y in zip(runs[0][1].stats, again.state.stats):
+        assert torch.equal(x, y)

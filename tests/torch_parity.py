@@ -5,11 +5,27 @@ sums within 1e-3 relative, tests/test_engine.py)."""
 import zlib
 
 import numpy as np
+import pytest
+import torch
 
 from repro.core import address_separation as asep
 from repro.core import controller as ctl
 from repro_torch.core import address_separation as t_asep
 from repro_torch.core import controller as t_ctl
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's tests with one torch intra-op thread (a test module
+    opts in by importing this fixture).  The plain versions step many
+    small tensors, and test-runner workers that each keep a full thread
+    pool oversubscribe the host: the CPU ``simulate_online`` of
+    tests/test_torch_obs.py took 454 s in each of six concurrent
+    processes at 8 threads, and 1 s at one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def port_cfg(cfg: ctl.MorpheusConfig) -> t_ctl.MorpheusConfig:
