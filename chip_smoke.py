@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the Morpheus simulator, its serving
-page pool, its serving engine and its online runtime on one NVIDIA card.
+page pool, its serving engine, its online runtime, its fleet runtime,
+admission control and autotuner on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -118,9 +119,33 @@ Phases (one line each; any failure exits non-zero and prints no result):
      the card and on the CPU, identical, with phase 7's launches a
      lookup; wall s, epochs/s, simulated requests/s and the host split
      (obs spans: trace generation, pack, advance, governor, handoffs);
-  15. the ported kernels with their launches (phase 4 for the engine
-     scans, phase 14 for their stateful twins, phase 7 for the pool,
-     phase 12 for attention), errors, times and bounds.
+  15. fleet, admission and autotune, at the reference figures' settings
+     (``tests/data/torch_golden_fleet.json``): ``simulate_fleet`` of
+     ``benchmarks/fig_fleet.py``'s full profile (64 replicas cycling
+     cfd / stencil / p-bfs / kmeans, Morpheus-ALL, 48 000 requests,
+     epochs of 3 000, seed i, each on its app's 4-rung ladder) with the
+     scans' counts set to 0 before and read after (one stateful
+     ``conv_scan`` a group epoch, one ``ext_scan`` a group epoch whose
+     split has cache cores, no plain version), held to the reference's
+     decisions, splits and integer Stats (floats within 1e-3), to
+     ``run_serial`` on the card (1e-9 on ``ipc`` and rewards) and to the
+     prefixes N = 1, 4, 16; wall s and replica-epochs/s of both; the 64
+     replicas pinned at (18, 50) as one B = 64 group: the synchronising
+     calls of a group epoch (CUDA sync debug mode), a profiled window of
+     3 steps, the row contract's check and both stateful scans at B = 64
+     against their plain versions with their bounds; the advisor
+     ablation (a cold fleet of 4 teaches, a fresh wave runs cold and
+     warm); ``simulate_overload`` of ``benchmarks/fig_overload.py``'s
+     full profile at load 8 (base 128, 36 rounds, hi/mid/lo), SLOs from
+     the port's own calibration run, with ``AdmissionConfig()`` and
+     without, and the four scenario CRCs of ``tests/scenarios.py`` from
+     the port's controller; ``Tuner`` at ``benchmarks/fig_autotune.py``'s
+     quick budgets (``GovernorObjective`` GA 4 x 3 on the two quick
+     cells, ``HardwareObjective("cfd")`` hill climb 5 x 4), each
+     generation's configs identical to the reference's;
+  16. the ported kernels with their launches (phase 4 for the engine
+     scans, phases 14 and 15 for their stateful twins, phase 7 for the
+     pool, phase 12 for attention), errors, times and bounds.
 
 The last lines are the card (``nvidia-smi``), the ``{"kernels": ...}``
 record, and ``{"ok": true, "device": ...}``.  Needs one CUDA card, the
@@ -148,6 +173,7 @@ GOLDEN = ROOT / "tests" / "data" / "torch_golden_stats.json"
 GOLDEN_POOL = ROOT / "tests" / "data" / "torch_golden_pool.json"
 GOLDEN_LM = ROOT / "tests" / "data" / "torch_golden_lm.json"
 GOLDEN_ONLINE = ROOT / "tests" / "data" / "torch_golden_online.json"
+GOLDEN_FLEET = ROOT / "tests" / "data" / "torch_golden_fleet.json"
 SOURCES = ("engine_scan", "pool", "attention")
 
 # The device ms of the engine-scan kernels at phase 2's timed shape before
@@ -187,8 +213,10 @@ class Env:
         sys.path.insert(0, str(SRC))
         from repro_torch import configs
         from repro_torch import models
-        from repro_torch import obs
-        from repro_torch.runtime import governor, stream
+        from repro_torch import autotune, obs
+        from repro_torch.runtime import admission, fleet, governor, stream
+        from repro_torch.workloads import overload
+        from repro_torch.workloads import serving as serv
         from repro_torch.workloads.serving import bursty_workload
         from repro_torch.core import cache_sim, controller, engine, policy
         from repro_torch.kernels import (_build, attention, engine_scan, ops,
@@ -202,6 +230,8 @@ class Env:
         self.serving = serving_engine
         self.obs, self.governor, self.stream = obs, governor, stream
         self.bursty = bursty_workload
+        self.fleet, self.admission, self.autotune = fleet, admission, autotune
+        self.overload, self.serv = overload, serv
 
 
 def timed_cuda(fn, reps: int) -> float:
@@ -2263,9 +2293,556 @@ def phase_online(env: Env, dev) -> dict:
             "serving": serving}
 
 
-def online_kernel_rows(online: dict, scan_ptxas: dict) -> list:
-    """The stateful scans' entries of the kernels line: launches of phase
-    14's cells, times at the online path's shape (the handed-off epoch)."""
+# ------------------------------------------------------------ phase 15
+
+FLEET_PREFIXES = (1, 4, 16)
+FLEET_PROFILED_STEPS = 3     # the profiled window of the B = 64 group
+FLEET_WARM_STEPS = 4         # fixed-split steps before that window
+FLEET_HEAVY_SPLIT = (18, 50)     # the cache-heavy split: 983 KB a row
+ADVISOR_WAVE_SEED = 50
+
+
+def fleet_specs(env: Env, g: dict, n: int, seed0: int = 0, **kw):
+    """``benchmarks/fig_fleet.py``'s replicas, as
+    ``tests/test_torch_golden_fleet.py`` builds them: replica i serves
+    ``apps[i % 4]`` with seed ``seed0 + i`` on its app's ladder."""
+    apps = g["apps"]
+    ladders = {a: env.governor.candidates_for(
+        a, ONLINE_SYSTEM, grid=tuple(g["ladder_grid"]), length=g["length"])
+        for a in apps}
+    return [env.fleet.ReplicaSpec(apps[i % len(apps)], ONLINE_SYSTEM,
+                                  length=g["length"],
+                                  epoch_len=g["epoch_len"], seed=seed0 + i,
+                                  candidates=ladders[apps[i % len(apps)]],
+                                  name=f"r{i}:{apps[i % len(apps)]}", **kw)
+            for i in range(n)]
+
+
+def replica_record(env: Env, r) -> dict:
+    """The golden record of one replica's run (the test's
+    ``replica_record``)."""
+    return {"splits": [[x.n_compute, x.n_cache] for x in r.records],
+            "decisions": [d.compact() for d in r.decisions],
+            "switches": int(r.switches),
+            "int_stats": {f: int(np.asarray(getattr(r.stats, f)))
+                          for f in env.ctl._INT_FIELDS},
+            "float_stats": {f: float(np.asarray(getattr(r.stats, f)))
+                            for f in r.stats._fields
+                            if f not in env.ctl._INT_FIELDS},
+            "ipc": float(r.ipc),
+            "rewards": [float(x.reward) for x in r.records]}
+
+
+def first_diff(got, want) -> str:
+    """The first differing key or index of two golden records."""
+    if isinstance(want, dict):
+        k = next(k for k in want if got.get(k) != want[k])
+        return f"{k}: {first_diff(got.get(k), want[k])}"
+    if isinstance(want, list) and isinstance(got, list) and \
+            len(got) == len(want):
+        i = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        return f"[{i}] card {got[i]}, reference {want[i]}"
+    return f"card {got}, reference {want}"
+
+
+def hold_replica(got: dict, want: dict, ctx: str) -> float:
+    """Decisions, splits and integer Stats identical, floats (Stats, ipc,
+    rewards) within FLOAT_RTOL; returns the largest relative error."""
+    for key in ("splits", "decisions", "switches", "int_stats"):
+        if got[key] != want[key]:
+            fail(f"{ctx}: {key} differs from the reference's: "
+                 f"{first_diff(got[key], want[key])}")
+    pairs = [(got["float_stats"][f], w)
+             for f, w in want["float_stats"].items()]
+    pairs += [(got["ipc"], want["ipc"])]
+    pairs += list(zip(got["rewards"], want["rewards"]))
+    worst = max(abs(a - b) / max(abs(b), 1.0) for a, b in pairs)
+    if worst > FLOAT_RTOL:
+        fail(f"{ctx}: a float is {worst:.3g} relative from the reference's")
+    return worst
+
+
+def same_replica(a, b, ctx: str) -> float:
+    """The reference test's fleet identity (tests/test_fleet.py): integer
+    Stats, decisions and switches identical, ``ipc`` and every epoch's
+    reward within 1e-9 relative; returns the largest relative error."""
+    for key in ("splits", "decisions", "switches", "int_stats"):
+        if a[key] != b[key]:
+            fail(f"{ctx}: {key} differs: {first_diff(a[key], b[key])}")
+    pairs = [(a["ipc"], b["ipc"])] + list(zip(a["rewards"], b["rewards"]))
+    worst = max(abs(x - y) / max(abs(y), 1.0) for x, y in pairs)
+    if worst > 1e-9:
+        fail(f"{ctx}: ipc or a reward differs by {worst:.3g} relative "
+             f"(bound 1e-9)")
+    return worst
+
+
+def fleet_groups(results) -> tuple:
+    """(engine calls, calls whose group has cache cores) of a fleet run,
+    from its replicas' splits: one call a distinct config a step, and a
+    config is its cache-core count."""
+    n = max(len(r.records) for r in results)
+    calls = ext = 0
+    for e in range(n):
+        nks = {r.records[e].n_cache for r in results if len(r.records) > e}
+        calls += len(nks)
+        ext += sum(1 for nk in nks if nk > 0)
+    return calls, ext
+
+
+def group_syncs(env: Env, reps, dev) -> list:
+    """One fleet step of ``reps`` with CUDA's sync debug mode on: the
+    synchronising calls each group's ``_advance_group`` makes, as (rows,
+    calls, whether the split has cache cores, calls by source line)."""
+    import warnings
+    groups = {}
+    for rep in reps:
+        if not rep.done:
+            cfg, traces, pos0, count = rep.epoch_inputs()
+            groups.setdefault(cfg, []).append((rep, traces, pos0, count))
+    out = []
+    for cfg, group in groups.items():
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                env.fleet._advance_group(cfg, group, dev)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        sites = {}
+        for w in seen:
+            if "synchroniz" in str(w.message):
+                k = f"{Path(w.filename).name}:{w.lineno}"
+                sites[k] = sites.get(k, 0) + 1
+        out.append((len(group), sum(sites.values()), cfg.amap.ext_sets > 0,
+                    sites))
+    return out
+
+
+def fleet_main(env: Env, g: dict, dev) -> dict:
+    """(a)-(c): the 64-replica fleet against the golden file, the card's
+    serial loop and the prefixes."""
+    obs, scan, fleet = env.obs, env.scan, env.fleet
+    specs = fleet_specs(env, g, g["replicas"])
+    obs.enable(trace=True, metrics=True)
+    torch.cuda.synchronize()
+    scan.reset_launches()
+    t0 = time.perf_counter()
+    fr = fleet.simulate_fleet(specs, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(scan.launches), dict(scan.plain_runs)
+    counters = obs.bench_counters()
+    spans = obs.tracer().summary()
+    obs.disable()
+    if fr.names != g["names"] or fr.epochs != g["epochs"]:
+        fail(f"fleet: names or steps differ ({fr.epochs} steps, golden "
+             f"{g['epochs']})")
+    recs = [replica_record(env, r) for r in fr.results]
+    err = max(hold_replica(got, want, f"fleet replica {i}")
+              for i, (got, want) in enumerate(zip(
+                  recs, g["replicas_results"])))
+    calls, ext_calls = fleet_groups(fr.results)
+    want = {"conv_scan": fr.dispatches, "ext_scan": ext_calls}
+    if calls != fr.dispatches or fr.dispatches != g["dispatches"] or \
+            launches != want or any(plain.values()) or \
+            counters["dispatches"] != fr.dispatches:
+        fail(f"fleet: launches {launches}, expected {want} from the groups "
+             f"({calls} engine calls, FleetResult.dispatches "
+             f"{fr.dispatches}, golden {g['dispatches']}, counter "
+             f"{counters['dispatches']}); plain runs {plain}")
+    # (b) the card's own serial loop, same process
+    scan.reset_launches()
+    t0 = time.perf_counter()
+    serial = fleet.run_serial(fleet_specs(env, g, g["replicas"]), device=dev)
+    torch.cuda.synchronize()
+    serial_wall = time.perf_counter() - t0
+    serial_launches = dict(scan.launches)
+    serial_err = max(same_replica(replica_record(env, s), rec,
+                                  f"fleet vs serial, replica {i}")
+                     for i, (s, rec) in enumerate(zip(serial, recs)))
+    # (c) prefixes: replica i of N replicas == replica i of 64
+    prefix_err = 0.0
+    for n in FLEET_PREFIXES:
+        small = fleet.simulate_fleet(fleet_specs(env, g, n), device=dev)
+        prefix_err = max(prefix_err, max(
+            same_replica(replica_record(env, r), recs[i],
+                         f"fleet prefix N={n}, replica {i}")
+            for i, r in enumerate(small.results)))
+    rep_epochs = sum(len(r.records) for r in fr.results)
+    group_us = spans.get("fleet.group_step", {}).get("total_us", 0.0)
+    out = {"wall_s": wall, "serial_wall_s": serial_wall,
+           "replica_epochs": rep_epochs,
+           "replica_epochs_per_s": rep_epochs / wall,
+           "serial_replica_epochs_per_s": rep_epochs / serial_wall,
+           "steps": fr.epochs, "dispatches": fr.dispatches,
+           "dispatches_per_step": fr.dispatches / fr.epochs,
+           "launches": launches, "serial_launches": serial_launches,
+           "device_get_bytes_per_dispatch":
+               counters["device_get_bytes"] / fr.dispatches,
+           "group_step_s": group_us / 1e6, "float_rel_err": err,
+           "serial_rel_err": serial_err, "prefix_rel_err": prefix_err,
+           "aggregate_ipc": fr.aggregate_ipc(),
+           "mean_convergence_epoch": float(np.mean(
+               fr.convergence_epochs()))}
+    log(f"phase 15: fleet of {g['replicas']} replicas x {g['epochs']} "
+        f"epochs: {wall:.3f} s, {out['replica_epochs_per_s']:.1f} "
+        f"replica-epochs/s; serial loop on the card {serial_wall:.3f} s, "
+        f"{out['serial_replica_epochs_per_s']:.1f} replica-epochs/s "
+        f"(fleet {out['replica_epochs_per_s'] / out['serial_replica_epochs_per_s']:.2f}x); "
+        f"{fr.dispatches} dispatches ({out['dispatches_per_step']:.2f} a "
+        f"step), launches {json.dumps(launches)} == the groups' (serial "
+        f"{json.dumps(serial_launches)}), no plain run; decisions, splits and "
+        f"integer Stats == the reference's (float rel err {err:.3g}); fleet "
+        f"== serial (rel err {serial_err:.3g}, bound 1e-9); prefixes N = "
+        f"{FLEET_PREFIXES} == N = {g['replicas']} (rel err "
+        f"{prefix_err:.3g}); device_get_bytes "
+        f"{out['device_get_bytes_per_dispatch']:.0f} a group epoch; host "
+        f"s in fleet.group_step {out['group_step_s']:.3f}")
+    return out
+
+
+def fleet_b64(env: Env, g: dict, dev) -> dict:
+    """(d): the 64 replicas pinned at the cache-heavy split, so a step is
+    one group of B = 64 rows: the synchronising calls of a group epoch,
+    a profiled window of ``FLEET_PROFILED_STEPS`` steps, the state rows'
+    contract check at B = 64, and both stateful scans at B = 64 against
+    their plain versions on the same rows, with their bounds."""
+    fleet, scan, engine = env.fleet, env.scan, env.engine
+    reps = fleet.build_replicas(fleet_specs(
+        env, g, g["replicas"], fixed_split=FLEET_HEAVY_SPLIT), device=dev)
+
+    def step():
+        groups = {}
+        for rep in reps:
+            cfg, traces, pos0, count = rep.epoch_inputs()
+            groups.setdefault(cfg, []).append((rep, traces, pos0, count))
+        for cfg, group in groups.items():
+            fleet._advance_group(cfg, group, dev)
+
+    for _ in range(FLEET_WARM_STEPS):
+        step()
+    syncs = group_syncs(env, reps, dev)
+    scan.reset_launches()
+    wall, us = profiled(lambda: [step() for _ in range(FLEET_PROFILED_STEPS)])
+    if scan.launches != {"conv_scan": FLEET_PROFILED_STEPS,
+                         "ext_scan": FLEET_PROFILED_STEPS}:
+        fail(f"fleet B=64: launches {scan.launches} in "
+             f"{FLEET_PROFILED_STEPS} one-group steps")
+    by = {k: sum(v for name, v in us.items() if k in name) / 1e3
+          / FLEET_PROFILED_STEPS
+          for k in ("conv_scan_kernel", "ext_scan_kernel")}
+    window = {"wall_s": wall, "device_ms": sum(us.values()) / 1e3,
+              "by_kernel_ms": by, "measured": bool(us)}
+    # the next epoch's group, packed as the fleet packs it
+    spec = env.cs.SYSTEMS[ONLINE_SYSTEM]
+    cfg = env.cs.build_config(spec, FLEET_HEAVY_SPLIT[1])
+    traces, pos0 = [], []
+    for rep in reps:
+        c, t, p, _ = rep.epoch_inputs()
+        traces += t
+        pos0 += p
+    state = fleet._cat_states([rep.state for rep in reps])
+    pt = engine.to_device(engine.pack(cfg, traces, pos0=pos0), dev)
+    warm = pt.warmup[:, None, None]
+    crows = env.ctl.ConvRow(*[getattr(state, f)
+                              for f in engine._CONV_FIELDS])
+    erows = env.ctl.ExtRow(*[getattr(state, f) for f in engine._EXT_FIELDS])
+    cargs = (cfg, pt.conv_tag, pt.conv_write, pt.conv_active,
+             pt.conv_active & (pt.conv_pos >= warm))
+    eargs = (cfg, pt.ext_tag, pt.ext_write, pt.ext_level, pt.ext_active,
+             pt.ext_active & (pt.ext_pos >= warm))
+    scan.reset_launches()
+    err = {"conv_scan": compare(
+        scan.conv_scan(*cargs, state=crows, keep_state=True),
+        scan.conv_scan_plain(*cargs, state=crows, keep_state=True),
+        "fleet B=64 conv_scan"),
+        "ext_scan": compare(
+        scan.ext_scan(*eargs, state=erows, keep_state=True),
+        scan.ext_scan_plain(*eargs, state=erows, keep_state=True),
+        "fleet B=64 ext_scan")}
+    timing = {}
+    reps_t = 10
+    for name, kernel, plain, tier, rows in (
+            ("conv_scan", lambda: scan.conv_scan(*cargs, state=crows,
+                                                 keep_state=True),
+             lambda: scan.conv_scan_plain(*cargs, state=crows,
+                                          keep_state=True), "conv", crows),
+            ("ext_scan", lambda: scan.ext_scan(*eargs, state=erows,
+                                               keep_state=True),
+             lambda: scan.ext_scan_plain(*eargs, state=erows,
+                                         keep_state=True), "ext", erows)):
+        call_ms = timed_cuda(kernel, reps_t)
+        _, kus = profiled(lambda: [kernel() for _ in range(reps_t)])
+        k_us = sum(v for k, v in kus.items() if f"{tier}_scan_kernel" in k)
+        _, cus = profiled(lambda: scan.check_row_contract(tier, rows))
+        timing[name] = {
+            "ms": k_us / 1e3 / reps_t if k_us else call_ms,
+            "ms_by": "torch.profiler" if k_us else
+            "CUDA events, back to back", "call_ms": call_ms,
+            "plain_ms": timed_cuda(plain, 1),
+            "bound": state_bound(tier, pt, rows),
+            "contract_ms": sum(cus.values()) / 1e3 if cus else None,
+            "shape": list((pt.conv_tag if tier == "conv" else
+                           pt.ext_tag).shape),
+            "ways": rows.tags.shape[-1],
+            "row_bytes": sum(x.element_size() * x.numel() for x in rows)}
+    out = {"syncs": syncs, "window": window, "err": err, "timing": timing,
+           "split": list(FLEET_HEAVY_SPLIT)}
+    wtext = ("not measured (torch.profiler recorded no device activity)"
+             if not us else
+             f"{wall:.4f} s of host around {window['device_ms']:.3f} ms of "
+             f"device time, scans a step {json.dumps(by)}")
+    log(f"phase 15: fleet at B = {g['replicas']} (all replicas pinned at "
+        f"{FLEET_HEAVY_SPLIT}): synchronising calls a group epoch (CUDA "
+        f"sync debug mode; rows, calls, cache cores, by line) {syncs}; "
+        f"profiled "
+        f"{FLEET_PROFILED_STEPS} steps: {wtext}; the next group through "
+        f"both stateful scans == plain on the same rows (max abs float err "
+        f"conv {err['conv_scan']:.3g}, ext {err['ext_scan']:.3g}); "
+        + "; ".join(f"{k} {v['shape']}, {v['ways']} ways, state rows "
+                    f"{v['row_bytes'] / 1e6:.2f} MB: {v['ms']:.5f} ms on the "
+                    f"card ({v['ms_by']}), {v['call_ms']:.4f} ms a call, "
+                    f"plain {v['plain_ms']:.2f} ms, "
+                    f"bound {v['bound'][0]:.5f} ms ({v['bound'][1]}), row "
+                    f"contract check "
+                    + (f"{v['contract_ms']:.4f} ms of device time"
+                       if v["contract_ms"] is not None else "not measured")
+                    for k, v in timing.items()))
+    return out
+
+
+def fleet_advisor(env: Env, g: dict, dev) -> dict:
+    """(e): fig_fleet's advisor ablation: a cold fleet of 4 teaches; a
+    fresh wave (seed offset 50) runs cold and warm."""
+    fleet = env.fleet
+    n = len(g["apps"])
+    adv = fleet.SplitAdvisor()
+    fleet.simulate_fleet(fleet_specs(env, g, n), device=dev, advisor=adv)
+    advised = {mix: e["split"] for mix, e in adv.table.items()}
+    wave = fleet_specs(env, g, n, seed0=ADVISOR_WAVE_SEED)
+    cold = fleet.simulate_fleet(wave, device=dev)
+    warm = fleet.simulate_fleet(wave, device=dev, advisor=adv)
+    covered = [(i, r) for i, r in enumerate(warm.results)
+               if (ONLINE_SYSTEM, (g["apps"][i % n],)) in advised]
+    if adv.warm_starts != len(covered) or not covered:
+        fail(f"fleet advisor: {adv.warm_starts} warm starts for "
+             f"{len(covered)} mixes with advice")
+    for i, r in covered:
+        first = (r.records[0].n_compute, r.records[0].n_cache)
+        if first != advised[(ONLINE_SYSTEM, (g["apps"][i % n],))]:
+            fail(f"fleet advisor: warm replica {i} began at {first}")
+    out = {"warm_starts": adv.warm_starts,
+           "cold_convergence": float(np.mean(cold.convergence_epochs())),
+           "warm_convergence": float(np.mean(warm.convergence_epochs()))}
+    log(f"phase 15: advisor: {adv.warm_starts} warm starts, each at its "
+        f"advised split at epoch 0; mean convergence epoch cold "
+        f"{out['cold_convergence']:.2f}, warm {out['warm_convergence']:.2f}")
+    return out
+
+
+def overload_run(env: Env, o: dict, mode: str, dev) -> tuple:
+    """(calibrated base ms, the calibration's result, the cell's result)
+    of one overload cell, as
+    ``benchmarks/fig_overload.py`` runs it (the golden test's
+    ``overload_run``)."""
+    adm, over, serv = env.admission, env.overload, env.serv
+    base, seed, cal = o["base"], o["seed"], o["calibration"]
+
+    def tenants(base_ms):
+        return [serv.TenantSLO(n, o["slo_mult"][n] * base_ms, weight=w,
+                               priority=p, app=app)
+                for n, w, p, app in o["tenants"]]
+    t1 = tenants(1.0)
+    cal_res = adm.simulate_overload(
+        t1, over.demand_schedule(over.LoadScenario(
+            "calibrate", "sustained", 1.0, rounds=cal["rounds"], seed=seed),
+            t1, base), system=ONLINE_SYSTEM, admission=None,
+        fixed_split=tuple(cal["split"]), seed=seed,
+        budgeter=serv.TenantSLOBudgeter(t1, min_total=base,
+                                        max_total=8 * base,
+                                        initial_total=8 * base), device=dev)
+    base_ms = float(np.mean([r["round_ms"] for r in cal_res.rounds
+                             if not r.get("idle")]))
+    tt = tenants(base_ms)
+    load = o["load"]
+    res = adm.simulate_overload(
+        tt, over.demand_schedule(over.LoadScenario(
+            f"sustained{load:g}", "sustained", load, rounds=o["rounds"],
+            seed=seed), tt, base), system=ONLINE_SYSTEM,
+        admission=adm.AdmissionConfig() if mode == "admission" else None,
+        budgeter=serv.TenantSLOBudgeter(tt, min_total=4,
+                                        max_total=8 * base,
+                                        initial_total=base,
+                                        headroom=o["headroom"]),
+        candidates=[tuple(c) for c in o["ladder"]], seed=seed, device=dev)
+    return base_ms, cal_res, res
+
+
+def overload_record(env: Env, res) -> dict:
+    ints = env.ctl._INT_FIELDS
+    return {"rounds": [[r.get("served", {}), r.get("deferred", {}),
+                        r.get("shed", {}), list(r["split"])]
+                       for r in res.rounds],
+            "events_crc": zlib.crc32(";".join(
+                e.compact() for e in res.events).encode()) & 0xFFFFFFFF,
+            "events": len(res.events),
+            "decisions": [d.compact() for d in res.decisions],
+            "int_stats": {f: int(np.asarray(getattr(res.stats, f)))
+                          for f in ints},
+            "tenant_int_stats": {
+                n: {f: int(np.asarray(getattr(s, f))) for f in ints}
+                for n, s in res.tenant_stats.items()},
+            "offered": res.offered, "served": res.served, "shed": res.shed,
+            "backlog": res.backlog}
+
+
+def phase_overload(env: Env, o: dict, dev) -> dict:
+    """fig_overload's full profile at load 8 on the card, with and without
+    admission control, held to the golden file; the scenario CRCs from
+    the port's controller."""
+    scan, adm, over, serv = env.scan, env.admission, env.overload, env.serv
+    out = {}
+    for mode in ("admission", "none"):
+        scan.reset_launches()
+        t0 = time.perf_counter()
+        base_ms, cal_res, res = overload_run(env, o, mode, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = dict(scan.launches), dict(scan.plain_runs)
+        if abs(base_ms - o["base_ms"]) > FLOAT_RTOL * o["base_ms"]:
+            fail(f"overload: calibrated base {base_ms} ms, the reference's "
+                 f"{o['base_ms']}")
+        got = json.loads(json.dumps(overload_record(env, res)))
+        if got != o[mode]:
+            fail(f"overload {mode}: differs from the reference's: "
+                 f"{first_diff(got, o[mode])}")
+        if not res.attribution_exact() or any(
+                res.offered[n] != res.served[n] + res.shed[n]
+                + res.backlog[n] for n in res.offered):
+            fail(f"overload {mode}: attribution or conservation broken")
+        # one advance_packed a live round of both runs (K count-masked
+        # rows): one conv_scan, and one ext_scan when the split has cache
+        # cores
+        live = [r for x in (cal_res, res) for r in x.rounds
+                if not r.get("idle")]
+        want = {"conv_scan": len(live),
+                "ext_scan": sum(1 for r in live if r["split"][1] > 0)}
+        if launches != want or any(plain.values()):
+            fail(f"overload {mode}: launches {launches}, expected {want}; "
+                 f"plain runs {plain}")
+        out[mode] = {"wall_s": wall, "base_ms": base_ms,
+                     "served": sum(res.served.values()),
+                     "shed": sum(res.shed.values()),
+                     "events": len(res.events), "launches": launches,
+                     "attainment_hi": res.attainment["hi"]}
+    sc = o["scenarios"]
+    tenants = [serv.TenantSLO(n, slo, weight=w, priority=p, app=app)
+               for n, slo, w, p, app in sc["tenants"]]
+    budgets = dict(zip([t.name for t in tenants],
+                       serv.apportion_largest_remainder(
+                           [t.weight for t in tenants], sc["capacity"])))
+    crcs = {}
+    for name in sc["crcs"]:
+        ctrl = adm.AdmissionController(tenants)
+        for d in over.demand_schedule(over.SCENARIOS[name], tenants,
+                                      sc["base_total"]):
+            ctrl.plan(d, budgets)
+        crcs[name] = zlib.crc32(";".join(
+            e.compact() for e in ctrl.events).encode()) & 0xFFFFFFFF
+    if crcs != sc["crcs"]:
+        fail(f"overload: scenario CRCs {crcs}, pinned {sc['crcs']}")
+    out["scenario_crcs"] = crcs
+    a, n = out["admission"], out["none"]
+    log(f"phase 15: overload, base {o['base']}, {o['rounds']} rounds at "
+        f"load {o['load']:g}: calibrated base {a['base_ms']:.6g} ms (the "
+        f"reference's {o['base_ms']:.6g}); with admission {a['wall_s']:.3f} "
+        f"s, {a['served']} served, {a['shed']} shed, {a['events']} events, "
+        f"hi attainment {a['attainment_hi']:.3f}; without {n['wall_s']:.3f} "
+        f"s, {n['served']} served, hi attainment {n['attainment_hi']:.3f}; "
+        f"rounds, events, decisions and integer Stats (global and per "
+        f"tenant) == the reference's, attribution exact; launches "
+        f"{json.dumps(a['launches'])} / {json.dumps(n['launches'])}; "
+        f"scenario CRCs == tests/scenarios.py's {json.dumps(crcs)}")
+    return out
+
+
+def phase_autotune(env: Env, a: dict, dev) -> dict:
+    """fig_autotune's quick budgets on the card: the governor search over
+    the two quick cells and the hardware search over ``hw_space()``, held
+    to the golden file (configs identical, scores within FLOAT_RTOL, one
+    dispatch a generation)."""
+    at = env.autotune
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for name in ("gov", "hw"):
+        spec = a[name]
+        if name == "gov":
+            obj = at.GovernorObjective([tuple(c) for c in spec["cells"]],
+                                       length=spec["length"], device=dev)
+            space = at.gov_space()
+        else:
+            obj = at.HardwareObjective(spec["app"], length=spec["length"],
+                                       device=dev)
+            space = at.hw_space()
+        path = out_dir / f"autotune_{name}.jsonl"
+        path.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        res = at.Tuner(space, obj, at.make_agent(
+            spec["agent"], space, seed=spec["seed"], pop=spec["pop"]),
+            trajectory_path=path).run(spec["generations"])
+        wall = time.perf_counter() - t0
+        doc = at.read_trajectory(path)
+        keys = [gen["keys"] for gen in doc["generations"]]
+        scores = [gen["scores"] for gen in doc["generations"]]
+        if keys != spec["keys"]:
+            fail(f"autotune {name}: configs differ from the reference's: "
+                 f"{first_diff(keys, spec['keys'])}")
+        pairs = [(x, y) for gs, ws in zip(scores, spec["scores"])
+                 for x, y in zip(gs, ws)]
+        if name == "gov":
+            pairs += list(zip(obj.best_static_ipcs(),
+                              spec["best_static_ipcs"]))
+        worst = max(0.0 if x == y else abs(x - y) / max(abs(y), 1.0)
+                    for x, y in pairs)
+        if worst > FLOAT_RTOL or res.best_config != spec["best_config"] \
+                or obj.dispatches != spec["generations"]:
+            fail(f"autotune {name}: scores {worst:.3g} relative from the "
+                 f"reference's, best {res.best_config} (reference "
+                 f"{spec['best_config']}), {obj.dispatches} dispatches")
+        out[name] = {"wall_s": wall, "best_score": res.best_score,
+                     "float_rel_err": worst, "dispatches": obj.dispatches}
+    log(f"phase 15: autotune (fig_autotune quick): governor GA "
+        f"{a['gov']['pop']} x {a['gov']['generations']} on 2 cells in "
+        f"{out['gov']['wall_s']:.3f} s, best ratio "
+        f"{out['gov']['best_score']:.5f}; hardware hill climb "
+        f"{a['hw']['pop']} x {a['hw']['generations']} in "
+        f"{out['hw']['wall_s']:.3f} s, best IPC {out['hw']['best_score']:.4f};"
+        f" each generation's configs == the reference's, scores within "
+        f"{max(out['gov']['float_rel_err'], out['hw']['float_rel_err']):.3g}"
+        f" relative, one dispatch a generation")
+    return out
+
+
+def phase_fleet(env: Env, dev) -> dict:
+    """Phase 15: the fleet, admission control and the autotuner on the
+    card at the reference figures' settings, held to
+    ``tests/data/torch_golden_fleet.json``."""
+    golden = json.loads(GOLDEN_FLEET.read_text())
+    return {"fleet": fleet_main(env, golden["fleet"], dev),
+            "b64": fleet_b64(env, golden["fleet"], dev),
+            "advisor": fleet_advisor(env, golden["fleet"], dev),
+            "overload": phase_overload(env, golden["overload"], dev),
+            "autotune": phase_autotune(env, golden["autotune"], dev)}
+
+
+def online_kernel_rows(online: dict, fleet: dict, scan_ptxas: dict) -> list:
+    """The stateful scans' entries of the kernels line: launches of the
+    paths that run them (phase 14's cells, phase 15's 64-replica fleet and
+    overload pair), times at the online path's shape (the handed-off
+    epoch) and at the fleet's B = 64 group."""
     source = "src/repro_torch/kernels/csrc/engine_scan.cu"
     rows = {"conv_scan": ("conv_scan_state",
                           "src/repro/kernels/engine_scan.py:248",
@@ -2276,17 +2853,31 @@ def online_kernel_rows(online: dict, scan_ptxas: dict) -> list:
     out = []
     for name, (row, replaces, kernel) in rows.items():
         t = online["handoff"]["timing"][name]
+        f = fleet["b64"]["timing"][name]
+        by_path = {"online": online["launches"][name],
+                   "fleet": fleet["fleet"]["launches"][name],
+                   "overload": sum(fleet["overload"][m]["launches"][name]
+                                   for m in ("admission", "none"))}
         out.append({
             "name": row, "route": "cuda", "source": source,
             "replaces": replaces, "kernel": kernel,
-            "launches": online["launches"][name],
-            "max_abs_err": online["handoff"]["err"][name],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(online["handoff"]["err"][name],
+                               fleet["b64"]["err"][name]),
             "ms": t["ms"], "call_ms": t["call_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": None,
             "shape_BSL": t["shape"], "ways": t["ways"],
             "ms_by": t["ms_by"] + " (the wrapper reads the row contract's "
                      "verdict back, so no CUDA graph holds it)",
+            "fleet_B64": {"ms": f["ms"], "ms_by": f["ms_by"],
+                          "call_ms": f["call_ms"], "plain_ms": f["plain_ms"],
+                          "bound_ms": f["bound"][0],
+                          "bound_by": f["bound"][1], "shape_BSL": f["shape"],
+                          "ways": f["ways"], "state_row_bytes": f["row_bytes"],
+                          "row_contract_ms": f["contract_ms"],
+                          "split": fleet["b64"]["split"]},
             "ptxas": {n: v for n, v in scan_ptxas.items()
                       if n.startswith(name.split("_")[0])}})
     return out
@@ -2498,6 +3089,7 @@ def main() -> int:
     serving = phase_serving(env, dev)
     att_path = phase_attention_path(env, serving["calls"])
     online = phase_online(env, dev)
+    fleet = phase_fleet(env, dev)
 
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("the port imported jax or repro")
@@ -2522,11 +3114,11 @@ def main() -> int:
             "ptxas": {n: v for n, v in scan_ptxas.items()
                       if n.startswith(name.split("_")[0])},
         })
-    kernels += online_kernel_rows(online, scan_ptxas)
+    kernels += online_kernel_rows(online, fleet, scan_ptxas)
     kernels += pool_kernel_rows(pk, cells, paths)
     kernels += attention_kernel_rows(ak, serving, att_path, golden_lm["err"],
                                      att_ptxas)
-    log("phase 15: kernels " + ", ".join(
+    log("phase 16: kernels " + ", ".join(
         f"{x['name']} matched plain (max abs err {x['max_abs_err']:.3g}), "
         f"{x['ms']:.4g} ms on the card ({x['call_ms']:.4g} ms a call) vs "
         f"plain {x['plain_ms']:.4g} ms, bound {x['bound_ms']:.4g} ms "

@@ -10,7 +10,8 @@ simulation decomposes into independent per-set state machines.
      activity mask.  Its arrays are identical to the reference's.
   2. ``_run_packed`` moves them to the device and runs each tier's
      per-set scan (``kernels.engine_scan``), optionally from and into an
-     explicit carry, then sums the per-set Stats over sets.
+     explicit carry, then sums the per-set Stats over sets (the floats
+     in a fixed pairwise order, ``_set_sum``).
   3. ``simulate_batch`` / ``simulate_parallel`` / ``advance_packed`` are
      the public entry points.  Integer counters equal the serial oracle's
      exactly; float sums differ only by accumulation order (<= 1e-3
@@ -331,6 +332,21 @@ def decode_state(cfg: MorpheusConfig, state: EngineState,
 
 # ------------------------------------------------------------------ engine
 
+def _set_sum(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, N) -> (B, N): the sum over the sets in one fixed pairwise
+    order (zero-padded to a power of two, halves added), so a row's
+    float sums do not depend on B or on the device's reduction plan: a
+    replica's floats are the same in a fleet group as alone."""
+    s = x.shape[1]
+    width = 1 << max(s - 1, 0).bit_length()
+    if width != s:
+        x = torch.nn.functional.pad(x, (0, 0, 0, width - s))
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = x[:, :h] + x[:, h:]
+    return x[:, 0]
+
+
 def _run_packed(cfg: MorpheusConfig, pt: PackedTraces,
                 state: EngineState | None = None
                 ) -> Tuple[Stats, EngineState | None]:
@@ -354,7 +370,7 @@ def _run_packed(cfg: MorpheusConfig, pt: PackedTraces,
             cfg, pt.conv_tag, pt.conv_write, pt.conv_active, mask,
             state=rows0, keep_state=keep)
         ints += iv.sum(dim=1)
-        flts += fv.sum(dim=1)
+        flts += _set_sum(fv)
         if keep:
             state = state._replace(**dict(zip(_CONV_FIELDS, rows)))
     if pt.ext_tag.shape[1] and pt.ext_tag.shape[2]:
@@ -365,7 +381,7 @@ def _run_packed(cfg: MorpheusConfig, pt: PackedTraces,
             cfg, pt.ext_tag, pt.ext_write, pt.ext_level, pt.ext_active, mask,
             state=rows0, keep_state=keep)
         ints += iv.sum(dim=1)
-        flts += fv.sum(dim=1)
+        flts += _set_sum(fv)
         if keep:
             state = state._replace(**dict(zip(_EXT_FIELDS, rows)))
     return engine_scan.vecs_to_stats(ints, flts), state
@@ -385,8 +401,17 @@ def advance_packed(cfg: MorpheusConfig, pt: PackedTraces, state: EngineState,
         raise ValueError(f"state lies on {state.pos.device}, not {dev}")
     obs.count("engine_dispatches", 1, path="epoch")
     tp = pt if isinstance(pt.warmup, torch.Tensor) else to_device(pt, dev)
-    delta, state = _run_packed(cfg, tp, state)
-    n_req = (tp.conv_active.sum(dim=(1, 2)) + tp.ext_active.sum(dim=(1, 2))
+    return _run_packed_state(cfg, tp, state)
+
+
+def _run_packed_state(cfg: MorpheusConfig, pt: PackedTraces,
+                      state: EngineState) -> Tuple[EngineState, Stats]:
+    """Stateful engine on device tensors: one packed epoch (tensors on the
+    state's device) applied to an explicit carry, its Stats and position
+    advanced.  Returns (new state, this epoch's Stats delta).  The fleet
+    calls it on a group's concatenated rows; it counts no dispatch."""
+    delta, state = _run_packed(cfg, pt, state)
+    n_req = (pt.conv_active.sum(dim=(1, 2)) + pt.ext_active.sum(dim=(1, 2))
              ).to(torch.int32)
     state = state._replace(stats=ctl.add_stats(state.stats, delta),
                            pos=state.pos + n_req)

@@ -9,10 +9,22 @@ the layer between the batch simulator and the serving stack.
     epsilon-greedy over the offline policy's candidate splits, with
     hysteresis and phase-shift detection), ``simulate_online``, and the
     serving pool's ``ServingGovernor``;
-  * ``telemetry`` — the per-epoch ring-buffer log with JSON/CSV export.
-
-Not ported yet: the reference's ``fleet`` and ``admission`` modules.
+  * ``telemetry`` — the per-epoch ring-buffer log with JSON/CSV export;
+  * ``fleet``     — N replicas per engine call: same-config replicas'
+    state rows concatenated into one batch (one stateful scan launch a
+    group epoch on the card), with a shared split advisor for
+    cross-replica warm starts;
+  * ``admission`` — overload-aware admission control: shed or defer the
+    lowest-priority tenants with aging when the per-tenant SLO budgeter
+    says the joint SLO set is unattainable, and feed the pressure back
+    into the governor.
 """
+from .admission import (AdmissionConfig,  # noqa: F401
+                        AdmissionController, OverloadResult, RoundPlan,
+                        simulate_overload)
+from .fleet import (FleetResult, ReplicaSpec,  # noqa: F401
+                    SplitAdvisor, build_replicas, convergence_epoch,
+                    evaluate_governors, run_serial, simulate_fleet)
 from .governor import (SERVING_GCFG, Governor,  # noqa: F401
                        GovernorConfig, GovernorState, OnlineReplica,
                        OnlineResult, ServingGovernor,

@@ -943,3 +943,88 @@ def test_epoch_stream_ring_matches_no_ring_on_the_card(cuda_device):
     again.run()
     for x, y in zip(runs[0][1].stats, again.state.stats):
         assert torch.equal(x, y)
+
+
+def _fleet_record(r):
+    return (_online_summary(r), r.switches,
+            [float(x.reward) for x in r.records], float(r.ipc))
+
+
+@pytest.mark.gpu
+def test_fleet_on_the_card_equals_its_serial_loop(cuda_device):
+    """A 4-replica fleet on the card (one stateful scan launch a group
+    epoch) against ``run_serial`` on the card: decisions, splits and
+    integer Stats identical, ``ipc`` and every reward within 1e-9
+    relative (tests/test_fleet.py's bound); the scans launched once a
+    group epoch and the plain versions never."""
+    from repro_torch.runtime import fleet
+    cands = [(18, 50), (32, 36), (48, 20), (68, 0)]
+    specs = [fleet.ReplicaSpec(app, "Morpheus-ALL", length=12_000,
+                               epoch_len=2_000, seed=s, candidates=cands)
+             for s, app in enumerate(("cfd", "stencil", "p-bfs", "kmeans"))]
+    scan.reset_launches()
+    fr = fleet.simulate_fleet(specs, device=cuda_device)
+    assert scan.launches["conv_scan"] == fr.dispatches
+    assert scan.plain_runs == {"conv_scan": 0, "ext_scan": 0}
+    serial = fleet.run_serial(specs, device=cuda_device)
+    for i, (a, b) in enumerate(zip(serial, fr.results)):
+        (sa, wa, ra, ia), (sb, wb, rb, ib) = _fleet_record(a), \
+            _fleet_record(b)
+        assert (sa, wa) == (sb, wb), f"replica {i}"
+        for x, y in zip(ra + [ia], rb + [ib]):
+            assert abs(x - y) <= 1e-9 * max(abs(x), 1.0), f"replica {i}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 3, 64])
+def test_row_float_sums_do_not_depend_on_the_batch(cuda_device, rows):
+    """A row's float Stats, summed over its sets on the card, are the same
+    bits whatever rows are batched around it (the fleet's 1e-9 identity
+    rests on it)."""
+    cfg = _cfg()
+    tr = _traces(seed=5)
+    alone = engine.simulate_batch(cfg, tr[:1], device=cuda_device)
+    batch = engine.simulate_batch(cfg, (tr * rows)[:rows] if rows > 1
+                                  else tr[:1], device=cuda_device)
+    for f in ctl.Stats._fields:
+        x = getattr(alone, f)[0]
+        assert torch.equal(x, getattr(batch, f)[0]), f
+    fv = torch.rand((rows, 333, 7), device=cuda_device)
+    one = engine._set_sum(fv[:1].contiguous())
+    assert torch.equal(engine._set_sum(fv)[:1], one)
+
+
+@pytest.mark.gpu
+def test_overload_masked_rows_sum_to_the_global_stats(cuda_device):
+    """``simulate_overload`` on the card: one count-masked row a tenant a
+    round; the tenants' integer hit and miss counters sum to the global
+    run's, and the run equals the CPU's."""
+    from repro_torch.runtime import admission
+    from repro_torch.workloads import overload, serving
+    tenants = [serving.TenantSLO("a", 4.0, weight=2.0, priority=1,
+                                 app="cfd"),
+               serving.TenantSLO("b", 8.0, weight=1.0, priority=0,
+                                 app="kmeans"),
+               serving.TenantSLO("c", 16.0, weight=1.0, priority=0,
+                                 app="histo")]
+    sched = overload.demand_schedule(overload.LoadScenario(
+        "s", "sustained", 4.0, rounds=8), tenants, 24)
+    def run(device):
+        return admission.simulate_overload(tenants, sched,
+                                           candidates=[(32, 36), (48, 20)],
+                                           max_total=32, seed=2,
+                                           device=device)
+    scan.reset_launches()
+    card = run(cuda_device)
+    assert scan.launches["conv_scan"] == sum(
+        1 for r in card.rounds if not r.get("idle"))
+    cpu = run("cpu")
+    assert card.attribution_exact() and sum(card.shed.values()) > 0
+    ints = {f: int(np.asarray(getattr(card.stats, f)))
+            for f in ctl._INT_FIELDS}
+    assert ints == {f: int(np.asarray(getattr(cpu.stats, f)))
+                    for f in ctl._INT_FIELDS}
+    assert [r["served"] for r in card.rounds] == \
+        [r["served"] for r in cpu.rounds]
+    assert [d.compact() for d in card.decisions] == \
+        [d.compact() for d in cpu.decisions]
