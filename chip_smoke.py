@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the Morpheus simulator, its serving
-page pool, its serving engine, its online runtime, its fleet runtime,
-admission control and autotuner on one NVIDIA card.
+page pool, its serving engine over every model family, its online
+runtime, its fleet runtime, admission control and autotuner on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -143,9 +144,30 @@ Phases (one line each; any failure exits non-zero and prints no result):
      quick budgets (``GovernorObjective`` GA 4 x 3 on the two quick
      cells, ``HardwareObjective("cfd")`` hill climb 5 x 4), each
      generation's configs identical to the reference's;
-  16. the ported kernels with their launches (phase 4 for the engine
+  16. every model family: the decode kernel with gemma2-9b's soft cap
+     (B 4, H 16/8, hd 256, T 528, f32 and bf16) against its plain
+     version, timed with its bound (SDPA takes no soft cap); each
+     family served by ``Engine`` at full width with weights drawn on
+     the card (CUDA generator, seed 0), the attention counts set to 0
+     before and read after: mamba2-780m (48 layers) and
+     seamless-m4t-medium (12 + 12) at full depth, deepseek-v2-lite-16b,
+     deepseek-moe-16b, gemma2-9b and qwen2-vl-7b at depth 8, and
+     jamba-1.5-large's ``reduced()`` config (its full width needs more
+     than one card); 4 prompts of 512 random tokens and 16 new tokens,
+     the same round again, then ``Engine(morpheus=False)``: the tokens of
+     the three equal, each round's flash and decode launches the
+     model's, no plain version; every attention call of that path, one
+     per input shape, against its plain version, timed with its bound
+     and SDPA's time where SDPA computes the same function; the six
+     golden cells of ``tests/data/torch_golden_substrates.json`` (each
+     family at full width, 2 decoder layers, weights
+     ``seeded_numpy_params`` drawn by host threads meanwhile): logits
+     rows, qwen2-vl's M-RoPE forward rows and each MoE call's routing
+     (expert sets where the top-k margin exceeds 1e-4, drops per expert)
+     held to the reference's;
+  17. the ported kernels with their launches (phase 4 for the engine
      scans, phases 14 and 15 for their stateful twins, phase 7 for the
-     pool, phase 12 for attention), errors, times and bounds.
+     pool, phases 12 and 16 for attention), errors, times and bounds.
 
 The last lines are the card (``nvidia-smi``), the ``{"kernels": ...}``
 record, and ``{"ok": true, "device": ...}``.  Needs one CUDA card, the
@@ -1469,14 +1491,14 @@ def sdpa_call(name: str, args, kwargs):
     library's time and never called by the port; None for a soft cap,
     which SDPA does not take."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    if kwargs.get("softcap"):
+        return None
     if name == "decode_attention":
         q, k, v, valid = args
         qt = q[:, :, None].contiguous()
         kt, vt = (a.transpose(1, 2).contiguous() for a in (k, v))
         mask = valid[:, None, None, :]
         return lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
-    if kwargs.get("softcap"):
-        return None
     q, k, v = (a.transpose(1, 2).contiguous() for a in args)
     s, t = q.shape[2], k.shape[2]
     causal, window = kwargs.get("causal", True), kwargs.get("window", 0)
@@ -1836,10 +1858,11 @@ def phase_serving(env: Env, dev) -> dict:
             "prefill_window": pre_w, "decode_window": dec_w}
 
 
-def phase_attention_path(env: Env, calls: PathCalls) -> dict:
-    """Phase 13: every attention call of the serving phase, one per input
-    shape, against its plain version, timed with its bound and SDPA's
-    time."""
+def phase_attention_path(env: Env, calls: PathCalls,
+                         label: str = "phase 13: the serving path") -> dict:
+    """Phase 13 (and 16): every attention call of a serving phase, one per
+    input shape, against its plain version, timed with its bound and
+    SDPA's time where SDPA computes the same function."""
     att = env.att
     out = {}
     for key, args in calls.inputs.items():
@@ -1849,7 +1872,7 @@ def phase_attention_path(env: Env, calls: PathCalls) -> dict:
         plain = getattr(att, name + "_plain")
         err = att_close(kernel(*args, **kwargs), plain(*args, **kwargs),
                         att_tol(name, args[0].dtype),
-                        f"serving path {name} {shapes}")
+                        f"{label} {name} {shapes}")
         out.setdefault(name, []).append(dict(
             shape=[list(s) for s in shapes], kwargs=kwargs,
             dtype=str(args[0].dtype).replace("torch.", ""),
@@ -1860,14 +1883,17 @@ def phase_attention_path(env: Env, calls: PathCalls) -> dict:
             bound=attention_bound(name, args, kwargs)))
     for name in ATT_WRAPPERS:
         if name not in out:
-            fail(f"serving path: {name} was never called")
-    log("phase 13: attention kernels == plain at the serving path's shapes: "
+            fail(f"{label}: {name} was never called")
+    log(f"{label}: attention kernels == plain at its shapes: "
         + "; ".join(
-            f"{name} {t['shape']} x{t['launches']}: {t['ms']:.4f} ms on the "
+            f"{name} {t['shape']} {json.dumps(t['kwargs'])} "
+            f"{t['dtype']} x{t['launches']}: {t['ms']:.4f} ms on the "
             f"card ({t['call_ms']:.4f} ms a call), plain {t['plain_ms']:.4f} "
-            f"ms, SDPA {t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} "
-            f"ms ({t['bound'][1]}), max abs err {t['err']:.3g}"
-            for name, rows in out.items() for t in rows))
+            f"ms, SDPA " + ("none (no soft cap)" if t["library_ms"] is None
+                            else f"{t['library_ms']:.4f} ms")
+            + f", bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), max abs "
+            f"err {t['err']:.3g}" for name, rows in out.items()
+            for t in rows))
     return out
 
 
@@ -2838,6 +2864,350 @@ def phase_fleet(env: Env, dev) -> dict:
             "autotune": phase_autotune(env, golden["autotune"], dev)}
 
 
+# ---------------------------------------------------- every model family
+
+GOLDEN_SUBSTRATES = ROOT / "tests" / "data" / "torch_golden_substrates.json"
+# (b): each family served by Engine at full width; depth None is the
+# config's own, "reduced" its reduced() config (jamba-1.5-large's full
+# width needs more than one card: ROADMAP A8)
+SUB_SERVE = (("mamba2-780m", None), ("seamless-m4t-medium", None),
+             ("deepseek-v2-lite-16b", 8), ("deepseek-moe-16b", 8),
+             ("gemma2-9b", 8), ("qwen2-vl-7b", 8),
+             ("jamba-1.5-large-398b", "reduced"))
+SUB_BATCH, SUB_PROMPT, SUB_NEW = 4, 512, 16
+SUB_TREE_THREADS = 3         # host threads drawing the golden cells' trees
+SUB_MARGIN = 1e-4            # MoE routing compared above this top-k margin
+# (c): gemma2-9b's decode step at SUB_BATCH x (SUB_PROMPT + SUB_NEW) keys
+SOFTCAP_DECODE = dict(b=SUB_BATCH, h=16, kvh=8, hd=256,
+                      t=SUB_PROMPT + SUB_NEW, cap=50.0)
+
+
+def attention_layers(model) -> tuple:
+    """(decoder self-attention layers, of them MLA (absorbed decode, no
+    decode kernel), cross-attention blocks, encoder layers) of a model."""
+    cfg = model.cfg
+    attn = sum(s.mixer == "attn" for s in model.specs)
+    cross = sum("xattn" in layer for layer in model.layers)
+    return attn, attn if cfg.mla else 0, cross, len(model.encoder_layers)
+
+
+def want_launches(model, prefills: int, steps: int) -> dict:
+    """The attention launches a run of ``prefills`` prefills and ``steps``
+    decode steps makes: flash for each self-attention, encoder and cross
+    layer a prefill and each cross layer a step, decode for each non-MLA
+    self-attention layer a step."""
+    attn, mla, cross, enc = attention_layers(model)
+    return {"flash_attention": prefills * (attn + enc + cross)
+            + steps * cross, "decode_attention": steps * (attn - mla)}
+
+
+class RoutingTap:
+    """While entered, records each MoE call of the port
+    (``models.moe.route``): every token's top-k experts (sorted), its
+    top-k margin and the dropped pairs per expert, as
+    ``tests/test_torch_golden_substrates.py`` stores the reference's."""
+
+    def __init__(self, moe):
+        self.moe, self.records = moe, []
+
+    def __enter__(self):
+        self.route = self.moe.route
+
+        def route(p, x2, cfg):
+            r = self.route(p, x2, cfg)
+            k = cfg.top_k
+            g = torch.sort(r.gates.double(), dim=-1, descending=True).values
+            self.records.append({
+                "experts": torch.sort(r.expert.reshape(-1, k), -1).values
+                .cpu().numpy(),
+                "margin": (g[:, k - 1] - g[:, k]).cpu().numpy(),
+                "drops": torch.bincount(r.expert[~r.keep], minlength=cfg
+                                        .num_experts).tolist()})
+            return r
+        self.moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def check_routing(got: list, want: list, ctx: str) -> dict:
+    """``tests/test_torch_golden_substrates.py``'s check: each token's
+    expert set equal where the reference's top-k margin exceeds
+    SUB_MARGIN; drops per expert equal in a call with no near tie (near
+    ties and the calls whose drops differ beside one are counted)."""
+    if len(got) != len(want):
+        fail(f"{ctx}: {len(got)} MoE calls, golden {len(want)}")
+    out = {"tokens": 0, "near_ties": 0, "drops_differ_near_a_tie": 0}
+    for c, (g, w) in enumerate(zip(got, want)):
+        ge, we = g["experts"], np.asarray(w["experts"])
+        if ge.shape != we.shape:
+            fail(f"{ctx} call {c}: routing {ge.shape}, golden {we.shape}")
+        sure = np.asarray(w["margin"]) > SUB_MARGIN
+        out["tokens"] += int(sure.sum())
+        out["near_ties"] += int((~sure).sum())
+        bad = np.nonzero(sure & (ge != we).any(-1))[0]
+        if len(bad):
+            fail(f"{ctx} call {c}: token {int(bad[0])} routed to "
+                 f"{ge[bad[0]].tolist()}, golden {we[bad[0]].tolist()}")
+        if g["drops"] != w["drops"]:
+            if sure.all():
+                fail(f"{ctx} call {c}: drops {g['drops']}, golden "
+                     f"{w['drops']}")
+            out["drops_differ_near_a_tie"] += 1
+    return out
+
+
+def golden_cell_inputs(cfg, common: dict) -> dict:
+    """``tests/test_torch_golden_substrates.py``'s ``cell_inputs``."""
+    rng = np.random.default_rng(common["input_seed"])
+    b, s = common["batch"], common["prompt"]
+    out = {"prompts": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+               np.int32),
+           "teacher": rng.integers(0, cfg.vocab_size, (common["steps"], b)
+                                   ).astype(np.int32)}
+    if cfg.is_encdec:
+        out["frame_embeds"] = rng.standard_normal(
+            (b, common["frames"], cfg.d_model), np.float32)
+    if cfg.mrope_sections is not None:
+        p = common["patches"]
+        out["patch_embeds"] = 0.1 * rng.standard_normal((b, p, cfg.d_model),
+                                                        np.float32)
+        t = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+        h = np.where(t < p, t // 4, t - p + 2)
+        w = np.where(t < p, t % 4, t - p + 4)
+        out["positions"] = np.stack([t, h, w]).astype(np.int32)
+    return out
+
+
+def golden_substrate_cell(env: Env, arch: str, cell: dict, common: dict,
+                          tree: dict, dev) -> dict:
+    """(a) one golden cell on the card: prefill, the teacher-forced steps
+    and (M-RoPE) the forward rows held to the reference's summaries, the
+    MoE routing to the reference's."""
+    cfg = dataclasses.replace(env.configs.get(arch), **cell["config"])
+    if cfg.param_count()[0] != cell["params"]:
+        fail(f"golden {arch}: {cfg.param_count()[0]} parameters, golden "
+             f"{cell['params']}")
+    t0 = time.perf_counter()
+    model = env.models.LM(cfg, device=dev)
+    env.models.params_from_numpy(model, tree)
+    inputs = golden_cell_inputs(cfg, common)
+    batch = {"tokens": torch.from_numpy(inputs["prompts"]).to(dev)}
+    for k in ("frame_embeds", "patch_embeds"):
+        if k in inputs:
+            batch[k] = torch.from_numpy(inputs[k]).to(dev)
+    s = common["prompt"]
+    with RoutingTap(env.models.moe) as tap:
+        caches = model.init_caches(common["batch"], s + common["steps"])
+        logits, caches = model.prefill(batch, caches)
+        rows = [logits]
+        for t, tok in enumerate(inputs["teacher"]):
+            logits, caches = model.decode_step(
+                torch.from_numpy(tok).to(dev), caches, s + t)
+            rows.append(logits)
+    rows = torch.cat(rows).float().cpu().numpy()
+    if rows.shape != (len(cell["rows"]), cfg.padded_vocab()) or \
+            not np.isfinite(rows).all():
+        fail(f"golden {arch}: logits {rows.shape} not finite or not of the "
+             f"golden's shape")
+    out = {"params": cell["params"], "rows": len(rows),
+           "err": check_golden_rows(rows, cell["rows"])}
+    if cell["routing"]:
+        out["routing"] = check_routing(tap.records, cell["routing"],
+                                       f"golden {arch}")
+    if "forward_rows" in cell:
+        batch["positions"] = torch.from_numpy(inputs["positions"]).to(dev)
+        fwd = model(batch)[:, common["forward_rows"]]
+        out["forward_err"] = check_golden_rows(
+            fwd.float().cpu().numpy().reshape(-1, fwd.shape[-1]),
+            cell["forward_rows"])
+    out["s"] = time.perf_counter() - t0
+    del model, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_family(env: Env, arch: str, depth, rng, dev) -> dict:
+    """(b) one family served by ``Engine`` at full width, weights drawn on
+    the card: a round of SUB_BATCH prompts of SUB_PROMPT random tokens and
+    SUB_NEW new tokens, the same round again (pages reused), then on
+    ``Engine(morpheus=False)``; the tokens of the three must agree, and
+    each round's attention launches be the model's."""
+    att, se = env.att, env.serving
+    cfg = env.configs.get(arch)
+    if depth == "reduced":
+        cfg = cfg.reduced()
+    elif depth is not None:
+        cfg = dataclasses.replace(cfg, name=f"{cfg.name}-{depth}l",
+                                  num_layers=depth)
+    t0 = time.perf_counter()
+    model = env.models.LM(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 1e9
+    prompts = rng.integers(0, cfg.vocab_size, (SUB_BATCH, SUB_PROMPT))
+    max_len = SUB_PROMPT + SUB_NEW
+    eng = se.Engine(model, max_len=max_len)
+    rounds = [("round 1", eng), ("round 2", eng),
+              ("morpheus off", se.Engine(model, max_len=max_len,
+                                         morpheus=False))]
+    results = []
+    with StepTimer(model) as timer:
+        for name, e in rounds:
+            reqs = [se.Request(i, p.tolist(), SUB_NEW)
+                    for i, p in enumerate(prompts)]
+            before = dict(att.launches)
+            reused = e.pages_reused
+            timer.reset()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rep = e.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            got = {k: att.launches[k] - before[k] for k in before}
+            want = want_launches(model, 1, rep.steps)
+            if got != want:
+                fail(f"serving {cfg.name} {name}: attention launches {got}, "
+                     f"expected {want}")
+            results.append(dict(
+                round=name, wall_s=wall, prefill_s=timer.prefill_s,
+                decode_ms_step=1e3 * timer.decode_s / max(timer.steps, 1),
+                steps=rep.steps, tokens_per_s=rep.generated / wall,
+                pages_reused=e.pages_reused - reused, launches=got,
+                tokens=[r.out_tokens for r in reqs]))
+    toks = [r.pop("tokens") for r in results]
+    vocab = cfg.padded_vocab()
+    if any(len(t) != SUB_NEW or min(t) < 0 or max(t) >= vocab
+           for t in toks[0]):
+        fail(f"serving {cfg.name}: tokens out of range or short")
+    if not toks[0] == toks[1] == toks[2]:
+        fail(f"serving {cfg.name}: tokens differ across round 1, round 2 "
+             f"and Morpheus off")
+    if results[1]["pages_reused"] == 0:
+        fail(f"serving {cfg.name}: round 2 reused no page")
+    out = dict(arch=cfg.name, layers=len(model.layers),
+               encoder_layers=len(model.encoder_layers), d_model=cfg.d_model,
+               params=n_params, weight_gb=weight_gb, init_s=init_s,
+               dtype=str(model.dtype).replace("torch.", ""), rounds=results)
+    del model, eng, rounds
+    torch.cuda.empty_cache()
+    return out
+
+
+def softcap_decode(env: Env, dev) -> dict:
+    """(c) the soft-capped decode kernel against its plain version at
+    gemma2-9b's serving shape, f32 and bf16, timed with its bound; SDPA
+    takes no soft cap, so no library time."""
+    att = env.att
+    c = SOFTCAP_DECODE
+    rng = np.random.default_rng(5)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).replace("torch.", "")
+        args = (att_randn(rng, (c["b"], c["h"], c["hd"]), dt, dev),
+                att_randn(rng, (c["b"], c["t"], c["kvh"], c["hd"]), dt, dev),
+                att_randn(rng, (c["b"], c["t"], c["kvh"], c["hd"]), dt, dev),
+                torch.from_numpy(rng.random((c["b"], c["t"])) < 0.9).to(dev))
+        kw = {"softcap": c["cap"]}
+        err = att_close(att.decode_attention(*args, **kw),
+                        att.decode_attention_plain(*args, **kw),
+                        att_tol("decode_attention", dt),
+                        f"soft-capped decode {tag}")
+        out[tag] = dict(err=err, shape=[list(a.shape) for a in args],
+                        **times(lambda: att.decode_attention(*args, **kw),
+                                lambda: att.decode_attention_plain(*args,
+                                                                   **kw),
+                                20, 3),
+                        bound=attention_bound("decode_attention", args, kw))
+    return out
+
+
+def phase_substrates(env: Env, dev) -> dict:
+    """Phase 16: every model family on the card.  (c) the soft-capped
+    decode kernel; (b) each family served by ``Engine`` with every
+    attention count set to 0 before and read after, its calls then
+    replayed against the plain versions; (a) the golden cells of
+    ``tests/data/torch_golden_substrates.json``, whose trees host threads
+    draw meanwhile."""
+    att = env.att
+    golden = json.loads(GOLDEN_SUBSTRATES.read_text())
+    common = golden["common"]
+    t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(SUB_TREE_THREADS)
+    trees = {arch: pool.submit(
+        env.models.seeded_numpy_params,
+        dataclasses.replace(env.configs.get(arch), **cell["config"]),
+        common["seed"]) for arch, cell in golden["cells"].items()}
+
+    softcap = softcap_decode(env, dev)
+
+    rng = np.random.default_rng(0)
+    with PathCalls(env.ops, ATT_WRAPPERS) as calls:
+        torch.cuda.synchronize()
+        att.reset_launches()
+        served = [serve_family(env, arch, depth, rng, dev)
+                  for arch, depth in SUB_SERVE]
+        torch.cuda.synchronize()
+        counts, plain = dict(att.launches), dict(att.plain_runs)
+    if any(plain.values()):
+        fail(f"substrates: plain versions ran {plain}")
+    if any(v <= 0 for v in counts.values()):
+        fail(f"substrates: an attention kernel was not launched {counts}")
+    serve_s = time.perf_counter() - t0
+    path = phase_attention_path(env, calls, "phase 16: the families' "
+                                "serving path")
+
+    cells = {}
+    for arch, cell in golden["cells"].items():
+        tree = trees.pop(arch).result()
+        cells[arch] = golden_substrate_cell(env, arch, cell, common, tree,
+                                            dev)
+        del tree
+    pool.shutdown()
+    wall = time.perf_counter() - t0
+    log("phase 16: golden cells (full width, 2 decoder layers) on the card "
+        "match the reference's: " + "; ".join(
+            f"{a}: {c['params']} parameters, {c['rows']} rows, max abs err "
+            f"{c['err']:.3g}"
+            + (f", forward rows max abs err {c['forward_err']:.3g}"
+               if "forward_err" in c else "")
+            + (f", MoE routing equal on {c['routing']['tokens']} tokens "
+               f"({c['routing']['near_ties']} near ties not compared, "
+               f"{c['routing']['drops_differ_near_a_tie']} calls whose drops "
+               f"differ beside one)" if "routing" in c else "")
+            + f", {c['s']:.1f} s" for a, c in cells.items()))
+    log("phase 16: serving every family by Engine (" + f"{SUB_BATCH} x "
+        f"{SUB_PROMPT}-token prompts, {SUB_NEW} new tokens; round 1, round "
+        f"2, Morpheus off give the same tokens): " + "; ".join(
+            f"{s['arch']} ({s['layers']} layers"
+            + (f" + {s['encoder_layers']} encoder" if s["encoder_layers"]
+               else "")
+            + f", d_model {s['d_model']}, {s['params']} parameters, "
+            f"{s['weight_gb']:.2f} GB {s['dtype']}, drawn in "
+            f"{s['init_s']:.2f} s): " + ", ".join(
+                f"{r['round']} prefill {r['prefill_s']:.3f} s, decode "
+                f"{r['decode_ms_step']:.2f} ms a step x {r['steps']}, "
+                f"{r['tokens_per_s']:.1f} tokens/s, launches "
+                f"{json.dumps(r['launches'])}" for r in s["rounds"])
+            for s in served)
+        + f"; attention launches {json.dumps(counts)}, plain runs 0")
+    log("phase 16: soft-capped decode (gemma2-9b, B "
+        f"{SOFTCAP_DECODE['b']}, H {SOFTCAP_DECODE['h']}/"
+        f"{SOFTCAP_DECODE['kvh']}, hd {SOFTCAP_DECODE['hd']}, T "
+        f"{SOFTCAP_DECODE['t']}, cap {SOFTCAP_DECODE['cap']}) == plain: "
+        + "; ".join(f"{k}: max abs err {v['err']:.3g}, {v['ms']:.4f} ms on "
+                    f"the card, plain {v['plain_ms']:.4f} ms, bound "
+                    f"{v['bound'][0]:.4f} ms ({v['bound'][1]}), SDPA none "
+                    f"(no soft cap)" for k, v in softcap.items())
+        + f"; phase {wall:.1f} s ({serve_s:.1f} s to the end of serving)")
+    return {"launches": counts, "served": served, "cells": cells,
+            "softcap": softcap, "path": path, "wall_s": wall}
+
+
 def online_kernel_rows(online: dict, fleet: dict, scan_ptxas: dict) -> list:
     """The stateful scans' entries of the kernels line: launches of the
     paths that run them (phase 14's cells, phase 15's 64-replica fleet and
@@ -2883,11 +3253,13 @@ def online_kernel_rows(online: dict, fleet: dict, scan_ptxas: dict) -> list:
     return out
 
 
-def attention_kernel_rows(ak: dict, serving: dict, path: dict,
+def attention_kernel_rows(ak: dict, serving: dict, path: dict, subs: dict,
                           golden_err: float, ptxas: dict) -> list:
     """The attention kernels' entries of the kernels line: launches of the
-    serving phase, times at the path's most frequent shape, and the
-    large shapes of phase 10."""
+    two serving paths (phase 12's qwen3-4b and phase 16's families, each
+    counted from 0), times at phase 12's most frequent shape, every shape
+    of phase 16's path, the soft-capped decode (phase 16) and the large
+    shapes of phase 10."""
     src = "src/repro_torch/kernels/csrc/attention.cu"
     rows = {"decode_attention": ("src/repro/kernels/decode_attn.py:26",
                                  "decode_partial_kernel<T, GB, Cfg> (CUDA "
@@ -2897,6 +3269,12 @@ def attention_kernel_rows(ak: dict, serving: dict, path: dict,
                                 "flash_kernel_f32<D> (f32, CUDA cores), "
                                 "flash_kernel_bf16<D> (bf16, "
                                 "wgmma.mma_async)")}
+
+    def timed(t):
+        return ({f: t[f] for f in ("shape", "kwargs", "dtype", "launches",
+                                   "ms", "call_ms", "plain_ms", "library_ms",
+                                   "err") if f in t}
+                | {"bound_ms": t["bound"][0], "bound_by": t["bound"][1]})
     out = []
     for name, (replaces, kernel) in rows.items():
         head = max(path[name], key=lambda t: t["launches"])
@@ -2904,21 +3282,32 @@ def attention_kernel_rows(ak: dict, serving: dict, path: dict,
                                        "plain_ms", "library_ms")}
                  | {"bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
                  for k, v in ak["large"].items() if v["wrapper"] == name}
-        out.append({
+        by_path = {"qwen3_serving": serving["launches"][name],
+                   "families_serving": subs["launches"][name]}
+        row = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "kernel": kernel,
-            "launches": serving["launches"][name],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max([ak["err"][name]]
-                               + [t["err"] for t in path[name]]),
+                               + [t["err"] for t in path[name]]
+                               + [t["err"] for t in subs["path"][name]]),
             "golden_lm_max_abs_err": golden_err,
             "ms": head["ms"], "call_ms": head["call_ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
             "bound_by": head["bound"][1], "library_ms": head["library_ms"],
             "library": "torch.nn.functional.scaled_dot_product_attention",
             "shape": head["shape"], "dtype": head["dtype"],
+            "families_path_shapes": [timed(t) for t in subs["path"][name]],
             "ptxas": {k: v for k, v in ptxas.items()
                       if k.startswith(name.split("_")[0])},
-            "large": large})
+            "large": large}
+        if name == "decode_attention":
+            row["softcap_gemma2"] = {k: timed(v) for k, v in
+                                     subs["softcap"].items()}
+            row["max_abs_err"] = max([row["max_abs_err"]] + [
+                v["err"] for v in subs["softcap"].values()])
+        out.append(row)
     return out
 
 
@@ -3005,7 +3394,8 @@ def pool_kernel_rows(pk: dict, cells: dict, paths: dict) -> list:
 def ptxas_summary(log_text: str) -> dict:
     """Registers and spill bytes of each kernel of a ``-Xptxas -v``
     report, by readable name (``flash_kernel_f32<128>``,
-    ``decode_partial_kernel<bf16, 2, 128, 32, 3>``, ``ext_scan_kernel<4>``,
+    ``decode_partial_kernel<bf16, 2, 128, 32, 3, true>`` (the last its
+    soft cap), ``ext_scan_kernel<4>``,
     ``conv_scan_kernel``)."""
     import re
     out, cur = {}, None
@@ -3021,8 +3411,10 @@ def ptxas_summary(log_text: str) -> dict:
                 cur = None
                 continue
             args = [("bf16" if a == "13__nv_bfloat16" else
-                     "float" if a == "If" else a.strip("LiE"))
-                    for a in re.findall(r"13__nv_bfloat16|If|Li\d+E",
+                     "float" if a == "If" else
+                     {"Lb0E": "false", "Lb1E": "true"}.get(a) or
+                     a.strip("LiE"))
+                    for a in re.findall(r"13__nv_bfloat16|If|Li\d+E|Lb[01]E",
                                         k.group(2) or "")]
             cur = k.group(1) + (f"<{', '.join(args)}>" if args else "")
             out[cur] = {"registers": None, "spill_stores": 0,
@@ -3090,6 +3482,7 @@ def main() -> int:
     att_path = phase_attention_path(env, serving["calls"])
     online = phase_online(env, dev)
     fleet = phase_fleet(env, dev)
+    subs = phase_substrates(env, dev)
 
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("the port imported jax or repro")
@@ -3116,9 +3509,9 @@ def main() -> int:
         })
     kernels += online_kernel_rows(online, fleet, scan_ptxas)
     kernels += pool_kernel_rows(pk, cells, paths)
-    kernels += attention_kernel_rows(ak, serving, att_path, golden_lm["err"],
-                                     att_ptxas)
-    log("phase 16: kernels " + ", ".join(
+    kernels += attention_kernel_rows(ak, serving, att_path, subs,
+                                     golden_lm["err"], att_ptxas)
+    log("phase 17: kernels " + ", ".join(
         f"{x['name']} matched plain (max abs err {x['max_abs_err']:.3g}), "
         f"{x['ms']:.4g} ms on the card ({x['call_ms']:.4g} ms a call) vs "
         f"plain {x['plain_ms']:.4g} ms, bound {x['bound_ms']:.4g} ms "

@@ -25,12 +25,14 @@
   * ``decode_attention`` replaces ``_decode_kernel`` of
     ``src/repro/kernels/decode_attn.py`` (:26, called at :87): one query
     token per sequence, q (B, H, hd) against k/v (B, T, KV, hd) under a
-    (B, T) validity mask, scale ``hd ** -0.5``, no soft cap, output (B, H,
-    hd) f32.  Bound by device-memory bytes.  Flash-decoding:
-    ``decode_partial_kernel`` gives a block to (b, KV head, ``decode_chunk``
-    keys) and streams the chunk's K tiles, then its V tiles, through a
-    ring of 16-byte ``cp.async`` copies with two tiles always in flight
-    (tens of KB an SM); in bf16 with G <= 16 and hd a multiple of 64
+    (B, T) validity mask, scale ``hd ** -0.5``, an optional tanh soft cap
+    after the scale and before the mask (the reference model's ``_sdpa``
+    order; the TPU kernel has none), output (B, H, hd) f32.  Bound by
+    device-memory bytes.  Flash-decoding: ``decode_partial_kernel``
+    gives a block to (b, KV head, ``decode_chunk`` keys) and streams the
+    chunk's K tiles, then its V tiles, through a ring of 16-byte
+    ``cp.async`` copies with two tiles always in flight (tens of KB an
+    SM); in bf16 with G <= 16 and hd a multiple of 64
     both products run on the tensor cores (``decode_partial_kernel_tc``,
     ``mma.sync``), otherwise on the CUDA cores (a few lanes a key for the
     logits of all G heads, a thread 4 value columns of every head for
@@ -141,15 +143,18 @@ def decode_chunk(t: int, pairs: int, group: int, sms: int) -> int:
 # ------------------------------------------------------------ decode
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, valid: torch.Tensor
-                           ) -> torch.Tensor:
+                           v: torch.Tensor, valid: torch.Tensor, *,
+                           softcap: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version of ``decode_attention`` (the reference's
-    ``kernels/ref.py::decode_attention``)."""
+    ``kernels/ref.py::decode_attention``, with the soft cap of the
+    reference model's ``_sdpa``)."""
     plain_runs["decode_attention"] += 1
     b, h, hd = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, kvh, h // kvh, hd).float()
     logits = torch.einsum("bngd,btnd->bngt", qg, k.float()) * hd ** -0.5
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
     logits = torch.where(valid[:, None, None, :], logits, NEG)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bngt,btnd->bngd", w, v.float())
@@ -157,10 +162,12 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
+                     valid: torch.Tensor, *, softcap: float = 0.0
+                     ) -> torch.Tensor:
     """q (B, H, hd); k/v (B, T, KV, hd); valid (B, T) bool -> (B, H, hd)
     f32.  ``valid`` may be a broadcast view (of the cache's (T,) position
-    mask, say): it is made contiguous here."""
+    mask, say): it is made contiguous here.  ``softcap`` > 0 caps each
+    scaled logit to ``softcap * tanh(logit / softcap)``."""
     _check_qkv(q, k, v, 3)
     b, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
@@ -169,11 +176,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if valid.dtype != torch.bool or tuple(valid.shape) != (b, t):
         raise ValueError(f"valid must be ({b}, {t}) bool, got "
                          f"{tuple(valid.shape)} {valid.dtype}")
+    if softcap < 0:
+        raise ValueError(f"softcap {softcap} must be >= 0")
     dev = q.device
     valid = valid.contiguous()
     _build.check("valid", valid, torch.bool, (b, t), dev)
     if dev.type == "cpu":
-        return decode_attention_plain(q, k, v, valid)
+        return decode_attention_plain(q, k, v, valid, softcap=softcap)
     _build.require_cuda(dev, "decode_attention")
     if h // kvh > MAX_GROUP:
         raise ValueError(f"{h // kvh} query heads per KV head; the kernel "
@@ -197,8 +206,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(dev):
         err = _lib().decode_attention_launch(
             ptr(q), ptr(k), ptr(v), ptr(valid), _DTYPES[q.dtype], b, t, h,
-            kvh, hdp, chunk, scale, ptr(m), ptr(l), ptr(acc), ptr(res),
-            _build.stream(dev))
+            kvh, hdp, chunk, scale, float(softcap), ptr(m), ptr(l),
+            ptr(acc), ptr(res), _build.stream(dev))
     _build.raise_on(err, "decode_attention")
     launches["decode_attention"] += 1
     if res is not out:
@@ -289,7 +298,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 10 + [f, f, p]
-    lib.decode_attention_launch.argtypes = [p] * 4 + [i] * 7 + [f] + [p] * 5
+    lib.decode_attention_launch.argtypes = [p] * 4 + [i] * 7 + [f, f] + [p] * 5
     lib.decode_max_chunk.argtypes = []
     for fn in (lib.flash_attention_launch, lib.decode_attention_launch,
                lib.decode_max_chunk):

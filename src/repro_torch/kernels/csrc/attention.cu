@@ -186,12 +186,18 @@ __host__ __device__ inline LogitScale logit_scale(float scale,
   return {scale * LOG2E, 0.f, 0.f};
 }
 
+// A raw score in the base-2 domain, with no masks (decode applies its
+// validity mask itself).
+__device__ __forceinline__ float scaled2(float s, const LogitScale& ls) {
+  return ls.cap > 0.f ? ls.cap * tanhf(s * ls.inv) : s * ls.mul;
+}
+
 // One logit in the base-2 domain, then the masks (masked: NEG; past T:
 // -inf, left out).
 __device__ __forceinline__ float logit2(float s, const LogitScale& ls,
                                         bool masked, int qp, int kp, int Tk,
                                         int causal, int window) {
-  const float x = ls.cap > 0.f ? ls.cap * tanhf(s * ls.inv) : s * ls.mul;
+  const float x = scaled2(s, ls);
   if (masked) {
     if (kp >= Tk) return -INFINITY;
     bool ok = true;
@@ -945,13 +951,13 @@ __device__ __forceinline__ void load16(const bf16* p, float (&f)[8]) {
 // its softmax is taken once between the K and the V tiles (no online
 // rescaling).  Partials are laid out (B, KV, chunks, G) for m and l (base
 // 2) and (B, KV, chunks, G, hd) for the accumulator.
-template <typename T, int GB, typename C>
+template <typename T, int GB, typename C, bool CAP>
 __global__ void __launch_bounds__(C::NT)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v,
                       const uint8_t* __restrict__ valid, int Tk, int H,
                       int KV, int hd, int G, int chunk, int n_chunks,
-                      float scale, float* __restrict__ m_out,
+                      float scale, float softcap, float* __restrict__ m_out,
                       float* __restrict__ l_out,
                       float* __restrict__ acc_out) {
   using L = DecodeSmem<T, C>;
@@ -1022,6 +1028,8 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + (static_cast<long long>(b) * H + kvh * G) * hd;
   for (int e = tid; e < G * hd; e += C::NT) Qs[e] = to_f(qb[e]);
 
+  // CAP: scale then cap (tanh) a logit; else only scale it
+  const LogitScale ls = logit_scale(scale, softcap);
   const float sl = scale * LOG2E;
   const long long stat0 =
       ((static_cast<long long>(b) * KV + kvh) * n_chunks + c) * G;
@@ -1075,7 +1083,8 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
           for (int o = 1; o < C::PARTS; o <<= 1)
             s[gg] += __shfl_xor_sync(0xffffffffu, s[gg], o);
           if (part == 0 && j < n)
-            Ls[(g0 + gg) * chunk + j] = ok_s[j] ? s[gg] * sl : NEG;
+            Ls[(g0 + gg) * chunk + j] =
+                ok_s[j] ? (CAP ? scaled2(s[gg], ls) : s[gg] * sl) : NEG;
         }
       }
       if (i == nt - 1) {
@@ -1160,14 +1169,15 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // w hd/4..(w+1) hd/4 - 1 of the V tiles (O += P V, P's A fragments from
 // the chunk's probabilities rounded to bf16, V's B fragments by
 // ldmatrix.trans), so no slice sums are needed.
-template <typename C>
+template <typename C, bool CAP>
 __global__ void __launch_bounds__(C::NT)
 decode_partial_kernel_tc(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
                          const uint8_t* __restrict__ valid, int Tk, int H,
                          int KV, int hd, int G, int chunk, int n_chunks,
-                         float scale, float* __restrict__ m_out,
+                         float scale, float softcap,
+                         float* __restrict__ m_out,
                          float* __restrict__ l_out,
                          float* __restrict__ acc_out) {
   static_assert(C::NT == 128 && C::SK == 64, "4 warps, 16 keys a warp");
@@ -1223,6 +1233,8 @@ decode_partial_kernel_tc(const bf16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < C::NS - 1; ++i) fetch(i);
 
+  // CAP: scale then cap (tanh) a logit; else only scale it
+  const LogitScale ls = logit_scale(scale, softcap);
   const float sl = scale * LOG2E;
   const long long stat0 =
       ((static_cast<long long>(b) * KV + kvh) * n_chunks + c) * G;
@@ -1268,7 +1280,10 @@ decode_partial_kernel_tc(const bf16* __restrict__ q,
             const int g = gr + 8 * h8;
             const int j = i * C::SK + 16 * warp + 8 * nt8 + 2 * (lane & 3) + e;
             if (g < G && j < n)
-              Ls[g * chunk + j] = ok_s[j] ? sc[nt8][2 * h8 + e] * sl : NEG;
+              Ls[g * chunk + j] =
+                  ok_s[j] ? (CAP ? scaled2(sc[nt8][2 * h8 + e], ls)
+                                 : sc[nt8][2 * h8 + e] * sl)
+                          : NEG;
           }
       if (i == nt - 1) {
         __syncthreads();                   // every logit of the chunk
@@ -1369,25 +1384,26 @@ decode_combine_kernel(const float* __restrict__ m, const float* __restrict__ l,
   }
 }
 
-template <typename T, int GB, typename C>
+template <typename T, int GB, typename C, bool CAP>
 cudaError_t decode_launch(const void* q, const void* k, const void* v,
                           const void* valid, int B, int Tk, int H, int KV,
-                          int hd, int chunk, float scale, float* m, float* l,
-                          float* acc, float* out, cudaStream_t stream) {
+                          int hd, int chunk, float scale, float softcap,
+                          float* m, float* l, float* acc, float* out,
+                          cudaStream_t stream) {
   using L = DecodeSmem<T, C>;
   const int G = H / KV;
   const int n_chunks = (Tk + chunk - 1) / chunk;
   const int smem = L::bytes(hd, G, chunk, GB);
   if (hd % L::VEC != 0 || smem > MAX_SMEM) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_partial_kernel<T, GB, C>,
+      decode_partial_kernel<T, GB, C, CAP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  decode_partial_kernel<T, GB, C><<<dim3(n_chunks, KV, B), C::NT, smem,
-                                    stream>>>(
+  decode_partial_kernel<T, GB, C, CAP><<<dim3(n_chunks, KV, B), C::NT, smem,
+                                         stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(valid), Tk, H, KV,
-      hd, G, chunk, n_chunks, scale, m, l, acc);
+      hd, G, chunk, n_chunks, scale, softcap, m, l, acc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_combine_kernel<<<dim3(H, B), COMBINE_THREADS, 0, stream>>>(
@@ -1395,11 +1411,11 @@ cudaError_t decode_launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename C>
+template <typename C, bool CAP>
 cudaError_t decode_launch_tc(const void* q, const void* k, const void* v,
                              const void* valid, int B, int Tk, int H, int KV,
-                             int hd, int chunk, float scale, float* m,
-                             float* l, float* acc, float* out,
+                             int hd, int chunk, float scale, float softcap,
+                             float* m, float* l, float* acc, float* out,
                              cudaStream_t stream) {
   const int G = H / KV;
   const int n_chunks = (Tk + chunk - 1) / chunk;
@@ -1407,14 +1423,14 @@ cudaError_t decode_launch_tc(const void* q, const void* k, const void* v,
   const int smem = 2 * (C::NS * C::SK + 16) * ldk + 4 * G * chunk + chunk;
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_partial_kernel_tc<C>,
+      decode_partial_kernel_tc<C, CAP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  decode_partial_kernel_tc<C><<<dim3(n_chunks, KV, B), C::NT, smem,
-                                stream>>>(
+  decode_partial_kernel_tc<C, CAP><<<dim3(n_chunks, KV, B), C::NT, smem,
+                                     stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const uint8_t*>(valid), Tk, H,
-      KV, hd, G, chunk, n_chunks, scale, m, l, acc);
+      KV, hd, G, chunk, n_chunks, scale, softcap, m, l, acc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_combine_kernel<<<dim3(H, B), COMBINE_THREADS, 0, stream>>>(
@@ -1424,23 +1440,25 @@ cudaError_t decode_launch_tc(const void* q, const void* k, const void* v,
 
 // The heads a pass over v: G rounded up to a power of two, at most
 // DEC_GB (more heads take several passes).
-template <typename T, typename C>
+template <typename T, typename C, bool CAP>
 cudaError_t decode_dispatch(const void* q, const void* k, const void* v,
                             const void* valid, int B, int Tk, int H, int KV,
-                            int hd, int chunk, float scale, float* m,
-                            float* l, float* acc, float* out,
+                            int hd, int chunk, float scale, float softcap,
+                            float* m, float* l, float* acc, float* out,
                             cudaStream_t stream) {
   const int G = H / KV;
 #define DECODE_CASE(GB)                                                    \
   if (G <= GB)                                                             \
-    return decode_launch<T, GB, C>(q, k, v, valid, B, Tk, H, KV, hd,       \
-                                   chunk, scale, m, l, acc, out, stream);
+    return decode_launch<T, GB, C, CAP>(q, k, v, valid, B, Tk, H, KV, hd,  \
+                                   chunk, scale, softcap, m, l, acc, out,  \
+                                   stream);
   DECODE_CASE(1)
   DECODE_CASE(2)
   DECODE_CASE(4)
 #undef DECODE_CASE
-  return decode_launch<T, DEC_GB, C>(q, k, v, valid, B, Tk, H, KV, hd, chunk,
-                                     scale, m, l, acc, out, stream);
+  return decode_launch<T, DEC_GB, C, CAP>(q, k, v, valid, B, Tk, H, KV, hd,
+                                          chunk, scale, softcap, m, l, acc,
+                                          out, stream);
 }
 
 bool shapes_ok(int B, int H, int KV, int hd) {
@@ -1482,30 +1500,39 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 }
 
 // q (B, H, hd), k/v (B, T, KV, hd), valid (B, T) one byte each -> out
-// (B, H, hd) f32, logits scaled by scale; m/l (B, KV, chunks, G) and acc
-// (B, KV, chunks, G, hd) f32 scratch, chunks = ceil(T / chunk).
+// (B, H, hd) f32, logits scaled by scale, then (softcap > 0) capped to
+// softcap * tanh(logit / softcap), then masked; m/l (B, KV, chunks, G)
+// and acc (B, KV, chunks, G, hd) f32 scratch, chunks = ceil(T / chunk).
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* valid, int dtype, int B, int Tk,
                             int H, int KV, int hd, int chunk, float scale,
-                            void* m, void* l, void* acc, void* out,
-                            void* stream) {
+                            float softcap, void* m, void* l, void* acc,
+                            void* out, void* stream) {
   if (!shapes_ok(B, H, KV, hd) || Tk <= 0 || chunk <= 0 ||
-      chunk > DEC_MAX_CHUNK)
+      chunk > DEC_MAX_CHUNK || softcap < 0.f)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* mf = static_cast<float*>(m);
   float* lf = static_cast<float*>(l);
   float* af = static_cast<float*>(acc);
   float* of = static_cast<float*>(out);
+  // the soft cap is a template flag, so the kernels without it compile
+  // as they did before it existed (the cap's tanh costs registers)
+#define DECODE_ARGS                                                         \
+  q, k, v, valid, B, Tk, H, KV, hd, chunk, scale, softcap, mf, lf, af, of, st
+  const bool cap = softcap > 0.f;
   if (dtype == 0)
-    return decode_dispatch<float, DecCfg<256, 32, 3>>(
-        q, k, v, valid, B, Tk, H, KV, hd, chunk, scale, mf, lf, af, of, st);
+    return cap ? decode_dispatch<float, DecCfg<256, 32, 3>, true>(DECODE_ARGS)
+               : decode_dispatch<float, DecCfg<256, 32, 3>, false>(
+                     DECODE_ARGS);
   if (dtype == 1 && H / KV <= 16 && hd % 64 == 0)
-    return decode_launch_tc<DecCfg<128, 64, 3>>(
-        q, k, v, valid, B, Tk, H, KV, hd, chunk, scale, mf, lf, af, of, st);
+    return cap ? decode_launch_tc<DecCfg<128, 64, 3>, true>(DECODE_ARGS)
+               : decode_launch_tc<DecCfg<128, 64, 3>, false>(DECODE_ARGS);
   if (dtype == 1)
-    return decode_dispatch<bf16, DecCfg<128, 32, 3>>(
-        q, k, v, valid, B, Tk, H, KV, hd, chunk, scale, mf, lf, af, of, st);
+    return cap ? decode_dispatch<bf16, DecCfg<128, 32, 3>, true>(DECODE_ARGS)
+               : decode_dispatch<bf16, DecCfg<128, 32, 3>, false>(
+                     DECODE_ARGS);
+#undef DECODE_ARGS
   return cudaErrorInvalidValue;
 }
 

@@ -1,11 +1,11 @@
-"""Common model layers, after ``repro.models.layers``: norms, RoPE, the
-dense MLP, embeddings and the logits head.
+"""Common model layers, after ``repro.models.layers``: norms, RoPE and
+M-RoPE, the dense MLP, embeddings and the logits head.
 
 Layouts are the reference's: activations (B, S, D), weights (in, out)
 applied as ``x @ W``, the embedding (V, D) over the padded vocabulary.
 The three matmuls stay ``torch.matmul``, as the reference left them to
-XLA.  Not ported yet: ``mrope_angles`` (the VLM slice) and
-``cross_entropy`` (the training slice).
+XLA.  Not ported yet: ``cross_entropy`` (the training slice, ROADMAP
+A8).
 """
 from __future__ import annotations
 
@@ -19,11 +19,16 @@ from ..configs.base import ArchConfig
 
 class Init(NamedTuple):
     """How the reference initialises one parameter: ``normal * scale``,
-    or ones when ``scale`` is None (a norm's weight).  The ``init_*``
-    functions return trees of these, which ``models.weights`` turns into
-    tensors (from a ``torch.Generator``) or numpy arrays (from a seed)."""
+    ones when ``scale`` is None (a norm's weight), zeros when it is 0
+    (Mamba2's ``A_log`` and ``dt_bias``, drawn from no generator).
+    ``dtype`` None is the model's dtype; a leaf the reference keeps in
+    float32 whatever the model's dtype (the MoE router, ``A_log``,
+    ``dt_bias``) names ``torch.float32``.  The ``init_*`` functions return
+    trees of these, which ``models.weights`` turns into tensors (from a
+    ``torch.Generator``) or numpy arrays (from a seed)."""
     shape: Tuple[int, ...]
     scale: Optional[float]
+    dtype: Optional[torch.dtype] = None
 
 
 def dtype_of(cfg: ArchConfig) -> torch.dtype:
@@ -63,6 +68,24 @@ def rope_angles(positions: torch.Tensor, head_dim: int,
                         device=positions.device) / half
     inv = 1.0 / (theta ** exps)
     return positions.float()[..., None] * inv
+
+
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: ``positions`` (3, B, S) t/h/w streams; each RoPE
+    frequency slot draws its position from its section's stream.  Returns
+    (B, S, head_dim // 2) f32."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    inv = 1.0 / (theta ** exps)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=positions.device),
+        torch.tensor(sections, device=positions.device))      # (half,)
+    pos = positions.float()[sec_id]                           # (half, B, S)
+    return pos.movedim(0, -1) * inv
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,8 @@
-"""The decoder-only LM, after ``repro.models.transformer``, for dense
-attention stacks (GQA, qk-norm, global and sliding-window layers, dense
-SwiGLU/GeGLU MLPs, tied or untied embeddings).
+"""The LM, after ``repro.models.transformer``: decoder-only stacks of
+attention (GQA or MLA, global or sliding-window, with or without a logit
+soft cap) and Mamba2 layers with dense or MoE MLPs, the encoder-decoder
+variant (seamless) and the VLM inputs (qwen2-vl): every architecture of
+``repro_torch.configs``.
 
 ``LM`` is an ``nn.Module`` on an explicit device and dtype whose layers
 are an ``nn.ModuleList`` in layer order (the reference scans over
@@ -9,15 +11,23 @@ Its parameters are made empty; ``init_weights`` draws them from a
 ``torch.Generator`` with the reference's distributions, and
 ``weights.params_from_numpy`` loads the reference's tree.  The entry
 points (``forward``, ``prefill``, ``decode_step``) run inference only,
-under ``torch.no_grad``; ``loss`` waits for the training slice.
+under ``torch.no_grad``.
 
-Not ported yet (``LM(cfg)`` raises ``NotImplementedError`` naming the
-ROADMAP item): Mamba2 mixers, MoE MLPs, MLA, M-RoPE, encoder-decoder
-stacks, and an attention logit soft cap.
+Optional batch inputs, as in the reference: ``frame_embeds`` (B, T, D),
+the stubbed audio frontend's frames that the encoder of an
+encoder-decoder arch reads; ``patch_embeds`` (B, P, D), a vision prefix
+(scaled by sqrt(d_model)) that replaces the first P token embeddings;
+``positions`` (B, S) or (3, B, S) M-RoPE streams, which only ``forward``
+reads (``prefill`` rotates by ``arange(S)``, as the reference's does).
+``prefill`` of an encoder-decoder arch encodes ``frame_embeds`` and keeps
+the encoder's output in ``caches.enc_out``; ``decode_step`` projects the
+cross K/V from it at every step, as the reference does.
+
+Not ported (ROADMAP A8): ``loss`` and the training path.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -26,66 +36,68 @@ from ..configs.base import ArchConfig, LayerSpec
 from ..core.engine import resolve_device
 from . import attention as A
 from . import layers as L
+from . import mamba2 as M
+from . import moe as MoE
 from . import weights as W
 
 Tensor = torch.Tensor
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run."""
-    specs = W.layer_specs(cfg)
-    if any(s.mixer == "mamba" for s in specs):
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba2 layers are not ported yet (ROADMAP A12)")
-    if any(s.mlp == "moe" for s in specs):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP A12)")
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder stacks and cross-attention are "
-            f"not ported yet (ROADMAP A12)")
-    A.check_supported(cfg)
-
-
-def _params(tree: dict, dtype: torch.dtype, device) -> nn.ParameterDict:
-    return nn.ParameterDict({
-        k: nn.Parameter(torch.empty(v.shape, dtype=dtype, device=device),
-                        requires_grad=False)
-        for k, v in tree.items()})
-
-
-class Layer(nn.Module):
-    """One dense attention layer: ``ln1``, ``mixer`` (the attention's
-    parameters), and ``ln2``, ``mlp`` when the layer has an MLP."""
+class ParamTree(nn.Module):
+    """A nested tree of parameters made empty from a ``layers.Init`` tree,
+    each leaf in its own dtype or the model's; ``tree["name"]`` reads a
+    leaf or a subtree, as the reference's dicts do."""
 
     def __init__(self, inits: dict, dtype: torch.dtype, device):
         super().__init__()
         for name, init in inits.items():
             if isinstance(init, dict):
-                setattr(self, name, _params(init, dtype, device))
+                setattr(self, name, ParamTree(init, dtype, device))
             else:
-                setattr(self, name, nn.Parameter(
-                    torch.empty(init.shape, dtype=dtype, device=device),
-                    requires_grad=False))
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(init.shape, dtype=init.dtype or dtype,
+                                device=device), requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
 
     def param(self, name: str) -> Tensor:
         """A parameter by its dotted name in the reference's layer tree
-        (``"mixer.wq"``, ``"ln1"``)."""
-        head, _, leaf = name.partition(".")
-        return getattr(self, head)[leaf] if leaf else getattr(self, head)
+        (``"mixer.wq"``, ``"mlp.shared.w_up"``, ``"ln1"``)."""
+        node = self
+        for part in name.split("."):
+            node = node[part]
+        return node
+
+
+class Layer(ParamTree):
+    """One layer: ``ln1`` and ``mixer`` (an attention's or a Mamba2's
+    parameters), ``ln2`` and ``mlp`` (dense or MoE) when the layer has an
+    MLP, ``ln_x`` and ``xattn`` when it has a cross-attention block."""
+
+
+class Caches(list):
+    """The per-layer caches in layer order (an attention layer's KV cache,
+    a Mamba2 layer's conv and SSM state); ``enc_out`` the encoder's output
+    (B, T_enc, D) after ``prefill`` of an encoder-decoder model, else
+    None."""
+    enc_out: Optional[Tensor] = None
 
 
 class LM(nn.Module):
-    """Decoder-only language model over dense attention layers.
+    """Language model over every architecture of ``repro_torch.configs``.
 
     ``device`` None runs on the CUDA card (``BackendError`` without one);
     ``device="cpu"`` runs the kernels' plain versions.  ``dtype`` None
-    takes the config's ``param_dtype``."""
+    takes the config's ``param_dtype``; the MoE router, ``A_log`` and
+    ``dt_bias`` stay float32 whatever it is, as in the reference."""
 
     def __init__(self, cfg: ArchConfig, *, device=None,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype or L.dtype_of(cfg)
@@ -97,24 +109,43 @@ class LM(nn.Module):
             self.unembed = None
         self.specs: Tuple[LayerSpec, ...] = W.layer_specs(cfg)
         self.layers = nn.ModuleList(
-            Layer(W.layer_inits(cfg, s), self.dtype, self.device)
-            for s in self.specs)
+            Layer(W.layer_inits(cfg, s, cross=W.has_cross(cfg, li)),
+                  self.dtype, self.device)
+            for li, s in enumerate(self.specs))
+        self.encoder_layers = nn.ModuleList(
+            Layer(W.encoder_inits(cfg), self.dtype, self.device)
+            for _ in range(cfg.encoder_layers))
+        self.encoder_norm = (nn.Parameter(torch.empty(
+            (cfg.d_model,), dtype=self.dtype, device=self.device),
+            requires_grad=False) if cfg.is_encdec else None)
 
     # ------------------------------------------------------------- params
+    def _leaves(self):
+        """(parameter, ``layers.Init``) of every leaf in a fixed order: top
+        level, the decoder layers, the encoder layers, the encoder norm."""
+        cfg = self.cfg
+        out = [(getattr(self, n), i) for n, i in W.leaves(W.top_inits(cfg))]
+        for li, (layer, spec) in enumerate(zip(self.layers, self.specs)):
+            out += [(layer.param(n), i) for n, i in W.leaves(
+                W.layer_inits(cfg, spec, cross=W.has_cross(cfg, li)))]
+        for layer in self.encoder_layers:
+            out += [(layer.param(n), i)
+                    for n, i in W.leaves(W.encoder_inits(cfg))]
+        if cfg.is_encdec:
+            out.append((self.encoder_norm, L.init_rms(cfg.d_model)))
+        return out
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "LM":
         """Draw every parameter with the reference's distributions
-        (``normal * scale``, norms at one) from ``generator``, which must
-        live on the model's device, in a fixed order (top level, then the
-        layers in order)."""
-        named = [(getattr(self, n), i) for n, i in
-                 W.leaves(W.top_inits(self.cfg))]
-        for layer, spec in zip(self.layers, self.specs):
-            named += [(layer.param(n), i) for n, i in
-                      W.leaves(W.layer_inits(self.cfg, spec))]
-        for t, init in named:
+        (``normal * scale``, norms at one, ``A_log`` and ``dt_bias`` at
+        zero) from ``generator``, which must live on the model's device, in
+        a fixed order (``_leaves``)."""
+        for t, init in self._leaves():
             if init.scale is None:
                 t.fill_(1.0)
+            elif init.scale == 0:
+                t.zero_()
             else:
                 t.normal_(generator=generator).mul_(init.scale)
         return self
@@ -123,63 +154,135 @@ class LM(nn.Module):
     def _embed(self, tokens: Tensor) -> Tensor:
         return L.embed_tokens(self.embed, tokens.to(self.device), self.cfg)
 
+    def _embed_inputs(self, batch: Dict[str, Tensor]
+                      ) -> Tuple[Tensor, Tensor]:
+        """(x (B, S, D), positions) of a batch: the token embeddings with
+        a ``patch_embeds`` prefix (scaled by sqrt(d_model)) in place of the
+        first P, and ``batch["positions"]`` or ``arange(S)``."""
+        tokens = batch["tokens"]
+        x = self._embed(tokens)
+        if "patch_embeds" in batch:
+            pe = batch["patch_embeds"].to(self.device, x.dtype)
+            scale = torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
+                                 device=x.device)
+            x = torch.cat([pe * scale, x[:, pe.shape[1]:]], dim=1)
+        b, s = tokens.shape
+        if "positions" in batch:
+            positions = batch["positions"].to(self.device)
+        else:
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=self.device).expand(b, s)
+        return x, positions
+
+    def _encode(self, batch: Dict[str, Tensor]) -> Optional[Tensor]:
+        """The encoder's output over ``batch["frame_embeds"]`` (B, T, D),
+        non-causal, for an encoder-decoder arch; None otherwise."""
+        if not self.cfg.is_encdec:
+            return None
+        x = batch["frame_embeds"].to(self.device, self.dtype)
+        b, s, _ = x.shape
+        pos = torch.arange(s, dtype=torch.int32,
+                           device=self.device).expand(b, s)
+        for layer in self.encoder_layers:
+            h = L.rms_norm(x, layer.ln1)
+            x = x + A.attention(layer.mixer, h, self.cfg, W.ENCODER_SPEC, pos,
+                                causal=False)
+            x = self._mlp(layer, W.ENCODER_SPEC, x)
+        return L.rms_norm(x, self.encoder_norm)
+
     def _head(self, x: Tensor) -> Tensor:
         x = L.rms_norm(x, self.final_norm)
         return L.logits_head(self.embed, self.unembed, x, self.cfg)
 
-    def _mlp(self, layer: Layer, x: Tensor) -> Tensor:
-        if not hasattr(layer, "mlp"):
+    def _cross(self, layer: Layer, x: Tensor,
+               enc_out: Optional[Tensor]) -> Tensor:
+        """The cross-attention block over ``enc_out``, K/V projected anew
+        (the reference projects them in every scan step)."""
+        if enc_out is None or "xattn" not in layer:
+            return x
+        enc_kv = A.encode_cross_kv(layer.xattn, enc_out, self.cfg)
+        h = L.rms_norm(x, layer.ln_x)
+        return x + A.cross_attention(layer.xattn, h, enc_kv, self.cfg)
+
+    def _mlp(self, layer: Layer, spec: LayerSpec, x: Tensor) -> Tensor:
+        if "mlp" not in layer:
             return x
         h = L.rms_norm(x, layer.ln2)
+        if spec.mlp == "moe":
+            return x + MoE.moe_mlp(layer.mlp, h, self.cfg)
         return x + L.dense_mlp(layer.mlp, h, self.cfg.act)
 
     # ------------------------------------------------------------ forward
     @torch.no_grad()
     def forward(self, batch: Dict[str, Tensor]) -> Tensor:
         """Logits (B, S, V) of a full causal forward over
-        ``batch["tokens"]`` (B, S)."""
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = self._embed(tokens)
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=self.device).expand(b, s)
+        ``batch["tokens"]`` (B, S) and the optional inputs above."""
+        x, positions = self._embed_inputs(batch)
+        enc_out = self._encode(batch)
         for layer, spec in zip(self.layers, self.specs):
             h = L.rms_norm(x, layer.ln1)
-            x = x + A.attention(layer.mixer, h, self.cfg, spec, positions)
-            x = self._mlp(layer, x)
+            if spec.mixer == "mamba":
+                h = M.mamba_block(layer.mixer, h, self.cfg)
+            else:
+                h = A.attention(layer.mixer, h, self.cfg, spec, positions)
+            x = self._cross(layer, x + h, enc_out)
+            x = self._mlp(layer, spec, x)
         return self._head(x)
 
+    def loss(self, batch: Dict[str, Tensor]) -> Tensor:
+        raise NotImplementedError(
+            f"{self.cfg.name}: LM.loss and cross_entropy come with the "
+            f"training slice (ROADMAP A8)")
+
     # ------------------------------------------------------------ serving
-    def init_caches(self, batch_size: int, max_len: int
-                    ) -> List[Dict[str, Tensor]]:
-        """One KV cache per layer, in layer order, in the model's dtype."""
-        return [A.init_kv_cache(self.cfg, s, batch_size, max_len,
-                                self.dtype, self.device) for s in self.specs]
+    def init_caches(self, batch_size: int, max_len: int) -> Caches:
+        """One cache per layer, in layer order, in the model's dtype."""
+        cfg = self.cfg
+        return Caches(
+            M.init_mamba_cache(cfg, batch_size, self.dtype, self.device)
+            if s.mixer == "mamba" else
+            A.init_kv_cache(cfg, s, batch_size, max_len, self.dtype,
+                            self.device) for s in self.specs)
 
     @torch.no_grad()
-    def prefill(self, batch: Dict[str, Tensor], caches: List[Dict[str, Tensor]]
-                ) -> Tuple[Tensor, List[Dict[str, Tensor]]]:
+    def prefill(self, batch: Dict[str, Tensor], caches: Caches
+                ) -> Tuple[Tensor, Caches]:
         """Run the prompt ``batch["tokens"]`` (B, S), filling the caches in
-        place; returns (last-token logits (B, V) f32, caches)."""
-        x = self._embed(batch["tokens"])
+        place; returns (last-token logits (B, V) f32, caches), with
+        ``caches.enc_out`` set for an encoder-decoder model."""
+        x, _ = self._embed_inputs(batch)
+        enc_out = self._encode(batch)
+        caches = caches if isinstance(caches, Caches) else Caches(caches)
         for layer, spec, cache in zip(self.layers, self.specs, caches):
             h = L.rms_norm(x, layer.ln1)
-            h, _ = A.prefill_into_cache(layer.mixer, h, cache, self.cfg, spec)
-            x = self._mlp(layer, x + h)
+            if spec.mixer == "mamba":
+                h, _ = M.mamba_prefill(layer.mixer, h, cache, self.cfg)
+            else:
+                h, _ = A.prefill_into_cache(layer.mixer, h, cache, self.cfg,
+                                            spec)
+            x = self._cross(layer, x + h, enc_out)
+            x = self._mlp(layer, spec, x)
+        caches.enc_out = enc_out
         return self._head(x[:, -1:])[:, 0], caches
 
     @torch.no_grad()
-    def decode_step(self, tokens: Tensor, caches: List[Dict[str, Tensor]],
-                    cur_pos: int) -> Tuple[Tensor, List[Dict[str, Tensor]]]:
+    def decode_step(self, tokens: Tensor, caches: Caches, cur_pos: int
+                    ) -> Tuple[Tensor, Caches]:
         """tokens (B,); ``cur_pos`` the absolute position of the new
         tokens (shared by the batch).  Updates the caches in place;
-        returns (logits (B, V) f32, caches)."""
+        returns (logits (B, V) f32, caches).  Caches without ``enc_out``
+        skip the cross-attention blocks, as the reference's do."""
         x = self._embed(tokens[:, None])
+        enc_out = getattr(caches, "enc_out", None)
         for layer, spec, cache in zip(self.layers, self.specs, caches):
             h = L.rms_norm(x, layer.ln1)
-            h, _ = A.decode_attention(layer.mixer, h, cache, int(cur_pos),
-                                      self.cfg, spec)
-            x = self._mlp(layer, x + h)
+            if spec.mixer == "mamba":
+                h, _ = M.mamba_decode_step(layer.mixer, h, cache, self.cfg)
+            else:
+                h, _ = A.decode_attention(layer.mixer, h, cache,
+                                          int(cur_pos), self.cfg, spec)
+            x = self._cross(layer, x + h, enc_out)
+            x = self._mlp(layer, spec, x)
         return self._head(x)[:, 0], caches
 
 

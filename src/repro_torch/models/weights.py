@@ -2,9 +2,13 @@
 
 The reference's parameter pytree (``repro.models.transformer.LM.init``)
 is ``{"embed", ["unembed"], "final_norm", "prefix": [layer, ...],
-"blocks": {"l0": layer, ...}}``, where each ``blocks`` leaf is stacked on
-axis 0 over the ``num_blocks`` repeats of the block pattern (``jax.vmap``)
-and a layer is ``{"ln1", "mixer": {...}, "ln2", "mlp": {...}}``.  The
+"blocks": {"l0": layer, ...}, ["encoder": {"layers": [layer, ...],
+"final_norm"}]}``, where each ``blocks`` leaf is stacked on axis 0 over
+the ``num_blocks`` repeats of the block pattern (``jax.vmap``) and a layer
+is ``{"ln1", "mixer": {...}, "ln2", "mlp": {...}}``, with ``"ln_x",
+"xattn": {...}`` on the block layers of an encoder-decoder arch.  A mixer
+is an attention's (GQA or MLA) or a Mamba2's; an MLP is dense or MoE
+(experts stacked (E, D, F), the shared experts as ``"shared"``).  The
 port's ``LM`` keeps the same names per layer, in layer order, and the
 reference's (in, out) weight layout, so no weight is transposed.
 
@@ -24,24 +28,50 @@ import torch
 from ..configs.base import ArchConfig, LayerSpec
 from . import attention as A
 from . import layers as L
+from . import mamba2 as M
+from . import moe as MoE
 
 
 def has_mlp(cfg: ArchConfig, spec: LayerSpec) -> bool:
     return spec.mlp == "moe" or cfg.d_ff > 0
 
 
-def layer_inits(cfg: ArchConfig, spec: LayerSpec) -> dict:
-    """The ``layers.Init`` tree of one dense attention layer."""
-    p = {"ln1": L.init_rms(cfg.d_model), "mixer": A.init_attn(cfg)}
+def layer_inits(cfg: ArchConfig, spec: LayerSpec, *,
+                cross: bool = False) -> dict:
+    """The ``layers.Init`` tree of one layer: its mixer, its MLP (if any)
+    and, with ``cross``, its cross-attention block."""
+    d = cfg.d_model
+    p = {"ln1": L.init_rms(d),
+         "mixer": (M.init_mamba(cfg) if spec.mixer == "mamba"
+                   else A.init_attn(cfg))}
     if has_mlp(cfg, spec):
-        p["ln2"] = L.init_rms(cfg.d_model)
-        p["mlp"] = L.init_dense_mlp(cfg.d_model, cfg.d_ff)
+        p["ln2"] = L.init_rms(d)
+        p["mlp"] = (MoE.init_moe(cfg) if spec.mlp == "moe"
+                    else L.init_dense_mlp(d, cfg.d_ff))
+    if cross:
+        p["ln_x"] = L.init_rms(d)
+        p["xattn"] = A.init_attn(cfg, cross=True)
     return p
+
+
+def has_cross(cfg: ArchConfig, li: int) -> bool:
+    """Whether decoder layer ``li`` has a cross-attention block: the block
+    layers of an encoder-decoder arch do, its prefix layers do not."""
+    return cfg.is_encdec and li >= len(cfg.prefix_layers)
 
 
 def top_inits(cfg: ArchConfig) -> dict:
     """The ``layers.Init`` tree of the parameters outside the layers."""
     return {**L.init_embed(cfg), "final_norm": L.init_rms(cfg.d_model)}
+
+
+ENCODER_SPEC = LayerSpec()
+
+
+def encoder_inits(cfg: ArchConfig) -> dict:
+    """The ``layers.Init`` tree of one encoder layer (global attention and
+    a dense MLP, no cross block)."""
+    return layer_inits(cfg, ENCODER_SPEC)
 
 
 def layer_specs(cfg: ArchConfig) -> Tuple[LayerSpec, ...]:
@@ -72,15 +102,18 @@ def _get(tree: dict, name: str):
 def seeded_numpy_params(cfg: ArchConfig, seed: int = 0) -> dict:
     """The reference's parameter tree as float32 numpy arrays drawn from
     ``np.random.default_rng(seed)``: ``standard_normal * scale`` with the
-    reference's scales, norms at one.  Leaves are drawn in tree order
-    (top level, prefix layers, then each block-pattern entry with its
-    ``num_blocks`` repeats stacked on axis 0)."""
+    reference's scales, norms at one, zeros drawn from nothing.  Leaves
+    are drawn in tree order (top level, prefix layers, each
+    block-pattern entry with its ``num_blocks`` repeats stacked on axis 0,
+    then the encoder's layers and its final norm)."""
     rng = np.random.default_rng(seed)
 
     def draw(init: L.Init, lead: Tuple[int, ...] = ()) -> np.ndarray:
         shape = lead + tuple(init.shape)
         if init.scale is None:
             return np.ones(shape, np.float32)
+        if init.scale == 0:
+            return np.zeros(shape, np.float32)
         a = rng.standard_normal(shape, dtype=np.float32)
         a *= np.float32(init.scale)
         return a
@@ -90,8 +123,14 @@ def seeded_numpy_params(cfg: ArchConfig, seed: int = 0) -> dict:
                       for s in cfg.prefix_layers]
     nb = cfg.num_blocks
     tree["blocks"] = {
-        f"l{i}": _map(layer_inits(cfg, s), lambda x: draw(x, (nb,)))
+        f"l{i}": _map(layer_inits(cfg, s, cross=cfg.is_encdec),
+                      lambda x: draw(x, (nb,)))
         for i, s in enumerate(cfg.block_pattern)}
+    if cfg.is_encdec:
+        tree["encoder"] = {
+            "layers": [_map(encoder_inits(cfg), draw)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": draw(L.init_rms(cfg.d_model))}
     return tree
 
 
@@ -127,9 +166,16 @@ def params_from_numpy(model, tree: dict) -> None:
     for li, layer in enumerate(model.layers):
         where, i = layer_source(cfg, li)
         src = tree["prefix"][i] if where == "prefix" else tree["blocks"][where]
-        for name, _ in leaves(layer_inits(cfg, model.specs[li])):
+        for name, _ in leaves(layer_inits(cfg, model.specs[li],
+                                          cross=has_cross(cfg, li))):
             arr = _get(src, name)
             _load(layer.param(name), arr if where == "prefix" else arr[i])
+    if cfg.is_encdec:
+        enc = tree["encoder"]
+        for layer, src in zip(model.encoder_layers, enc["layers"]):
+            for name, _ in leaves(encoder_inits(cfg)):
+                _load(layer.param(name), _get(src, name))
+        _load(model.encoder_norm, enc["final_norm"])
 
 
 def params_to_numpy(model) -> dict:
@@ -150,11 +196,17 @@ def params_to_numpy(model) -> dict:
     pat = len(cfg.block_pattern)
     tree["blocks"] = {
         f"l{i}": _map_named(
-            layer_inits(cfg, spec),
+            layer_inits(cfg, spec, cross=cfg.is_encdec),
             lambda n, i=i: np.stack([
                 host(model.layers[n_pre + blk * pat + i].param(n))
                 for blk in range(cfg.num_blocks)]))
         for i, spec in enumerate(cfg.block_pattern)}
+    if cfg.is_encdec:
+        tree["encoder"] = {
+            "layers": [_map_named(encoder_inits(cfg),
+                                  lambda n, layer=layer: host(layer.param(n)))
+                       for layer in model.encoder_layers],
+            "final_norm": host(model.encoder_norm)}
     return tree
 
 

@@ -16,8 +16,12 @@ device: the CUDA card unless the model was built with ``device="cpu"``.
 With the cache-content inspector on (``obs.enable(inspect=True)``) each
 consulted page key is noted with its request's tenant, as in the
 reference, so ``MorpheusPagePool.content_snapshot`` can attribute
-resident pages.  Not ported yet: encoder-decoder models (refused by
-``models.LM``).
+resident pages.  An encoder-decoder model's prefill reads zero audio
+frames (B, 8, d_model) from the stubbed frontend, as the reference's
+``run`` gives it, and keeps the encoder's output in the caches for decode.
+(The reference also encodes those frames once before the prefill and
+stores the result in the caches, where the prefill's own encoding of the
+same frames replaces it; the port encodes once.)
 """
 from __future__ import annotations
 
@@ -127,7 +131,12 @@ class Engine:
         tokens = torch.tensor([r.prompt for r in requests],
                               dtype=torch.int32, device=model.device)
         caches = model.init_caches(b, self.max_len)
-        logits, caches = model.prefill({"tokens": tokens}, caches)
+        batch = {"tokens": tokens}
+        if model.cfg.is_encdec:
+            batch["frame_embeds"] = torch.zeros(
+                (b, 8, model.cfg.d_model), dtype=torch.float32,
+                device=model.device)
+        logits, caches = model.prefill(batch, caches)
         steps = 0
         cur = S.greedy(logits)
         max_new = max(r.max_new_tokens for r in requests)

@@ -748,6 +748,13 @@ def test_decode_attention_kernel_matches_plain(cuda_device, dtype, b, h,
     (1, 1025, 1025, 16, 8, 128, 128, True, 256, 0.0),
     (1, 12, 6, 8, 1, 128, 128, True, 3, 0.0),     # rows with no key
     (2, 300, 65, 4, 4, 40, 24, False, 17, 20.0),
+    # deepseek-v2-lite's MLA prefill (16 heads, hd 192, hdv 128), a
+    # decode step's cross-attention (S = 1, non-causal, T = 16), and
+    # gemma2's soft-capped local and global layers (G 2, hd 256)
+    (2, 130, 130, 16, 16, 192, 128, True, 0, 0.0),
+    (2, 1, 16, 16, 16, 64, 64, False, 0, 0.0),
+    (1, 96, 96, 16, 8, 256, 256, True, 64, 50.0),
+    (1, 96, 96, 16, 8, 256, 256, True, 0, 50.0),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, b, s, t,
                                               h, kv, hd, hdv, causal, window,
@@ -765,6 +772,74 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, b, s, t,
     atol, rtol = ATT_TOL[dtype][1]
     torch.testing.assert_close(got, att.flash_attention_plain(q, k, v, **kw),
                                rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 7])
+def test_decode_attention_soft_cap_matches_plain(cuda_device, dtype, hd, g):
+    """The decode kernel's soft cap (after the scale, before the mask) on
+    both designs: bf16 with hd a multiple of 64 runs on the tensor cores,
+    the rest on the CUDA cores.  Logits are made large so the cap bites."""
+    b, kvh, t = 3, 2, 529
+    rng = np.random.default_rng(hd * g)
+    q = 4 * _randn(rng, (b, kvh * g, hd), dtype, cuda_device)
+    k = 4 * _randn(rng, (b, t, kvh, hd), dtype, cuda_device)
+    v = _randn(rng, (b, t, kvh, hd), dtype, cuda_device)
+    valid = torch.from_numpy(rng.random((b, t)) < 0.8).to(cuda_device)
+    valid[0] = False                          # a row with no valid key
+    atol, rtol = ATT_TOL[dtype][0]
+    for cap in (50.0, 5.0):
+        att.reset_launches()
+        got = att.decode_attention(q, k, v, valid, softcap=cap)
+        torch.cuda.synchronize()
+        assert att.launches["decode_attention"] == 1
+        want = att.decode_attention_plain(q, k, v, valid, softcap=cap)
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    assert float((got - att.decode_attention_plain(q, k, v, valid)
+                  ).abs().max()) > 10 * atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "deepseek-moe-16b",
+                                  "mamba2-780m", "jamba-1.5-large-398b",
+                                  "seamless-m4t-medium", "gemma2-9b",
+                                  "qwen2-vl-7b"])
+def test_every_family_on_the_card_matches_the_cpu(cuda_device, arch):
+    """Each new family's reduced config through the kernels on the card
+    against the plain versions on the CPU: forward, prefill and 4
+    teacher-forced decode steps, logits within 1e-4, the same greedy
+    tokens; the card's attention calls launch kernels."""
+    cfg = configs.get(arch).reduced()
+    tree = seeded_numpy_params(cfg, 0)
+    models = [LM(cfg, device=d) for d in (cuda_device, "cpu")]
+    for m in models:
+        params_from_numpy(m, tree)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32))}
+    if cfg.is_encdec:
+        batch["frame_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, 5, cfg.d_model), np.float32))
+    teacher = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 2)
+                                            ).astype(np.int32))
+    att.reset_launches()
+    outs = []
+    for m in models:
+        b = {k: v.to(m.device) for k, v in batch.items()}
+        rows = [m(b).cpu()[:, -1]]
+        logits, caches = m.prefill(b, m.init_caches(2, 16))
+        rows.append(logits.cpu())
+        for t, tok in enumerate(teacher):
+            logits, caches = m.decode_step(tok.to(m.device), caches, 12 + t)
+            rows.append(logits.cpu())
+        outs.append(torch.stack(rows))
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+    assert torch.equal(outs[0].argmax(-1), outs[1].argmax(-1))
+    has_attn = any(s.mixer == "attn" for s in models[0].specs)
+    assert any(att.launches.values()) == has_attn        # the card's
+    assert any(att.plain_runs.values()) == has_attn      # the CPU twin's
 
 
 @pytest.mark.gpu
