@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the Morpheus simulator, its serving
 page pool, its serving engine over every model family, its online
-runtime, its fleet runtime, admission control and autotuner on one
-NVIDIA card.
+runtime, its fleet runtime, admission control and autotuner, its
+training stack and its two launchers on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -165,9 +165,37 @@ Phases (one line each; any failure exits non-zero and prints no result):
      rows, qwen2-vl's M-RoPE forward rows and each MoE call's routing
      (expert sets where the top-k margin exceeds 1e-4, drops per expert)
      held to the reference's;
-  17. the ported kernels with their launches (phase 4 for the engine
+  17. the flash backward (``csrc/attention_bwd.cu``: a dQ kernel that
+     first recomputes each row's log-sum-exp, and a dK/dV kernel) against
+     its plain version at the training shape (B 8, S = T 128, H 32/8, hd
+     128, f32), the serving shape (B 8, S = T 1024) in f32 and bf16, MLA's
+     head dims (B 4, S = T 512, H 16, hd 192 / hdv 128), gemma2-9b's
+     window 256 and soft cap 50 (B 2, S = T 1024, H 16/8, hd 256) and a
+     non-causal cross shape (S 256, T 384), each with the forward's time,
+     device ms by CUDA-graph replay, its bound (2.5 times the forward's
+     FLOPs) and the time of ``torch.autograd.grad`` through SDPA;
+  18. main path of training: (a) the three cells of
+     ``tests/data/torch_golden_train.json`` (qwen3-4b, gemma2-9b and
+     deepseek-v2-lite-16b at full width, 2 decoder layers, the
+     reference's batch): step-0 loss within 1e-4, ``grad_norm`` and each
+     gradient leaf's norm and kept entries within 1e-3, the losses after
+     AdamW steps 1 and 2 within 1e-3; (b) qwen3-4b at full width, 8
+     layers (of 36, for memory), f32, through ``train.loop.train`` (batch 8
+     x 128, the launcher's defaults) with the attention counts set to 0
+     before and read after: 24 steps checkpointed at their end, resumed
+     to 30 (a falling loss, ``resumed_from`` 24, no restart, two flash
+     forwards and one backward a layer and step, no plain version), then
+     4-step runs twice each, plain, with the int8 compressor and with 2
+     microbatches, equal within 1e-5; ms a step, tokens/s, peak memory;
+  19. the launchers: ``launch.serve.main`` on the card in six modes
+     (static, ``--split 2``, ``--split auto``, ``--workload`` with
+     ``--arrival``, ``--slo-ms``, ``--tenant-slo`` with ``--admission``),
+     every printed line but the wall-clock fields equal to the same run
+     on the CPU; ``launch.train.main`` of h2o-danube-1.8b for 12 steps;
+  20. the ported kernels with their launches (phase 4 for the engine
      scans, phases 14 and 15 for their stateful twins, phase 7 for the
-     pool, phases 12 and 16 for attention), errors, times and bounds.
+     pool, phases 12, 16 and 18 for attention, phase 18 for the flash
+     backward), errors, times and bounds.
 
 The last lines are the card (``nvidia-smi``), the ``{"kernels": ...}``
 record, and ``{"ok": true, "device": ...}``.  Needs one CUDA card, the
@@ -196,7 +224,8 @@ GOLDEN_POOL = ROOT / "tests" / "data" / "torch_golden_pool.json"
 GOLDEN_LM = ROOT / "tests" / "data" / "torch_golden_lm.json"
 GOLDEN_ONLINE = ROOT / "tests" / "data" / "torch_golden_online.json"
 GOLDEN_FLEET = ROOT / "tests" / "data" / "torch_golden_fleet.json"
-SOURCES = ("engine_scan", "pool", "attention")
+GOLDEN_TRAIN = ROOT / "tests" / "data" / "torch_golden_train.json"
+SOURCES = ("engine_scan", "pool", "attention", "attention_bwd")
 
 # The device ms of the engine-scan kernels at phase 2's timed shape before
 # their Hopper redesign, quoted from PERF.md (kernel table: NVIDIA H100
@@ -245,6 +274,14 @@ class Env:
                                          pool)
         from repro_torch.serving import engine as serving_engine
         from repro_torch.serving import paged_kv
+        from repro_torch import data, optim, pytree
+        from repro_torch.launch import serve as launch_serve
+        from repro_torch.launch import train as launch_train
+        from repro_torch.train import loop as train_loop
+        from repro_torch.train import train_step
+        self.data, self.optim, self.pytree = data, optim, pytree
+        self.train_loop, self.train_step = train_loop, train_step
+        self.launch_serve, self.launch_train = launch_serve, launch_train
         self.cs, self.ctl, self.engine = cache_sim, controller, engine
         self.policy, self.build, self.scan = policy, _build, engine_scan
         self.ops, self.pool, self.kv = ops, pool, paged_kv
@@ -1791,7 +1828,8 @@ def phase_serving(env: Env, dev) -> dict:
     steps = sum(r["steps"] for r in results)
     n_layers = len(model.layers)
     want = {"flash_attention": n_layers * len(rounds),
-            "decode_attention": n_layers * steps}
+            "decode_attention": n_layers * steps,
+            "flash_attention_backward": 0}
     if counts != want:
         fail(f"serving: attention launches {counts}, expected {want}")
     if any(plain.values()) or any(pool_plain.values()):
@@ -2898,7 +2936,8 @@ def want_launches(model, prefills: int, steps: int) -> dict:
     self-attention layer a step."""
     attn, mla, cross, enc = attention_layers(model)
     return {"flash_attention": prefills * (attn + enc + cross)
-            + steps * cross, "decode_attention": steps * (attn - mla)}
+            + steps * cross, "decode_attention": steps * (attn - mla),
+            "flash_attention_backward": 0}
 
 
 class RoutingTap:
@@ -3155,6 +3194,8 @@ def phase_substrates(env: Env, dev) -> dict:
         counts, plain = dict(att.launches), dict(att.plain_runs)
     if any(plain.values()):
         fail(f"substrates: plain versions ran {plain}")
+    if counts.pop("flash_attention_backward"):
+        fail("substrates: serving launched the flash backward")
     if any(v <= 0 for v in counts.values()):
         fail(f"substrates: an attention kernel was not launched {counts}")
     serve_s = time.perf_counter() - t0
@@ -3208,6 +3249,467 @@ def phase_substrates(env: Env, dev) -> dict:
             "softcap": softcap, "path": path, "wall_s": wall}
 
 
+# ------------------------------------------------------ flash backward
+
+# (atol, rtol) of the flash backward by input dtype: f32 the flash
+# forward's bound; bf16 from the card's measured error (7.8e-3 of |plain|
+# at the serving shape) with twice the room, under the reference's 3e-2
+BWD_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-3, 1.6e-2)}
+BWD_TRAINING = "training f32 B8 S=T128 H32/8"
+BWD_CASES = (  # label, (b, s, t, h, kv, hd, hdv), causal, window, cap, dtype
+    (BWD_TRAINING, (8, 128, 128, 32, 8, 128, 128), True, 0, 0.0,
+     torch.float32),
+    ("serving f32 B8 S=T1024 H32/8", (8, 1024, 1024, 32, 8, 128, 128), True,
+     0, 0.0, torch.float32),
+    ("serving bf16 B8 S=T1024 H32/8", (8, 1024, 1024, 32, 8, 128, 128),
+     True, 0, 0.0, torch.bfloat16),
+    ("MLA f32 B4 S=T512 H16 hd192/128", (4, 512, 512, 16, 16, 192, 128),
+     True, 0, 0.0, torch.float32),
+    ("gemma2 f32 B2 S=T1024 H16/8 hd256 window256 cap50",
+     (2, 1024, 1024, 16, 8, 256, 256), True, 256, 50.0, torch.float32),
+    ("cross f32 B4 S256 T384 H16/16 hd64", (4, 256, 384, 16, 16, 64, 64),
+     False, 0, 0.0, torch.float32))
+
+
+def bwd_bound(q, k, v, kw) -> tuple:
+    """Least time of one backward: q, k, v, the output and its gradient
+    read once and dq, dk, dv written once, against 2.5 times the forward's
+    FLOPs (``attention_bound``'s count over the pairs the masks let
+    through) at the card's peak for the input type."""
+    b, s, h, hd = q.shape
+    t, hdv = k.shape[1], v.shape[3]
+    pairs = b * h * attended_pairs(s, t, kw["causal"], kw["window"])
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel()
+                   + b * s * h * hdv) * q.element_size()
+    flops = 2.5 * 2 * pairs * (hd + hdv)
+    peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_OPS_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_backward(q, k, v, do, kw):
+    """One ``torch.autograd.grad`` through
+    ``scaled_dot_product_attention`` on the same inputs (heads moved to dim
+    1 beforehand, the forward run once), timed as the library's time and
+    never called by the port; None for a soft cap, which SDPA does not
+    take."""
+    if kw["softcap"]:
+        return None
+    args = [a.transpose(1, 2).contiguous().requires_grad_(True)
+            for a in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    s, t = q.shape[1], k.shape[1]
+    mask = None
+    if kw["window"] or (kw["causal"] and s != t):
+        i = torch.arange(s, device=q.device)[:, None]
+        j = torch.arange(t, device=q.device)[None, :]
+        mask = (j <= i) if kw["causal"] else torch.ones_like(i - j,
+                                                             dtype=bool)
+        if kw["window"]:
+            mask = mask & (i - j < kw["window"])
+    out = sdpa(*args, attn_mask=mask,
+               is_causal=kw["causal"] and mask is None, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, args, dot, retain_graph=True)
+
+
+def phase_flash_backward(env: Env, dev) -> dict:
+    """Phase 17: the flash backward kernels against their plain version on
+    the card at the training shape, the serving shape (f32 and bf16),
+    MLA's head dims, gemma2's window and soft cap and a cross-attention
+    shape; device ms by CUDA-graph replay, the bound, and the backward of
+    SDPA through autograd as the library's time."""
+    att = env.att
+    rng = np.random.default_rng(0)
+    out = {"err": 0.0, "cases": {}}
+    for label, (b, s, t, h, kv, hd, hdv), causal, window, cap, dt in \
+            BWD_CASES:
+        q = att_randn(rng, (b, s, h, hd), dt, dev)
+        k = att_randn(rng, (b, t, kv, hd), dt, dev)
+        v = att_randn(rng, (b, t, kv, hdv), dt, dev)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o = att.flash_attention(q, k, v, **kw)
+        do = att_randn(rng, tuple(o.shape), dt, dev)
+        got = att.flash_attention_backward(q, k, v, o, do, **kw)
+        want = att.flash_attention_backward_plain(q, k, v, o, do, **kw)
+        err = max(att_close(g, w, BWD_TOL[dt], f"flash backward {label} {n}")
+                  for g, w, n in zip(got, want, ("dq", "dk", "dv")))
+        for g, x in zip(got, (q, k, v)):
+            if g.dtype != dt or g.shape != x.shape:
+                fail(f"flash backward {label}: a gradient of "
+                     f"{tuple(g.shape)} {g.dtype}")
+        del got, want
+        library = sdpa_backward(q, k, v, do, kw)
+        t_ = times(lambda: att.flash_attention_backward(q, k, v, o, do, **kw),
+                   lambda: att.flash_attention_backward_plain(q, k, v, o, do,
+                                                              **kw),
+                   5, 2)
+        t_["library_ms"] = timed_cuda(library, 5) if library else None
+        out["cases"][label] = dict(
+            shape=[[b, s, h, hd], [b, t, kv, hd], [b, t, kv, hdv]],
+            dtype=str(dt).replace("torch.", ""), kwargs=kw, err=err, **t_,
+            forward_ms=device_ms(lambda: att.flash_attention(q, k, v, **kw),
+                                 5),
+            bound=bwd_bound(q, k, v, kw))
+        out["err"] = max(out["err"], err)
+        del q, k, v, o, do, library
+        torch.cuda.empty_cache()
+    log("phase 17: flash backward kernels == plain within " + "; ".join(
+        f"{str(d)[6:]} (atol, rtol) {tol}" for d, tol in BWD_TOL.items())
+        + ": " + "; ".join(
+            f"{k}: max abs err {c['err']:.3g}, {c['ms']:.4f} ms on the card "
+            f"({c['call_ms']:.4f} ms a call; the forward {c['forward_ms']:.4f}"
+            f" ms), plain {c['plain_ms']:.4f} ms, SDPA's backward "
+            + ("none (no soft cap)" if c["library_ms"] is None
+               else f"{c['library_ms']:.4f} ms")
+            + f", bound {c['bound'][0]:.4f} ms ({c['bound'][1]})"
+            for k, c in out["cases"].items()))
+    return out
+
+
+# ------------------------------------------------------------- training
+
+TRAIN_ARCH = "qwen3-4b"
+TRAIN_LAYERS = 8                 # of 36: 1.2 B parameters, ~24 GB of state
+# one checkpoint of the 8-layer state (parameters and both AdamW moments
+# in f32) is 14.4 GB, so the phase keeps its disk writes to two: the 24
+# steps checkpoint once, at their end, and the resumed run at step 30
+TRAIN_STEPS, TRAIN_RESUME, TRAIN_CKPT_EVERY = 24, 30, 24
+TRAIN_BATCH, TRAIN_SEQ = 8, 128  # the launcher's defaults
+TRAIN_REPEAT_STEPS = 4
+TRAIN_CKPT = ROOT / "build" / "chip_smoke_train"
+GOLDEN_TRAIN_THREADS = 3
+
+
+def grad_summary(env: Env, state, grads, want: dict) -> dict:
+    """Each leaf's gradient norm and its entries at the golden's flat
+    indices (the reference's stacked order), on the card."""
+    out = {}
+    tree = env.pytree.from_parts(state.params, grads)
+    for path, leaf in env.pytree.flatten(tree):
+        flat = torch.cat([p.reshape(-1) for p in leaf.parts]).float()
+        idx = torch.tensor(want["leaves"][path]["idx"], device=flat.device)
+        out[path] = {"norm": float(torch.linalg.vector_norm(flat.double())),
+                     "idx": want["leaves"][path]["idx"],
+                     "vals": flat[idx].tolist()}
+    return out
+
+
+def golden_train_cell(env: Env, arch: str, want: dict, common: dict, tree,
+                      dev) -> dict:
+    """One cell of ``tests/data/torch_golden_train.json`` on the card: the
+    step-0 loss and gradients through the kernels, then three AdamW steps
+    on the same batch."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(env.configs.get(arch),
+                              name=f"{arch}-{common['num_layers']}l",
+                              num_layers=common["num_layers"])
+    model = env.models.LM(cfg, device=dev)
+    opt = env.optim.AdamW(learning_rate=common["learning_rate"])
+    state = env.train_step.init_state(model, opt, tree)
+    # the reference's batch, kept in the file (the pipeline's Zipf draws
+    # differ between numpy versions)
+    batch = {k: torch.tensor(v, dtype=torch.int64, device=dev)
+             for k, v in want["batch"].items()}
+    flat = env.pytree.parts(state.params)
+    loss = model.loss(batch)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, flat)]
+    gnorm = float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                 for g in grads)))
+    got = {"grad_norm": gnorm, "leaves": grad_summary(env, state, grads,
+                                                      want)}
+    del grads, loss
+    step = env.train_step.make_train_step(model, opt)
+    got["loss"] = []
+    for _ in range(common["steps"]):
+        state, met = step(state, batch)
+        got["loss"].append(float(met["loss"]))
+    err = check_train_cell(got, want, arch)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return {"params": sum(p.numel() for p in flat), "err": err,
+            "loss": got["loss"], "want_loss": want["loss"],
+            "s": time.perf_counter() - t0}
+
+
+def check_train_cell(got: dict, want: dict, ctx: str) -> dict:
+    """The card's numbers against the reference's: the step-0 loss within
+    1e-4 relative, the losses after AdamW steps 1 and 2 within 1e-3,
+    ``grad_norm`` and each leaf's norm within 1e-3 relative and each kept
+    entry within 1e-3 of its leaf's norm."""
+    err = {"loss": abs(got["loss"][0] - want["loss"][0])
+           / abs(want["loss"][0]),
+           "steps": max(abs(a - b) / abs(b) for a, b in
+                        zip(got["loss"][1:], want["loss"][1:])),
+           "grad_norm": abs(got["grad_norm"] - want["grad_norm"])
+           / want["grad_norm"], "leaf_norm": 0.0, "entries": 0.0}
+    if err["loss"] > 1e-4 or err["steps"] > 1e-3 or err["grad_norm"] > 1e-3:
+        fail(f"golden training {ctx}: losses {got['loss']} (reference "
+             f"{want['loss']}), grad_norm {got['grad_norm']} (reference "
+             f"{want['grad_norm']})")
+    if sorted(got["leaves"]) != sorted(want["leaves"]):
+        fail(f"golden training {ctx}: leaf paths differ")
+    for path, w in want["leaves"].items():
+        g = got["leaves"][path]
+        scale = max(w["norm"], 1e-30)
+        e = abs(g["norm"] - w["norm"]) / scale
+        d = float(np.max(np.abs(np.subtract(g["vals"], w["vals"])))) / scale
+        if not (np.isfinite(g["vals"]).all() and e <= 1e-3 and d <= 1e-3):
+            fail(f"golden training {ctx} {path}: norm {g['norm']} "
+                 f"(reference {w['norm']}), entries off by {d:.3g} of the "
+                 f"norm")
+        err["leaf_norm"] = max(err["leaf_norm"], e)
+        err["entries"] = max(err["entries"], d)
+    return err
+
+
+class StepClock:
+    """A ``print_fn`` for ``train.loop.train`` with ``log_every=1``: the
+    host time of each step's end (the loop reads each loss back, so the
+    card is done with the step)."""
+
+    def __init__(self):
+        self.marks = [time.perf_counter()]
+
+    def __call__(self, line: str) -> None:
+        self.marks.append(time.perf_counter())
+
+    def step_ms(self) -> list:
+        return [1e3 * (b - a) for a, b in zip(self.marks, self.marks[1:])]
+
+
+def train_run(env: Env, cfg, dev, steps: int, **kw) -> tuple:
+    """(losses, supervisor report, ms of each step, ms after the last
+    step: the supervisor's final checkpoint) of one ``train`` call."""
+    clock = StepClock()
+    state, losses, rep = env.train_loop.train(
+        cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev,
+        log_every=1, print_fn=clock, **kw)
+    tail_ms = 1e3 * (time.perf_counter() - clock.marks[-1])
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"training: a loss is not finite {losses}")
+    del state
+    return losses, rep, clock.step_ms(), tail_ms
+
+
+def phase_training(env: Env, dev) -> dict:
+    """Phase 18: training on the card.  (a) the golden cells of
+    ``tests/data/torch_golden_train.json``, whose trees host threads draw
+    meanwhile; (b) qwen3-4b at full width, 8 layers, through
+    ``train.loop.train`` with the attention counts set to 0 before and read
+    after: 24 steps with checkpoints every 8, resumed to 30; then runs of
+    4 steps twice each, plain, with the int8 compressor and with 2
+    microbatches."""
+    att = env.att
+    golden = json.loads(GOLDEN_TRAIN.read_text())
+    common = golden["common"]
+    t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(GOLDEN_TRAIN_THREADS)
+    trees = {arch: pool.submit(
+        env.models.seeded_numpy_params, dataclasses.replace(
+            env.configs.get(arch), num_layers=common["num_layers"]),
+        common["seed"]) for arch in golden["cells"]}
+
+    cfg = dataclasses.replace(env.configs.get(TRAIN_ARCH),
+                              name=f"{TRAIN_ARCH}-{TRAIN_LAYERS}l",
+                              num_layers=TRAIN_LAYERS)
+    import shutil
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    free_gb = shutil.disk_usage(ROOT).free / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    att.reset_launches()
+    losses, rep, ms, save_ms = train_run(env, cfg, dev, TRAIN_STEPS,
+                                         ckpt_dir=str(TRAIN_CKPT),
+                                         ckpt_every=TRAIN_CKPT_EVERY)
+    losses2, rep2, ms2, _ = train_run(env, cfg, dev, TRAIN_RESUME,
+                                      ckpt_dir=str(TRAIN_CKPT),
+                                      ckpt_every=TRAIN_CKPT_EVERY)
+    torch.cuda.synchronize()
+    counts, plain = dict(att.launches), dict(att.plain_runs)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    ckpt_gb = sum(f.stat().st_size for f in TRAIN_CKPT.rglob("*.npy")) / 1e9
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    steps = TRAIN_RESUME
+    want = {"flash_attention": 2 * TRAIN_LAYERS * steps,   # with remat
+            "flash_attention_backward": TRAIN_LAYERS * steps,
+            "decode_attention": 0}
+    if counts != want or any(plain.values()):
+        fail(f"training: attention launches {counts} (expected {want}), "
+             f"plain runs {plain}")
+    if not (rep.steps_run == TRAIN_STEPS and rep.restarts == 0
+            and rep2.resumed_from == TRAIN_STEPS and rep2.restarts == 0
+            and rep2.steps_run == TRAIN_RESUME - TRAIN_STEPS):
+        fail(f"training: supervisor reports {rep} then {rep2}")
+    head, tail = np.mean(losses[:4]), np.mean(losses[-4:])
+    if not tail < head:
+        fail(f"training: the loss did not fall ({losses})")
+    step_ms = float(np.median(ms[1:]))
+    params = cfg.param_count()[0]
+
+    repeats = {}
+    for name, kw in (("plain", {}), ("int8", {"grad_compression": True}),
+                     ("microbatches2", {"microbatches": 2})):
+        runs = [train_run(env, cfg, dev, TRAIN_REPEAT_STEPS, seed=1,
+                          **kw)[0] for _ in range(2)]
+        d = float(np.max(np.abs(np.subtract(runs[0], runs[1]))
+                         / np.abs(runs[1])))
+        if d > 1e-5:
+            fail(f"training {name}: two runs differ by {d:.3g} ({runs})")
+        repeats[name] = {"losses": runs[0], "rel_diff": d}
+        torch.cuda.empty_cache()
+    train_s = time.perf_counter() - t0
+
+    cells = {}
+    for arch, cell in golden["cells"].items():
+        tree = trees.pop(arch).result()
+        cells[arch] = golden_train_cell(env, arch, cell, common, tree, dev)
+        del tree
+    pool.shutdown()
+    log("phase 18: golden training cells (full width, 2 decoder layers) on "
+        "the card match the reference's: " + "; ".join(
+            f"{a}: {c['params']} parameters, losses {c['loss']} (reference "
+            f"{c['want_loss']}), rel err loss {c['err']['loss']:.3g}, steps "
+            f"{c['err']['steps']:.3g}, grad_norm {c['err']['grad_norm']:.3g}"
+            f", leaf norms {c['err']['leaf_norm']:.3g}, entries "
+            f"{c['err']['entries']:.3g}, {c['s']:.1f} s"
+            for a, c in cells.items()))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"phase 18: {cfg.name} ({params} parameters, f32) trained by "
+        f"train.loop.train, batch {TRAIN_BATCH} x {TRAIN_SEQ}: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} steps, "
+        f"resumed from step {rep2.resumed_from} to {TRAIN_RESUME} (loss "
+        f"{losses2[-1]:.4f}), restarts 0; {step_ms:.1f} ms a step (median "
+        f"of steps 2-{TRAIN_STEPS}, the host clock between the loss "
+        f"read-backs), {tokens / step_ms * 1e3:.0f} tokens/s; the first "
+        f"step {ms[0]:.0f} ms with the model's set-up, the checkpoint at "
+        f"step {TRAIN_STEPS} {save_ms:.0f} ms, the resumed run's restore "
+        f"and first step {ms2[0]:.0f} ms; peak memory {peak_gb:.2f} GB, "
+        f"{ckpt_gb:.1f} GB of checkpoints ({free_gb:.0f} GB of disk free "
+        f"before); attention launches "
+        f"{json.dumps(counts)}, plain runs 0; repeated {TRAIN_REPEAT_STEPS}"
+        "-step runs equal within 1e-5: " + ", ".join(
+            f"{k} (max rel diff {v['rel_diff']:.3g})"
+            for k, v in repeats.items())
+        + f"; phase {time.perf_counter() - t0:.1f} s ({train_s:.1f} s to "
+        "the end of training)")
+    return {"launches": counts, "cells": cells, "step_ms": step_ms,
+            "first_step_ms": ms[0], "save_ms": save_ms,
+            "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": peak_gb,
+            "losses": losses, "params": params, "repeats": repeats}
+
+
+# ----------------------------------------------------------------- CLIs
+
+SERVE_MODES = {
+    "static": [],
+    "split2": ["--split", "2"],
+    "auto": ["--split", "auto"],
+    "arrival": ["--split", "auto", "--workload", "tenantA,tenantB",
+                "--arrival", "onoff:64,0.5,0.5"],
+    "slo": ["--split", "auto", "--workload", "tenantA,tenantB",
+            "--slo-ms", "2.5"],
+    "tenant_slo": ["--split", "auto", "--tenant-slo",
+                   "tenantA:2.5:1:1,tenantB:4:1:0", "--admission"]}
+WALL_FIELDS = r" in \d+\.\d+s \(\d+\.\d+ tok/s\)"
+
+
+def cli_lines(main, argv) -> list:
+    """A launcher's printed lines, less each round's wall-clock fields."""
+    import contextlib
+    import io
+    import re
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return [re.sub(WALL_FIELDS, "", ln) for ln in buf.getvalue().splitlines()]
+
+
+def phase_clis(env: Env, dev) -> dict:
+    """Phase 19: ``launch.serve.main`` in six modes on the card, each line
+    (tokens, pages, governor decisions, SLO and admission lines, pool
+    stats) equal to the same run on the CPU in this process, the card's
+    runs through the kernels; ``launch.train.main`` of h2o-danube-1.8b for
+    12 steps on the card."""
+    att = env.att
+    t0 = time.perf_counter()
+    out = {}
+    for mode, flags in SERVE_MODES.items():
+        argv = ["--arch", "qwen3-4b"] + flags
+        cpu = cli_lines(env.launch_serve.main, argv + ["--device", "cpu"])
+        att.reset_launches()
+        t1 = time.perf_counter()
+        card = cli_lines(env.launch_serve.main, argv)
+        wall = time.perf_counter() - t1
+        if card != cpu:
+            fail(f"serve CLI {mode}: the card's lines differ from the CPU's:"
+                 f"\n{card}\n{cpu}")
+        if any(att.plain_runs.values()) or not (
+                att.launches["flash_attention"]
+                and att.launches["decode_attention"]):
+            fail(f"serve CLI {mode}: launches {att.launches}, plain runs "
+                 f"{att.plain_runs}")
+        out[mode] = {"lines": len(card), "wall_s": wall,
+                     "launches": dict(att.launches)}
+    import shutil
+    ckpt = ROOT / "build" / "chip_smoke_train_cli"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    att.reset_launches()
+    lines = cli_lines(env.launch_train.main,
+                      ["--arch", "h2o-danube-1.8b", "--steps", "12",
+                       "--ckpt-dir", str(ckpt)])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    import re
+    m = re.match(r"done: steps=12 restarts=0 stragglers=\d+ loss "
+                 r"(\d+\.\d+) -> (\d+\.\d+)", lines[-1])
+    if not m or any(att.plain_runs.values()) or \
+            not att.launches["flash_attention_backward"]:
+        fail(f"train CLI: {lines[-1]!r}, launches {att.launches}, plain "
+             f"runs {att.plain_runs}")
+    out["train"] = {"line": lines[-1], "launches": dict(att.launches)}
+    log("phase 19: serve CLI on the card == on the CPU in " + ", ".join(
+        f"{k} ({v['lines']} lines, {v['wall_s']:.1f} s)"
+        for k, v in out.items() if k != "train")
+        + f"; train CLI h2o-danube-1.8b on the card: {lines[-1]}, launches "
+        f"{json.dumps(out['train']['launches'])}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def backward_kernel_row(bwd: dict, training: dict, ptxas: dict) -> dict:
+    """The flash backward's entry of the kernels line: launches of the
+    training path (phase 18), times at its shape and the others of phase
+    17."""
+    head = bwd["cases"][BWD_TRAINING]
+    return {
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:64",
+        "note": "no Pallas counterpart: the reference differentiates its "
+                "jnp _sdpa (models/attention.py:64-78) with XLA's autodiff",
+        "kernel": "flash_bwd_dq_kernel<T, D> + flash_bwd_dkdv_kernel<T, D>",
+        "launches": training["launches"]["flash_attention_backward"],
+        "launches_by_path": {"training": training["launches"][
+            "flash_attention_backward"]},
+        "max_abs_err": bwd["err"], "ms": head["ms"],
+        "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
+        "library_ms": head["library_ms"],
+        "library": "torch.autograd.grad through "
+                   "torch.nn.functional.scaled_dot_product_attention",
+        "shape": head["shape"], "dtype": head["dtype"],
+        "ptxas": {k: v for k, v in ptxas.items()
+                  if k.startswith("flash_bwd")},
+        "large": {k: {f: v[f] for f in ("shape", "dtype", "ms", "call_ms",
+                                        "plain_ms", "library_ms",
+                                        "forward_ms", "err")}
+                  | {"bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
+                  for k, v in bwd["cases"].items() if k != BWD_TRAINING}}
+
+
 def online_kernel_rows(online: dict, fleet: dict, scan_ptxas: dict) -> list:
     """The stateful scans' entries of the kernels line: launches of the
     paths that run them (phase 14's cells, phase 15's 64-replica fleet and
@@ -3254,12 +3756,13 @@ def online_kernel_rows(online: dict, fleet: dict, scan_ptxas: dict) -> list:
 
 
 def attention_kernel_rows(ak: dict, serving: dict, path: dict, subs: dict,
-                          golden_err: float, ptxas: dict) -> list:
+                          golden_err: float, ptxas: dict,
+                          training: dict) -> list:
     """The attention kernels' entries of the kernels line: launches of the
-    two serving paths (phase 12's qwen3-4b and phase 16's families, each
-    counted from 0), times at phase 12's most frequent shape, every shape
-    of phase 16's path, the soft-capped decode (phase 16) and the large
-    shapes of phase 10."""
+    two serving paths (phase 12's qwen3-4b and phase 16's families) and of
+    the training path (phase 18's qwen3-4b), each counted from 0, times at
+    phase 12's most frequent shape, every shape of phase 16's path, the
+    soft-capped decode (phase 16) and the large shapes of phase 10."""
     src = "src/repro_torch/kernels/csrc/attention.cu"
     rows = {"decode_attention": ("src/repro/kernels/decode_attn.py:26",
                                  "decode_partial_kernel<T, GB, Cfg> (CUDA "
@@ -3283,7 +3786,8 @@ def attention_kernel_rows(ak: dict, serving: dict, path: dict, subs: dict,
                  | {"bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
                  for k, v in ak["large"].items() if v["wrapper"] == name}
         by_path = {"qwen3_serving": serving["launches"][name],
-                   "families_serving": subs["launches"][name]}
+                   "families_serving": subs["launches"][name],
+                   "qwen3_training": training["launches"][name]}
         row = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "kernel": kernel,
@@ -3300,7 +3804,8 @@ def attention_kernel_rows(ak: dict, serving: dict, path: dict, subs: dict,
             "shape": head["shape"], "dtype": head["dtype"],
             "families_path_shapes": [timed(t) for t in subs["path"][name]],
             "ptxas": {k: v for k, v in ptxas.items()
-                      if k.startswith(name.split("_")[0])},
+                      if k.startswith(name.split("_")[0])
+                      and not k.startswith("flash_bwd")},
             "large": large}
         if name == "decode_attention":
             row["softcap_gemma2"] = {k: timed(v) for k, v in
@@ -3403,6 +3908,7 @@ def ptxas_summary(log_text: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             k = re.search(r"(flash_kernel_f32|flash_kernel_bf16|"
+                          r"flash_bwd_dq_kernel|flash_bwd_dkdv_kernel|"
                           r"decode_partial_kernel_tc|decode_partial_kernel|"
                           r"decode_combine_kernel|conv_scan_kernel|"
                           r"ext_scan_kernel)"
@@ -3460,7 +3966,8 @@ def main() -> int:
                       or "Compiling entry" in ln) and "(C7519)" not in ln]
         log(f"phase 1: ptxas {name}: {' | '.join(report)}")
     scan_ptxas = ptxas_summary(env.build.build_log("engine_scan"))
-    att_ptxas = ptxas_summary(env.build.build_log("attention"))
+    att_ptxas = ptxas_summary(env.build.build_log("attention")
+                              + env.build.build_log("attention_bwd"))
     for what, summary in (("engine-scan", scan_ptxas),
                           ("attention", att_ptxas)):
         log(f"phase 1: {what} kernels (ptxas): " + "; ".join(
@@ -3483,6 +3990,9 @@ def main() -> int:
     online = phase_online(env, dev)
     fleet = phase_fleet(env, dev)
     subs = phase_substrates(env, dev)
+    bwd = phase_flash_backward(env, dev)
+    training = phase_training(env, dev)
+    phase_clis(env, dev)
 
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("the port imported jax or repro")
@@ -3510,8 +4020,10 @@ def main() -> int:
     kernels += online_kernel_rows(online, fleet, scan_ptxas)
     kernels += pool_kernel_rows(pk, cells, paths)
     kernels += attention_kernel_rows(ak, serving, att_path, subs,
-                                     golden_lm["err"], att_ptxas)
-    log("phase 17: kernels " + ", ".join(
+                                     golden_lm["err"], att_ptxas, training)
+    kernels.append(backward_kernel_row(
+        bwd, training, ptxas_summary(env.build.build_log("attention_bwd"))))
+    log("phase 20: kernels " + ", ".join(
         f"{x['name']} matched plain (max abs err {x['max_abs_err']:.3g}), "
         f"{x['ms']:.4g} ms on the card ({x['call_ms']:.4g} ms a call) vs "
         f"plain {x['plain_ms']:.4g} ms, bound {x['bound_ms']:.4g} ms "

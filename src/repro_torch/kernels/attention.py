@@ -51,6 +51,20 @@ any S and T.  (The Pallas flash kernel's padded keys take part in a row
 that has no valid key; its oracle ``ref.flash_attention`` and the port
 average over the T real keys.)
 
+Gradients: ``flash_attention`` applies ``FlashAttention``, a
+``torch.autograd.Function`` whose forward is the launch above and whose
+backward is ``flash_attention_backward``: the hand-written kernels of
+``csrc/attention_bwd.cu`` (a dQ kernel that first recomputes each row's
+log-sum-exp and ``D = rowsum(dO * O)``, and a dK/dV kernel that sums the
+G heads of a group inside its block; f32 on the CUDA cores for both
+dtypes) on CUDA tensors, the explicit formula
+``flash_attention_backward_plain`` on CPU tensors.  Masked logits are
+constants (-2e38), so no gradient flows through them; a row with no
+valid key gives each key's dV ``dO / T`` and nothing to q or k, as
+autograd through the plain version does.  ``decode_attention`` has no
+backward and raises when grad mode is on and an input requires grad,
+so that no gradient is dropped without a word.
+
 Dtypes: q, k, v float32 or bfloat16, all one type; f32 accumulation.
 On CUDA tensors each wrapper launches its kernel (and adds one to its
 entry of ``launches``) or raises; on CPU tensors it runs its plain
@@ -72,7 +86,8 @@ MAX_HEAD_DIM = 256
 MAX_GROUP = 64              # query heads per KV head a kernel block holds
 HEAD_ALIGN = 16             # head dims the kernels take are multiples
 DECODE_MAX_CHUNK = 256      # keys a decode block takes at most, as in C
-WRAPPERS = ("decode_attention", "flash_attention")
+WRAPPERS = ("decode_attention", "flash_attention",
+            "flash_attention_backward")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of each wrapper's kernel since the last ``reset_launches``,
@@ -169,6 +184,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask, say): it is made contiguous here.  ``softcap`` > 0 caps each
     scaled logit to ``softcap * tanh(logit / softcap)``."""
     _check_qkv(q, k, v, 3)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("decode_attention has no backward: call it "
+                           "under torch.no_grad() or on inputs that do "
+                           "not require grad")
     b, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     if v.shape[3] != hd:
@@ -244,21 +264,57 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, s, h, hdv).to(q.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, scale: Optional[float] = None
-                    ) -> torch.Tensor:
-    """q (B, S, H, hd), k (B, T, KV, hd), v (B, T, KV, hdv) ->
-    (B, S, H, hdv) in q's dtype.  H = KV * G (grouped-query attention)."""
+def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: int, softcap: float) -> None:
     _check_qkv(q, k, v, 4)
-    b, s, h, hd = q.shape
-    t, kvh, hdv = k.shape[1], k.shape[2], v.shape[3]
+    h, kvh = q.shape[2], k.shape[2]
     if h // kvh > MAX_GROUP:
         raise ValueError(f"{h // kvh} query heads per KV head; the kernel "
                          f"takes at most {MAX_GROUP}")
     if window < 0 or softcap < 0:
         raise ValueError(f"window {window} and softcap {softcap} must be "
                          f">= 0")
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its backward: the forward launch (or plain
+    version) and ``flash_attention_backward`` on the saved q, k, v and
+    output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        out = _flash_forward(q, k, v, causal=causal, window=window,
+                             softcap=softcap, scale=scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale: Optional[float] = None
+                    ) -> torch.Tensor:
+    """q (B, S, H, hd), k (B, T, KV, hd), v (B, T, KV, hdv) ->
+    (B, S, H, hdv) in q's dtype.  H = KV * G (grouped-query attention).
+    Differentiable in q, k and v (``FlashAttention``)."""
+    _check_flash(q, k, v, window, softcap)
+    return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, window: int, softcap: float,
+                   scale: Optional[float]) -> torch.Tensor:
+    """The forward of ``flash_attention``: its kernel, or on the CPU its
+    plain version."""
+    b, s, h, hd = q.shape
+    t, kvh, hdv = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if dev.type == "cpu":
@@ -283,6 +339,106 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if res is not out:
         out.copy_(res[..., :hdv])
     return out
+
+
+# ---------------------------------------------------- flash backward
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   dout: torch.Tensor, *, causal: bool = True,
+                                   window: int = 0, softcap: float = 0.0,
+                                   scale: Optional[float] = None):
+    """Plain PyTorch version of ``flash_attention_backward``: the explicit
+    formula over the materialised (B, KV, S, G, T) logits, P recomputed
+    under the reference's -2e38 masks, ``D = rowsum(dO * O)``, and the
+    soft cap's derivative ``1 - tanh^2``."""
+    plain_runs["flash_attention_backward"] += 1
+    b, s, h, hd = q.shape
+    t, kvh, hdv = k.shape[1], k.shape[2], v.shape[3]
+    g = h // kvh
+    scale = hd ** -0.5 if scale is None else scale
+    qg = q.reshape(b, s, kvh, g, hd).float()
+    kf, vf = k.float(), v.float()
+    logits = torch.einsum("bsngd,btnd->bnsgt", qg, kf) * scale
+    if softcap:
+        th = torch.tanh(logits / softcap)
+        logits = softcap * th
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(t, device=q.device)[None, :]
+    mask = (j <= i) if causal else torch.ones((s, t), dtype=torch.bool,
+                                              device=q.device)
+    if window:
+        mask = mask & (i - j < window)
+    mask = mask[None, None, :, None, :]
+    p = torch.softmax(torch.where(mask, logits, NEG), dim=-1)
+    dog = dout.reshape(b, s, kvh, g, hdv).float()
+    dv = torch.einsum("bnsgt,bsngd->btnd", p, dog)
+    dp = torch.einsum("bsngd,btnd->bnsgt", dog, vf)
+    dsum = (dog * o.reshape(b, s, kvh, g, hdv).float()).sum(-1)
+    ds = torch.where(mask, p * (dp - dsum.permute(0, 2, 1, 3)[..., None]),
+                     0.0)
+    if softcap:
+        ds = ds * (1 - th * th)
+    ds = ds * scale
+    dq = torch.einsum("bnsgt,btnd->bsngd", ds, kf).reshape(b, s, h, hd)
+    dk = torch.einsum("bnsgt,bsngd->btnd", ds, qg)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             dout: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0,
+                             scale: Optional[float] = None):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` whose output is ``o``,
+    given the output's gradient ``dout`` (B, S, H, hdv); each in its
+    input's dtype and shape."""
+    _check_flash(q, k, v, window, softcap)
+    b, s, h, hd = q.shape
+    t, kvh, hdv = k.shape[1], k.shape[2], v.shape[3]
+    dev = q.device
+    dout = dout.contiguous()
+    for name, x in (("o", o), ("dout", dout)):
+        _build.check(name, x.contiguous(), q.dtype, (b, s, h, hdv), dev)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if dev.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, o, dout, **kw)
+    _build.require_cuda(dev, "flash_attention_backward")
+    dq, dk, dv = (torch.empty_like(x, memory_format=torch.contiguous_format)
+                  for x in (q, k, v))
+    if b == 0 or s == 0:            # no query: no gradient, no launch
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    scale = hd ** -0.5 if scale is None else float(scale)
+    q, k, v, o, dout = (_aligned(pad_head_dim(x)) for x in (q, k, v, o, dout))
+    hdp, hdvp = q.shape[-1], v.shape[-1]
+    rq, rk, rv = (x if x.shape[-1] == y.shape[-1] else torch.empty_like(y)
+                  for x, y in ((dq, q), (dk, k), (dv, v)))
+    lse = torch.empty((b, s, h), dtype=torch.float32, device=dev)
+    dvec = torch.empty_like(lse)
+    ptr = _build.ptr
+    with torch.cuda.device(dev):
+        err = _bwd_lib().flash_attention_backward_launch(
+            ptr(q), ptr(k), ptr(v), ptr(o), ptr(dout), ptr(rq), ptr(rk),
+            ptr(rv), ptr(lse), ptr(dvec), _DTYPES[q.dtype], b, s, t, h, kvh,
+            hdp, hdvp, int(causal), int(window), float(softcap), scale,
+            _build.stream(dev))
+    _build.raise_on(err, "flash_attention_backward")
+    launches["flash_attention_backward"] += 1
+    for res, out in ((rq, dq), (rk, dk), (rv, dv)):
+        if res is not out:
+            out.copy_(res[..., :out.shape[-1]])
+    return dq, dk, dv
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    """The built ``csrc/attention_bwd.cu`` with its launcher declared."""
+    lib = _build.load("attention_bwd")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_backward_launch.argtypes = (
+        [p] * 10 + [i] * 10 + [f, f, p])
+    lib.flash_attention_backward_launch.restype = i
+    return lib
 
 
 @functools.lru_cache(maxsize=None)

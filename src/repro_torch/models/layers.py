@@ -4,8 +4,7 @@ M-RoPE, the dense MLP, embeddings and the logits head.
 Layouts are the reference's: activations (B, S, D), weights (in, out)
 applied as ``x @ W``, the embedding (V, D) over the padded vocabulary.
 The three matmuls stay ``torch.matmul``, as the reference left them to
-XLA.  Not ported yet: ``cross_entropy`` (the training slice, ROADMAP
-A8).
+XLA.
 """
 from __future__ import annotations
 
@@ -148,3 +147,15 @@ def logits_head(embed: torch.Tensor, unembed, x: torch.Tensor,
     embeddings are tied, else ``x @ unembed``; then the final soft cap."""
     logits = x @ embed.T if cfg.tie_embeddings else x @ unembed
     return softcap(logits.float(), cfg.final_softcap)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Mean of ``logsumexp - gold`` over the tokens, in f32.  As in the
+    reference, the logsumexp runs over the PADDED vocabulary and
+    ``vocab_size`` is unused (the reference's docstring says the padded
+    tail is masked; its code does not mask it)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)

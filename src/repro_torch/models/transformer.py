@@ -23,14 +23,23 @@ reads (``prefill`` rotates by ``arange(S)``, as the reference's does).
 the encoder's output in ``caches.enc_out``; ``decode_step`` projects the
 cross K/V from it at every step, as the reference does.
 
-Not ported (ROADMAP A8): ``loss`` and the training path.
+``loss(batch, remat=True)`` is the reference's: the mean cross-entropy
+of ``_logits`` over the padded vocabulary.  With ``remat`` each repeat of
+the block pattern runs under ``torch.utils.checkpoint`` (non-reentrant),
+as the reference wraps its scanned block in ``jax.checkpoint``; the
+config's ``remat_policy`` (or ``REPRO_REMAT_POLICY``) ``"dots"`` keeps
+the matmul outputs (a selective checkpoint) where ``"full"`` recomputes
+the whole block.  Both give the same numbers.
 """
 from __future__ import annotations
 
+import functools
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig, LayerSpec
 from ..core.engine import resolve_device
@@ -41,6 +50,10 @@ from . import moe as MoE
 from . import weights as W
 
 Tensor = torch.Tensor
+
+# what the "dots" remat policy keeps: the matmul outputs (the reference's
+# dots_with_no_batch_dims_saveable)
+_SAVED_OPS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 
 class ParamTree(nn.Module):
@@ -213,13 +226,11 @@ class LM(nn.Module):
         return x + L.dense_mlp(layer.mlp, h, self.cfg.act)
 
     # ------------------------------------------------------------ forward
-    @torch.no_grad()
-    def forward(self, batch: Dict[str, Tensor]) -> Tensor:
-        """Logits (B, S, V) of a full causal forward over
-        ``batch["tokens"]`` (B, S) and the optional inputs above."""
-        x, positions = self._embed_inputs(batch)
-        enc_out = self._encode(batch)
-        for layer, spec in zip(self.layers, self.specs):
+    def _layers(self, first: int, stop: int, x: Tensor, positions: Tensor,
+                enc_out: Optional[Tensor]) -> Tensor:
+        """Decoder layers ``first`` .. ``stop - 1`` of a full forward."""
+        for layer, spec in zip(self.layers[first:stop],
+                               self.specs[first:stop]):
             h = L.rms_norm(x, layer.ln1)
             if spec.mixer == "mamba":
                 h = M.mamba_block(layer.mixer, h, self.cfg)
@@ -227,12 +238,50 @@ class LM(nn.Module):
                 h = A.attention(layer.mixer, h, self.cfg, spec, positions)
             x = self._cross(layer, x + h, enc_out)
             x = self._mlp(layer, spec, x)
+        return x
+
+    def _remat_kwargs(self) -> dict:
+        policy = os.environ.get("REPRO_REMAT_POLICY",
+                                getattr(self.cfg, "remat_policy", "full"))
+        kw = {"use_reentrant": False}
+        if policy == "dots":
+            kw["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _SAVED_OPS)
+        return kw
+
+    def _logits(self, batch: Dict[str, Tensor], remat: bool = False
+                ) -> Tensor:
+        """Logits (B, S, V) f32 of a full causal forward, differentiable
+        when grad mode is on; ``remat`` recomputes each repeat of the
+        block pattern in the backward pass."""
+        cfg = self.cfg
+        x, positions = self._embed_inputs(batch)
+        enc_out = self._encode(batch)
+        n_pre, pat = len(cfg.prefix_layers), len(cfg.block_pattern)
+        x = self._layers(0, n_pre, x, positions, enc_out)
+        remat = remat and torch.is_grad_enabled()
+        kw = self._remat_kwargs() if remat else {}
+        for blk in range(cfg.num_blocks):
+            span = (n_pre + blk * pat, n_pre + (blk + 1) * pat)
+            if remat:
+                x = ckpt.checkpoint(self._layers, *span, x, positions,
+                                    enc_out, **kw)
+            else:
+                x = self._layers(*span, x, positions, enc_out)
         return self._head(x)
 
-    def loss(self, batch: Dict[str, Tensor]) -> Tensor:
-        raise NotImplementedError(
-            f"{self.cfg.name}: LM.loss and cross_entropy come with the "
-            f"training slice (ROADMAP A8)")
+    @torch.no_grad()
+    def forward(self, batch: Dict[str, Tensor]) -> Tensor:
+        """Logits (B, S, V) of a full causal forward over
+        ``batch["tokens"]`` (B, S) and the optional inputs above."""
+        return self._logits(batch)
+
+    def loss(self, batch: Dict[str, Tensor], remat: bool = True) -> Tensor:
+        """Mean cross-entropy (f32, 0-d) of the logits against
+        ``batch["targets"]`` (B, S), over the padded vocabulary."""
+        return L.cross_entropy(self._logits(batch, remat=remat),
+                               batch["targets"].to(self.device),
+                               self.cfg.vocab_size)
 
     # ------------------------------------------------------------ serving
     def init_caches(self, batch_size: int, max_len: int) -> Caches:

@@ -17,6 +17,10 @@ reference's (in, out) weight layout, so no weight is transposed.
     to both packages, and it needs no JAX.
   * ``params_from_numpy(model, tree)`` loads a tree into the port (it
     unstacks the blocks); ``params_to_numpy(model)`` does the reverse.
+  * ``param_tree(model)`` is the reference's tree over the model's own
+    parameters, each block leaf a ``pytree.Leaf`` of its per-layer
+    parts: what the optimizer, the gradient compressor and the
+    checkpointer walk.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig, LayerSpec
+from ..pytree import Leaf
 from . import attention as A
 from . import layers as L
 from . import mamba2 as M
@@ -178,35 +183,49 @@ def params_from_numpy(model, tree: dict) -> None:
         _load(model.encoder_norm, enc["final_norm"])
 
 
+def param_tree(model) -> dict:
+    """The reference's parameter tree of ``model`` with ``Leaf`` leaves
+    over the model's own parameters (a block leaf's parts in block
+    order)."""
+    return _tree_of(model, lambda t: Leaf([t]),
+                    lambda ts: Leaf(ts, stacked=True))
+
+
 def params_to_numpy(model) -> dict:
     """The reference's parameter tree (float32 numpy arrays, blocks
     stacked on axis 0) of ``model``'s weights."""
-    cfg = model.cfg
-
     def host(t: torch.Tensor) -> np.ndarray:
         return t.detach().float().cpu().numpy().copy()
 
-    tree: Dict[str, object] = {name: host(getattr(model, name))
+    return _tree_of(model, host, lambda ts: np.stack([host(t) for t in ts]))
+
+
+def _tree_of(model, one: Callable, stack: Callable) -> dict:
+    """The reference's tree of ``model``'s parameters: ``one(t)`` of an
+    unstacked parameter, ``stack(ts)`` of a block leaf's per-layer
+    parameters."""
+    cfg = model.cfg
+    tree: Dict[str, object] = {name: one(getattr(model, name))
                                for name, _ in leaves(top_inits(cfg))}
     n_pre = len(cfg.prefix_layers)
     tree["prefix"] = [
         _map_named(layer_inits(cfg, spec),
-                   lambda n, li=li: host(model.layers[li].param(n)))
+                   lambda n, li=li: one(model.layers[li].param(n)))
         for li, spec in enumerate(cfg.prefix_layers)]
     pat = len(cfg.block_pattern)
     tree["blocks"] = {
         f"l{i}": _map_named(
             layer_inits(cfg, spec, cross=cfg.is_encdec),
-            lambda n, i=i: np.stack([
-                host(model.layers[n_pre + blk * pat + i].param(n))
+            lambda n, i=i: stack([
+                model.layers[n_pre + blk * pat + i].param(n)
                 for blk in range(cfg.num_blocks)]))
         for i, spec in enumerate(cfg.block_pattern)}
     if cfg.is_encdec:
         tree["encoder"] = {
             "layers": [_map_named(encoder_inits(cfg),
-                                  lambda n, layer=layer: host(layer.param(n)))
+                                  lambda n, layer=layer: one(layer.param(n)))
                        for layer in model.encoder_layers],
-            "final_norm": host(model.encoder_norm)}
+            "final_norm": one(model.encoder_norm)}
     return tree
 
 

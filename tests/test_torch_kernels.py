@@ -890,7 +890,91 @@ def test_lm_on_the_card_matches_the_cpu(cuda_device, local):
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
     assert torch.equal(outs[0].argmax(-1), outs[1].argmax(-1))
     n = len(models[0].layers)
-    assert att.launches == {"flash_attention": n, "decode_attention": 6 * n}
+    assert att.launches == {"flash_attention": n, "decode_attention": 6 * n,
+                            "flash_attention_backward": 0}
+
+
+# (atol, rtol) of the flash backward by input dtype: f32 the forward's
+# bound; bf16 from the card's measured error (7.8e-3 of |plain| at the
+# serving shape) with twice the room, under the reference's 3e-2
+BWD_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-3, 1.6e-2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,hd,hdv,causal,window,cap", [
+    # two small shapes an option: causal with G in {2, 8}, a window, the
+    # soft cap, non-causal (cross-attention, one query), hdv != hd (MLA's
+    # 192/128, and 40/24 through the padding), rows with no key
+    (2, 64, 64, 4, 2, 64, 64, True, 0, 0.0),
+    (1, 130, 130, 8, 1, 32, 32, True, 0, 0.0),
+    (1, 100, 100, 4, 4, 64, 64, True, 16, 0.0),
+    (2, 70, 70, 8, 2, 128, 128, True, 33, 0.0),
+    (1, 80, 80, 4, 2, 64, 64, True, 0, 5.0),
+    (1, 65, 65, 16, 8, 256, 256, True, 0, 50.0),
+    (2, 40, 90, 4, 2, 64, 64, False, 0, 0.0),
+    (1, 1, 16, 16, 16, 64, 64, False, 0, 0.0),
+    (1, 70, 70, 4, 4, 192, 128, True, 0, 0.0),
+    (2, 33, 33, 4, 2, 40, 24, True, 0, 0.0),
+    (1, 12, 6, 8, 1, 128, 128, True, 3, 0.0),
+    (1, 8, 4, 2, 1, 16, 16, True, 2, 0.0),
+])
+def test_flash_attention_backward_kernel_matches_plain(
+        cuda_device, dtype, b, s, t, h, kv, hd, hdv, causal, window, cap):
+    rng = np.random.default_rng(s * h + t + hd)
+    scale = 3.0 if cap else 1.0            # logits the cap bends
+    q = scale * _randn(rng, (b, s, h, hd), dtype, cuda_device)
+    k = scale * _randn(rng, (b, t, kv, hd), dtype, cuda_device)
+    v = _randn(rng, (b, t, kv, hdv), dtype, cuda_device)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    o = att.flash_attention(q, k, v, **kw)
+    do = _randn(rng, (b, s, h, hdv), dtype, cuda_device)
+    att.reset_launches()
+    got = att.flash_attention_backward(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    assert att.launches["flash_attention_backward"] == 1
+    want = att.flash_attention_backward_plain(q, k, v, o, do, **kw)
+    atol, rtol = BWD_TOL[dtype]
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_launches_the_backward_kernel(
+        cuda_device):
+    """Gradients through ``flash_attention`` on the card come from the
+    backward kernel (no plain version) and equal autograd through the
+    plain forward."""
+    rng = np.random.default_rng(5)
+    q, k, v = (_randn(rng, sh, torch.float32, cuda_device)
+               for sh in ((2, 48, 8, 64), (2, 48, 2, 64), (2, 48, 2, 64)))
+    do = _randn(rng, (2, 48, 8, 64), torch.float32, cuda_device)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    att.reset_launches()
+    got = torch.autograd.grad(att.flash_attention(*leaves), leaves, do)
+    torch.cuda.synchronize()
+    assert att.launches["flash_attention"] == 1
+    assert att.launches["flash_attention_backward"] == 1
+    assert not any(att.plain_runs.values())
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(att.flash_attention_plain(*leaves), leaves,
+                               do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_decode_attention_raises_when_an_input_requires_grad(cuda_device):
+    q = torch.randn(2, 8, 64, device=cuda_device, requires_grad=True)
+    k = torch.randn(2, 16, 2, 64, device=cuda_device)
+    valid = torch.ones((2, 16), dtype=torch.bool, device=cuda_device)
+    att.reset_launches()
+    with pytest.raises(RuntimeError, match="no backward"):
+        att.decode_attention(q, k, k, valid)
+    assert att.launches["decode_attention"] == 0
+    with torch.no_grad():
+        assert att.decode_attention(q, k, k, valid).shape == (2, 8, 64)
 
 
 # ------------------------------------------- the online runtime on the card

@@ -353,15 +353,23 @@ def test_init_weights_draws_the_reference_distributions():
     assert torch.equal(again.layers[0].mlp["w_up"], tm.layers[0].mlp["w_up"])
 
 
-def test_lm_builds_every_architecture_and_refuses_loss():
-    """Every architecture's reduced config builds; ``loss`` waits for the
-    training slice and says so."""
+def test_lm_builds_every_architecture_and_computes_its_loss():
+    """Every architecture's reduced config builds, and ``loss`` gives a
+    finite f32 scalar (the parity of its value and gradients with the
+    reference is tests/test_torch_train.py's)."""
     for arch in t_configs.ALL_ARCHS:
-        tm = LM(t_configs.get(arch).reduced(), device="cpu")
+        cfg = t_configs.get(arch).reduced()
+        tm = LM(cfg, device="cpu")
         assert len(tm.layers) == tm.cfg.num_layers
         assert len(tm.encoder_layers) == tm.cfg.encoder_layers
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tm.loss({"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+        t_w.params_from_numpy(tm, t_w.seeded_numpy_params(cfg, 0))
+        r = np.random.default_rng(0)
+        toks = r.integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+                 **extra_inputs(cfg, 2, 8, r)}
+        loss = tm.loss({k: torch.from_numpy(v) for k, v in batch.items()})
+        assert loss.dtype == torch.float32 and loss.dim() == 0, arch
+        assert bool(torch.isfinite(loss)), arch
 
 
 def test_lm_without_a_card_needs_device_cpu():
