@@ -13,7 +13,8 @@ Phases (one line each; any failure exits non-zero and prints no result):
      the kernel sources of ``src/repro_torch/kernels/csrc`` (one process
      each, all started together) with their ``-Xptxas -v`` reports
      (registers, shared memory, spills), summed up per kernel for the
-     engine-scan and attention kernels;
+     engine-scan and attention kernels (the flash backward's may not
+     spill);
   2. kernel vs plain: batches of 16 ``cfd`` traces of 120 000 requests
      under predictor {BLOOM, NONE, PERFECT} x compression {off, on} and a
      conventional-only config (BL); each engine-scan kernel against its
@@ -165,15 +166,19 @@ Phases (one line each; any failure exits non-zero and prints no result):
      rows, qwen2-vl's M-RoPE forward rows and each MoE call's routing
      (expert sets where the top-k margin exceeds 1e-4, drops per expert)
      held to the reference's;
-  17. the flash backward (``csrc/attention_bwd.cu``: a dQ kernel that
-     first recomputes each row's log-sum-exp, and a dK/dV kernel) against
-     its plain version at the training shape (B 8, S = T 128, H 32/8, hd
-     128, f32), the serving shape (B 8, S = T 1024) in f32 and bf16, MLA's
-     head dims (B 4, S = T 512, H 16, hd 192 / hdv 128), gemma2-9b's
-     window 256 and soft cap 50 (B 2, S = T 1024, H 16/8, hd 256) and a
-     non-causal cross shape (S 256, T 384), each with the forward's time,
-     device ms by CUDA-graph replay, its bound (2.5 times the forward's
-     FLOPs) and the time of ``torch.autograd.grad`` through SDPA;
+  17. the flash backward (``csrc/attention_bwd.cu``: a dQ kernel, then a
+     dK/dV kernel, reading the log-sum-exp the forward kept; bf16 on
+     ``wgmma``, f32 register-tiled CUDA cores) against its plain version
+     at the training shape (B 8, S = T 128, H 32/8, hd 128, f32), the
+     serving shape (B 8, S = T 1024) in f32 and bf16, MLA's head dims
+     (B 4, S = T 512, H 16, hd 192 / hdv 128), gemma2-9b's window 256
+     and soft cap 50 (B 2, S = T 1024, H 16/8, hd 256) and a non-causal
+     cross shape (S 256, T 384): the forward's log-sum-exp against
+     ``torch.logsumexp`` of the plain logits (rows with a valid key),
+     the forward's time with and without it, the backward's device ms by
+     CUDA-graph replay and its two kernels' by ``torch.profiler``, its
+     bound (2.5 times the forward's FLOPs) and the time of
+     ``torch.autograd.grad`` through SDPA;
   18. main path of training: (a) the three cells of
      ``tests/data/torch_golden_train.json`` (qwen3-4b, gemma2-9b and
      deepseek-v2-lite-16b at full width, 2 decoder layers, the
@@ -3255,7 +3260,26 @@ def phase_substrates(env: Env, dev) -> dict:
 # forward's bound; bf16 from the card's measured error (7.8e-3 of |plain|
 # at the serving shape) with twice the room, under the reference's 3e-2
 BWD_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-3, 1.6e-2)}
+# absolute error of the forward's base-2 log-sum-exp (|lse| ~ 10-20 here):
+# f32 a few ulps; bf16 inputs are exact in f32, but the tensor cores sum
+# the products in another order
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+BWD_PROFILED = 3             # backward calls in the profiled window
+# profiled windows tried before "not measured": late in the whole script
+# the profiler drops a short window's kernels as out of its range (its
+# KINETO_LOG_LEVEL=0 log) in about half the windows
+BWD_WINDOWS = 10
 BWD_TRAINING = "training f32 B8 S=T128 H32/8"
+# The device ms of the backward before its Hopper redesign, quoted from
+# PERF.md (kernel table: NVIDIA H100 80GB HBM3 at 700 W) by phase-17
+# label, for the log only: the kernels line carries this run's numbers
+# alone
+BWD_BEFORE_MS = {
+    BWD_TRAINING: 0.7787, "serving f32 B8 S=T1024 H32/8": 24.39,
+    "serving bf16 B8 S=T1024 H32/8": 24.85,
+    "MLA f32 B4 S=T512 H16 hd192/128": 4.581,
+    "gemma2 f32 B2 S=T1024 H16/8 hd256 window256 cap50": 4.862,
+    "cross f32 B4 S256 T384 H16/16 hd64": 0.4517}
 BWD_CASES = (  # label, (b, s, t, h, kv, hd, hdv), causal, window, cap, dtype
     (BWD_TRAINING, (8, 128, 128, 32, 8, 128, 128), True, 0, 0.0,
      torch.float32),
@@ -3314,24 +3338,56 @@ def sdpa_backward(q, k, v, do, kw):
     return lambda: torch.autograd.grad(out, args, dot, retain_graph=True)
 
 
+def bwd_split(run) -> dict:
+    """Device ms a call of the dQ and the dK/dV kernel, from one
+    ``torch.profiler`` window of ``BWD_PROFILED`` calls of ``run``, and
+    the windows it took: up to ``BWD_WINDOWS`` while a window records no
+    device activity (if all do, the times are None, not measured)."""
+    for tries in range(1, BWD_WINDOWS + 1):
+        _, us = profiled(lambda: [run() for _ in range(BWD_PROFILED)])
+        if us:
+            break
+    out = {"split_windows": tries if us else None}
+    for part, key in (("dq_ms", "bwd_dq_"), ("dkdv_ms", "bwd_dkdv_")):
+        hits = [t for name, t in us.items() if key in name]
+        if us and not hits:
+            fail(f"flash backward: no {key} kernel in the profiled window "
+                 f"({sorted(us)})")
+        out[part] = sum(hits) / 1e3 / BWD_PROFILED if hits else None
+    return out
+
+
+def ms_text(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
+
+
 def phase_flash_backward(env: Env, dev) -> dict:
     """Phase 17: the flash backward kernels against their plain version on
     the card at the training shape, the serving shape (f32 and bf16),
     MLA's head dims, gemma2's window and soft cap and a cross-attention
-    shape; device ms by CUDA-graph replay, the bound, and the backward of
-    SDPA through autograd as the library's time."""
+    shape, reading the log-sum-exp the forward kept (held to the plain
+    one); device ms by CUDA-graph replay and of each kernel by the
+    profiler, the forward with and without its log-sum-exp, the bound,
+    and the backward of SDPA through autograd as the library's time."""
     att = env.att
     rng = np.random.default_rng(0)
-    out = {"err": 0.0, "cases": {}}
+    out = {"err": 0.0, "lse_err": 0.0, "cases": {}}
     for label, (b, s, t, h, kv, hd, hdv), causal, window, cap, dt in \
             BWD_CASES:
         q = att_randn(rng, (b, s, h, hd), dt, dev)
         k = att_randn(rng, (b, t, kv, hd), dt, dev)
         v = att_randn(rng, (b, t, kv, hdv), dt, dev)
         kw = dict(causal=causal, window=window, softcap=cap)
-        o = att.flash_attention(q, k, v, **kw)
+        o, lse = att.flash_attention_with_lse(q, k, v, **kw)
+        want_lse = att.flash_lse_plain(q, k, **kw)
+        keyed = want_lse > -1e30             # rows with a valid key
+        lse_err = float((lse - want_lse)[keyed].abs().max())
+        if not lse_err <= LSE_TOL[dt]:
+            fail(f"flash backward {label}: the forward's log-sum-exp is "
+                 f"{lse_err:.3g} from plain (tolerance {LSE_TOL[dt]})")
+        del want_lse, keyed
         do = att_randn(rng, tuple(o.shape), dt, dev)
-        got = att.flash_attention_backward(q, k, v, o, do, **kw)
+        got = att.flash_attention_backward(q, k, v, o, do, lse, **kw)
         want = att.flash_attention_backward_plain(q, k, v, o, do, **kw)
         err = max(att_close(g, w, BWD_TOL[dt], f"flash backward {label} {n}")
                   for g, w, n in zip(got, want, ("dq", "dk", "dv")))
@@ -3341,30 +3397,49 @@ def phase_flash_backward(env: Env, dev) -> dict:
                      f"{tuple(g.shape)} {g.dtype}")
         del got, want
         library = sdpa_backward(q, k, v, do, kw)
-        t_ = times(lambda: att.flash_attention_backward(q, k, v, o, do, **kw),
+
+        def kernel():
+            return att.flash_attention_backward(q, k, v, o, do, lse, **kw)
+        t_ = times(kernel,
                    lambda: att.flash_attention_backward_plain(q, k, v, o, do,
                                                               **kw),
                    5, 2)
         t_["library_ms"] = timed_cuda(library, 5) if library else None
         out["cases"][label] = dict(
             shape=[[b, s, h, hd], [b, t, kv, hd], [b, t, kv, hdv]],
-            dtype=str(dt).replace("torch.", ""), kwargs=kw, err=err, **t_,
+            dtype=str(dt).replace("torch.", ""), kwargs=kw, err=err,
+            lse_err=lse_err, **t_, **bwd_split(kernel),
             forward_ms=device_ms(lambda: att.flash_attention(q, k, v, **kw),
                                  5),
+            forward_lse_ms=device_ms(
+                lambda: att.flash_attention_with_lse(q, k, v, **kw), 5),
             bound=bwd_bound(q, k, v, kw))
         out["err"] = max(out["err"], err)
-        del q, k, v, o, do, library
+        out["lse_err"] = max(out["lse_err"], lse_err)
+        del q, k, v, o, lse, do, library
         torch.cuda.empty_cache()
     log("phase 17: flash backward kernels == plain within " + "; ".join(
         f"{str(d)[6:]} (atol, rtol) {tol}" for d, tol in BWD_TOL.items())
-        + ": " + "; ".join(
-            f"{k}: max abs err {c['err']:.3g}, {c['ms']:.4f} ms on the card "
-            f"({c['call_ms']:.4f} ms a call; the forward {c['forward_ms']:.4f}"
-            f" ms), plain {c['plain_ms']:.4f} ms, SDPA's backward "
+        + ", the forward's log-sum-exp within " + "; ".join(
+            f"{str(d)[6:]} {tol}" for d, tol in LSE_TOL.items()) + ": "
+        + "; ".join(
+            f"{k}: max abs err {c['err']:.3g} (log-sum-exp "
+            f"{c['lse_err']:.3g}), {c['ms']:.4f} ms on the card "
+            f"({c['call_ms']:.4f} ms a call; dQ {ms_text(c['dq_ms'])} + "
+            f"dK/dV {ms_text(c['dkdv_ms'])} ms profiled, "
+            + (f"{BWD_WINDOWS} windows empty" if c["split_windows"] is None
+               else f"window {c['split_windows']} of {BWD_WINDOWS}")
+            + "; the forward "
+            f"{c['forward_ms']:.4f} ms, with its log-sum-exp "
+            f"{c['forward_lse_ms']:.4f}), plain {c['plain_ms']:.4f} ms, "
+            "SDPA's backward "
             + ("none (no soft cap)" if c["library_ms"] is None
                else f"{c['library_ms']:.4f} ms")
             + f", bound {c['bound'][0]:.4f} ms ({c['bound'][1]})"
             for k, c in out["cases"].items()))
+    log("phase 17: before the Hopper redesign, quoted from PERF.md and not "
+        "measured in this run: " + "; ".join(
+            f"{k}: {ms} ms" for k, ms in BWD_BEFORE_MS.items()))
     return out
 
 
@@ -3690,22 +3765,28 @@ def backward_kernel_row(bwd: dict, training: dict, ptxas: dict) -> dict:
         "replaces": "src/repro/models/attention.py:64",
         "note": "no Pallas counterpart: the reference differentiates its "
                 "jnp _sdpa (models/attention.py:64-78) with XLA's autodiff",
-        "kernel": "flash_bwd_dq_kernel<T, D> + flash_bwd_dkdv_kernel<T, D>",
+        "kernel": "bwd_dq_f32<D> + bwd_dkdv_f32<D, KB> (f32), "
+                  "bwd_dq_bf16<D, NWG> + bwd_dkdv_bf16<D, SPLIT> "
+                  "(bf16, wgmma)",
         "launches": training["launches"]["flash_attention_backward"],
         "launches_by_path": {"training": training["launches"][
             "flash_attention_backward"]},
-        "max_abs_err": bwd["err"], "ms": head["ms"],
-        "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
+        "max_abs_err": bwd["err"], "lse_max_abs_err": bwd["lse_err"],
+        "ms": head["ms"], "call_ms": head["call_ms"],
+        "dq_ms": head["dq_ms"], "dkdv_ms": head["dkdv_ms"],
+        "split_windows": head["split_windows"],
+        "plain_ms": head["plain_ms"],
         "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
         "library_ms": head["library_ms"],
         "library": "torch.autograd.grad through "
                    "torch.nn.functional.scaled_dot_product_attention",
         "shape": head["shape"], "dtype": head["dtype"],
-        "ptxas": {k: v for k, v in ptxas.items()
-                  if k.startswith("flash_bwd")},
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith("bwd_")},
         "large": {k: {f: v[f] for f in ("shape", "dtype", "ms", "call_ms",
-                                        "plain_ms", "library_ms",
-                                        "forward_ms", "err")}
+                                        "dq_ms", "dkdv_ms",
+                                        "split_windows", "plain_ms",
+                                        "library_ms", "forward_ms",
+                                        "forward_lse_ms", "err", "lse_err")}
                   | {"bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
                   for k, v in bwd["cases"].items() if k != BWD_TRAINING}}
 
@@ -3804,8 +3885,7 @@ def attention_kernel_rows(ak: dict, serving: dict, path: dict, subs: dict,
             "shape": head["shape"], "dtype": head["dtype"],
             "families_path_shapes": [timed(t) for t in subs["path"][name]],
             "ptxas": {k: v for k, v in ptxas.items()
-                      if k.startswith(name.split("_")[0])
-                      and not k.startswith("flash_bwd")},
+                      if k.startswith(name.split("_")[0])},
             "large": large}
         if name == "decode_attention":
             row["softcap_gemma2"] = {k: timed(v) for k, v in
@@ -3908,7 +3988,8 @@ def ptxas_summary(log_text: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             k = re.search(r"(flash_kernel_f32|flash_kernel_bf16|"
-                          r"flash_bwd_dq_kernel|flash_bwd_dkdv_kernel|"
+                          r"bwd_dq_bf16|bwd_dkdv_bf16|bwd_dq_f32|"
+                          r"bwd_dkdv_f32|"
                           r"decode_partial_kernel_tc|decode_partial_kernel|"
                           r"decode_combine_kernel|conv_scan_kernel|"
                           r"ext_scan_kernel)"
@@ -3974,6 +4055,11 @@ def main() -> int:
             f"{k}: {v['registers']} registers, {v['spill_stores']} B spill "
             f"stores, {v['spill_loads']} B spill loads"
             for k, v in summary.items()))
+    spills = [k for k, v in att_ptxas.items() if k.startswith("bwd_")
+              and (v["spill_stores"] or v["spill_loads"])]
+    if spills or not any(k.startswith("bwd_") for k in att_ptxas):
+        fail(f"the flash backward kernels spill ({spills}) or are missing "
+             "from the ptxas report")
 
     k = phase_kernels(env, dev)
     phase_golden(env, dev)

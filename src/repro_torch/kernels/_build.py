@@ -5,7 +5,8 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, at first use, into
 ``build/repro_torch/`` at the root of the checkout (listed in
 ``.gitignore``).  The library's name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library never loads.
+flags (and of the shared headers ``csrc/*.cuh``), so an edited source is
+rebuilt and a stale library never loads.
 Each ``nvcc`` run is counted by ``obs.metrics.record_build`` (the
 ``kernel_builds`` and ``kernel_build_seconds`` counters).
 """
@@ -48,8 +49,10 @@ def nvcc() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     return src, BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -53,17 +53,25 @@ average over the T real keys.)
 
 Gradients: ``flash_attention`` applies ``FlashAttention``, a
 ``torch.autograd.Function`` whose forward is the launch above and whose
-backward is ``flash_attention_backward``: the hand-written kernels of
-``csrc/attention_bwd.cu`` (a dQ kernel that first recomputes each row's
-log-sum-exp and ``D = rowsum(dO * O)``, and a dK/dV kernel that sums the
-G heads of a group inside its block; f32 on the CUDA cores for both
-dtypes) on CUDA tensors, the explicit formula
-``flash_attention_backward_plain`` on CPU tensors.  Masked logits are
-constants (-2e38), so no gradient flows through them; a row with no
+backward is ``flash_attention_backward``.  When an input needs a
+gradient, the forward also keeps each row's log-sum-exp (the kernels'
+epilogue stores ``m + log2(l)``, base 2, (B, S, H) f32; serving runs
+under ``no_grad`` and stores none), and the backward reads P from it
+instead of recomputing it.  On CUDA tensors the backward is the
+hand-written kernels of ``csrc/attention_bwd.cu``: a dQ kernel that also
+writes ``D = rowsum(dO * O)``, then a dK/dV kernel that sums the G heads
+of a group inside its block (no atomics: gradients equal bit for bit
+from run to run); bf16 on the tensor cores (``wgmma``: S, dP, dQ, dK and
+dV with P and dS rounded to bf16 as A operands, f32 sums), f32 on the
+CUDA cores, register-tiled.  On CPU tensors it is the explicit formula
+``flash_attention_backward_plain`` (``flash_lse_plain`` for the
+log-sum-exp, ``torch.logsumexp`` over the masked logits).  Masked logits
+are constants (-2e38), so no gradient flows through them; a row with no
 valid key gives each key's dV ``dO / T`` and nothing to q or k, as
-autograd through the plain version does.  ``decode_attention`` has no
-backward and raises when grad mode is on and an input requires grad,
-so that no gradient is dropped without a word.
+autograd through the plain version does, and never reads its
+log-sum-exp.  ``decode_attention`` has no backward and raises when grad
+mode is on and an input requires grad, so that no gradient is dropped
+without a word.
 
 Dtypes: q, k, v float32 or bfloat16, all one type; f32 accumulation.
 On CUDA tensors each wrapper launches its kernel (and adds one to its
@@ -74,7 +82,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -82,6 +90,7 @@ from . import _build
 from ._build import supported  # noqa: F401
 
 NEG = -2.0e38
+LOG2E = 1.4426950408889634   # the kernels' softmax runs in base 2
 MAX_HEAD_DIM = 256
 MAX_GROUP = 64              # query heads per KV head a kernel block holds
 HEAD_ALIGN = 16             # head dims the kernels take are multiples
@@ -245,23 +254,47 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     ``kernels/ref.py::flash_attention``: the (B, KV, S, G, T) logits
     materialised)."""
     plain_runs["flash_attention"] += 1
+    b, s, h, _ = q.shape
+    logits, _, mask = _flash_logits(q, k, causal, window, softcap, scale)
+    w = torch.softmax(torch.where(mask, logits, NEG), dim=-1)
+    out = torch.einsum("bnsgt,btnd->bsngd", w, v.float())
+    return out.reshape(b, s, h, v.shape[3]).to(q.dtype)
+
+
+def _flash_logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                  window: int, softcap: float, scale: Optional[float]):
+    """(logits (B, KV, S, G, T) f32 after the scale and the soft cap,
+    the cap's tanh or None, the (1, 1, S, 1, T) mask of valid keys)."""
     b, s, h, hd = q.shape
-    t, kvh, hdv = k.shape[1], k.shape[2], v.shape[3]
+    t, kvh = k.shape[1], k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
     qg = q.reshape(b, s, kvh, h // kvh, hd).float()
     logits = torch.einsum("bsngd,btnd->bnsgt", qg, k.float()) * scale
+    th = None
     if softcap:
-        logits = softcap * torch.tanh(logits / softcap)
+        th = torch.tanh(logits / softcap)
+        logits = softcap * th
     i = torch.arange(s, device=q.device)[:, None]
     j = torch.arange(t, device=q.device)[None, :]
     mask = (j <= i) if causal else torch.ones((s, t), dtype=torch.bool,
                                               device=q.device)
     if window:
         mask = mask & (i - j < window)
-    logits = torch.where(mask[None, None, :, None, :], logits, NEG)
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bnsgt,btnd->bsngd", w, v.float())
-    return out.reshape(b, s, h, hdv).to(q.dtype)
+    return logits, th, mask[None, None, :, None, :]
+
+
+def flash_lse_plain(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                    window: int = 0, softcap: float = 0.0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of the log-sum-exp the flash forward keeps:
+    ``torch.logsumexp`` over each row's masked logits, in base 2 as the
+    kernels store it (divided by ln 2), (B, S, H) f32.  A row with no
+    valid key gets about -2.9e38 here and about -2e38 from a kernel; the
+    backward never reads it."""
+    b, s, h, _ = q.shape
+    logits, _, mask = _flash_logits(q, k, causal, window, softcap, scale)
+    lse = torch.logsumexp(torch.where(mask, logits, NEG), dim=-1) * LOG2E
+    return lse.permute(0, 2, 1, 3).reshape(b, s, h).contiguous()
 
 
 def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -278,23 +311,24 @@ def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """``flash_attention`` with its backward: the forward launch (or plain
-    version) and ``flash_attention_backward`` on the saved q, k, v and
-    output."""
+    version), which keeps the log-sum-exp when ``with_lse`` (an input
+    needs a gradient), and ``flash_attention_backward`` on the saved q,
+    k, v, output and log-sum-exp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, scale):
-        out = _flash_forward(q, k, v, causal=causal, window=window,
-                             softcap=softcap, scale=scale)
-        ctx.save_for_backward(q, k, v, out)
-        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
-                      scale=scale)
+    def forward(ctx, q, k, v, causal, window, softcap, scale, with_lse):
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        out, lse = _flash_forward(q, k, v, with_lse=with_lse, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, out, dout, **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout, lse,
+                                              **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -305,24 +339,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, S, H, hdv) in q's dtype.  H = KV * G (grouped-query attention).
     Differentiable in q, k and v (``FlashAttention``)."""
     _check_flash(q, k, v, window, softcap)
-    return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    # ctx.needs_input_grad holds under no_grad too: ask grad mode here
+    with_lse = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    return FlashAttention.apply(q, k, v, causal, window, softcap, scale,
+                                with_lse)
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention``'s output and the base-2 log-sum-exp (B, S, H)
+    f32 its backward reads (``flash_lse_plain`` on the CPU); one forward
+    launch, no autograd."""
+    _check_flash(q, k, v, window, softcap)
+    return _flash_forward(q, k, v, causal=causal, window=window,
+                          softcap=softcap, scale=scale, with_lse=True)
 
 
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, window: int, softcap: float,
-                   scale: Optional[float]) -> torch.Tensor:
-    """The forward of ``flash_attention``: its kernel, or on the CPU its
-    plain version."""
+                   scale: Optional[float], with_lse: bool = False
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward of ``flash_attention`` and, ``with_lse``, its base-2
+    log-sum-exp (else None): its kernel, or on the CPU its plain
+    versions."""
     b, s, h, hd = q.shape
     t, kvh, hdv = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, **kw)
+        return (flash_attention_plain(q, k, v, **kw),
+                flash_lse_plain(q, k, **kw) if with_lse else None)
     _build.require_cuda(dev, "flash_attention")
     out = torch.empty((b, s, h, hdv), dtype=q.dtype, device=dev)
+    lse = (torch.empty((b, s, h), dtype=torch.float32, device=dev)
+           if with_lse else None)
     if b == 0 or s == 0:            # nothing to attend: no launch
-        return out
+        return out, lse
     scale = hd ** -0.5 if scale is None else float(scale)
     q, k, v = (_aligned(pad_head_dim(x)) for x in (q, k, v))
     hdp, hdvp = q.shape[-1], v.shape[-1]
@@ -331,26 +387,30 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ptr = _build.ptr
     with torch.cuda.device(dev):
         err = _lib().flash_attention_launch(
-            ptr(q), ptr(k), ptr(v), ptr(res), _DTYPES[q.dtype], b, s, t, h,
-            kvh, hdp, hdvp, int(causal), int(window), float(softcap), scale,
-            _build.stream(dev))
+            ptr(q), ptr(k), ptr(v), ptr(res), ptr(lse), _DTYPES[q.dtype], b,
+            s, t, h, kvh, hdp, hdvp, int(causal), int(window),
+            float(softcap), scale, _build.stream(dev))
     _build.raise_on(err, "flash_attention")
     launches["flash_attention"] += 1
     if res is not out:
         out.copy_(res[..., :hdv])
-    return out
+    return out, lse
 
 
 # ---------------------------------------------------- flash backward
 
 def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, o: torch.Tensor,
-                                   dout: torch.Tensor, *, causal: bool = True,
-                                   window: int = 0, softcap: float = 0.0,
+                                   dout: torch.Tensor,
+                                   lse: Optional[torch.Tensor] = None, *,
+                                   causal: bool = True, window: int = 0,
+                                   softcap: float = 0.0,
                                    scale: Optional[float] = None):
     """Plain PyTorch version of ``flash_attention_backward``: the explicit
-    formula over the materialised (B, KV, S, G, T) logits, P recomputed
-    under the reference's -2e38 masks, ``D = rowsum(dO * O)``, and the
+    formula over the materialised (B, KV, S, G, T) logits, P under the
+    reference's -2e38 masks (the softmax, or ``2^(logit * log2(e) -
+    lse)`` from the forward's base-2 ``lse`` where given, 1/T over all
+    keys in a row with no valid key), ``D = rowsum(dO * O)``, and the
     soft cap's derivative ``1 - tanh^2``."""
     plain_runs["flash_attention_backward"] += 1
     b, s, h, hd = q.shape
@@ -359,18 +419,13 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     scale = hd ** -0.5 if scale is None else scale
     qg = q.reshape(b, s, kvh, g, hd).float()
     kf, vf = k.float(), v.float()
-    logits = torch.einsum("bsngd,btnd->bnsgt", qg, kf) * scale
-    if softcap:
-        th = torch.tanh(logits / softcap)
-        logits = softcap * th
-    i = torch.arange(s, device=q.device)[:, None]
-    j = torch.arange(t, device=q.device)[None, :]
-    mask = (j <= i) if causal else torch.ones((s, t), dtype=torch.bool,
-                                              device=q.device)
-    if window:
-        mask = mask & (i - j < window)
-    mask = mask[None, None, :, None, :]
-    p = torch.softmax(torch.where(mask, logits, NEG), dim=-1)
+    logits, th, mask = _flash_logits(q, k, causal, window, softcap, scale)
+    if lse is None:
+        p = torch.softmax(torch.where(mask, logits, NEG), dim=-1)
+    else:
+        lse_r = lse.reshape(b, s, kvh, g).permute(0, 2, 1, 3)[..., None]
+        p = torch.where(mask, torch.exp2(logits * LOG2E - lse_r), 0.0)
+        p = torch.where(mask.any(-1, keepdim=True), p, 1.0 / t)
     dog = dout.reshape(b, s, kvh, g, hdv).float()
     dv = torch.einsum("bnsgt,bsngd->btnd", p, dog)
     dp = torch.einsum("bsngd,btnd->bnsgt", dog, vf)
@@ -387,12 +442,16 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
-                             dout: torch.Tensor, *, causal: bool = True,
-                             window: int = 0, softcap: float = 0.0,
+                             dout: torch.Tensor,
+                             lse: Optional[torch.Tensor] = None, *,
+                             causal: bool = True, window: int = 0,
+                             softcap: float = 0.0,
                              scale: Optional[float] = None):
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` whose output is ``o``,
-    given the output's gradient ``dout`` (B, S, H, hdv); each in its
-    input's dtype and shape."""
+    given the output's gradient ``dout`` (B, S, H, hdv) and the forward's
+    base-2 log-sum-exp ``lse`` (B, S, H) f32 (``flash_attention_with_lse``;
+    required on the card, recomputed by the plain version when None);
+    each in its input's dtype and shape."""
     _check_flash(q, k, v, window, softcap)
     b, s, h, hd = q.shape
     t, kvh, hdv = k.shape[1], k.shape[2], v.shape[3]
@@ -400,10 +459,16 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     dout = dout.contiguous()
     for name, x in (("o", o), ("dout", dout)):
         _build.check(name, x.contiguous(), q.dtype, (b, s, h, hdv), dev)
+    if lse is not None:
+        _build.check("lse", lse, torch.float32, (b, s, h), dev)
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if dev.type == "cpu":
-        return flash_attention_backward_plain(q, k, v, o, dout, **kw)
+        return flash_attention_backward_plain(q, k, v, o, dout, lse, **kw)
     _build.require_cuda(dev, "flash_attention_backward")
+    if lse is None:
+        raise ValueError("flash_attention_backward on the card reads the "
+                         "forward's log-sum-exp: pass lse "
+                         "(flash_attention_with_lse)")
     dq, dk, dv = (torch.empty_like(x, memory_format=torch.contiguous_format)
                   for x in (q, k, v))
     if b == 0 or s == 0:            # no query: no gradient, no launch
@@ -413,13 +478,12 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     hdp, hdvp = q.shape[-1], v.shape[-1]
     rq, rk, rv = (x if x.shape[-1] == y.shape[-1] else torch.empty_like(y)
                   for x, y in ((dq, q), (dk, k), (dv, v)))
-    lse = torch.empty((b, s, h), dtype=torch.float32, device=dev)
-    dvec = torch.empty_like(lse)
+    dvec = torch.empty((b, s, h), dtype=torch.float32, device=dev)
     ptr = _build.ptr
     with torch.cuda.device(dev):
         err = _bwd_lib().flash_attention_backward_launch(
-            ptr(q), ptr(k), ptr(v), ptr(o), ptr(dout), ptr(rq), ptr(rk),
-            ptr(rv), ptr(lse), ptr(dvec), _DTYPES[q.dtype], b, s, t, h, kvh,
+            ptr(q), ptr(k), ptr(v), ptr(o), ptr(dout), ptr(lse), ptr(rq),
+            ptr(rk), ptr(rv), ptr(dvec), _DTYPES[q.dtype], b, s, t, h, kvh,
             hdp, hdvp, int(causal), int(window), float(softcap), scale,
             _build.stream(dev))
     _build.raise_on(err, "flash_attention_backward")
@@ -453,7 +517,7 @@ def _lib() -> ctypes.CDLL:
     raises if its chunk cap is not ``DECODE_MAX_CHUNK``."""
     lib = _build.load("attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 10 + [f, f, p]
+    lib.flash_attention_launch.argtypes = [p] * 5 + [i] * 10 + [f, f, p]
     lib.decode_attention_launch.argtypes = [p] * 4 + [i] * 7 + [f, f] + [p] * 5
     lib.decode_max_chunk.argtypes = []
     for fn in (lib.flash_attention_launch, lib.decode_attention_launch,

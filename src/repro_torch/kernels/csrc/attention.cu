@@ -1,8 +1,8 @@
 // The two attention kernels for Hopper (sm_90a): the hand-written CUDA
 // counterparts of the Pallas kernels of src/repro/kernels/.
 //
-//   flash_kernel_bf16<D>      <- _flash_kernel (flash_attn.py:47, called
-//   flash_kernel_f32<D>          at :128): one entry point, two designs
+//   flash_kernel_bf16<D, LSE> <- _flash_kernel (flash_attn.py:47, called
+//   flash_kernel_f32<D, LSE>     at :128): one entry point, two designs
 //   decode_partial_kernel<..> <- _decode_kernel (decode_attn.py:26, called
 //   decode_combine_kernel        at :87), split over chunks of T
 //
@@ -27,9 +27,12 @@
 // once.  Head dims are compile-time ceilings D in {64, 128, 256}; the copy
 // zero-fills the columns past hd (hdv), so the d loops have fixed bounds.
 // The wrapper pads head dims to a multiple of 16 (a zero column changes no
-// dot product).
+// dot product).  With LSE the epilogue also stores each row's base-2
+// log-sum-exp m + log2(l) for the backward (attention_bwd.cu); without it
+// (serving, under no_grad) the kernel is what it was before the flag.
+// The pieces both flash sources share are in flash_common.cuh.
 //
-// flash_kernel_bf16<D>: bound by operations on the tensor cores (989
+// flash_kernel_bf16: bound by operations on the tensor cores (989
 // TFLOP/s dense bf16; the serving shape's causal S = T = 1024 is 69 GFLOP
 // against 34 MB).  Two warpgroups of 64 rows (BM = 128), two blocks an SM
 // up to D = 128.  S = Q K^T is wgmma.mma_async m64n64k16 with Q and K
@@ -48,7 +51,7 @@
 // Copies are cp.async, not TMA, and the warpgroups are not specialised:
 // both are later work.
 //
-// flash_kernel_f32<D>: full f32 on the CUDA cores (TF32 would not hold the
+// flash_kernel_f32: full f32 on the CUDA cores (TF32 would not hold the
 // f32 tolerances), bound by operations at 67 TFLOP/s.  A CUDA-core tile
 // loop is bound by shared-memory bandwidth per FMA, so the design is
 // register tiling as in an SGEMM: 16 x 16 threads (8 x 16 at D = 256),
@@ -95,20 +98,18 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr float NEG = -2.0e38f;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr int MAX_HEAD_DIM = 256;
-constexpr int MAX_SMEM = 232448;   // a block's shared memory on sm_90
-constexpr int BK = 64;             // keys a flash tile
 
 constexpr int MAX_GROUP = 64;      // query heads a KV head, at most
 constexpr int COMBINE_THREADS = 128;
 constexpr int DEC_GB = 8;          // heads a pass over v
 constexpr int DEC_MAX_CHUNK = 256;
+
+constexpr float NEG = -2.0e38f;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) {
@@ -116,28 +117,6 @@ template <> __device__ __forceinline__ float to_f<float>(float x) {
 }
 template <> __device__ __forceinline__ float to_f<bf16>(bf16 x) {
   return __bfloat162float(x);
-}
-
-// ------------------------------------------------------- async copies
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; with full == false nothing is read and the
-// 16 bytes are zero-filled (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ------------------------------------------------- flash, both designs
@@ -168,24 +147,6 @@ __device__ __forceinline__ bool tile_masked(const KeyRange& kr, int k0,
          (window > 0 && k0 <= q_last - window);
 }
 
-// 2^x by the special-function unit (relative error ~2^-22; 2^-inf = 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A raw score's way into the base-2 domain: s * scale * log2(e), or with
-// a soft cap softcap * log2(e) * tanh(s * scale / softcap).
-struct LogitScale {
-  float mul, cap, inv;
-};
-__host__ __device__ inline LogitScale logit_scale(float scale,
-                                                  float softcap) {
-  if (softcap > 0.f) return {0.f, softcap * LOG2E, scale / softcap};
-  return {scale * LOG2E, 0.f, 0.f};
-}
-
 // A raw score in the base-2 domain, with no masks (decode applies its
 // validity mask itself).
 __device__ __forceinline__ float scaled2(float s, const LogitScale& ls) {
@@ -208,86 +169,10 @@ __device__ __forceinline__ float logit2(float s, const LogitScale& ls,
   return x;
 }
 
-// Rows [0, BM) of a block <- q rows (b, q0 + r / G, kvh * G + r % G), D
-// columns of which the first hd are real; dst(r, chunk) gives the shared
-// address of a row's 16-byte chunk.
-template <typename T, int D, int BM, int NT, typename Dst>
-__device__ __forceinline__ void load_q(const T* q, int b, int S, int H,
-                                       int kvh, int G, int hd, int q0,
-                                       int rows, Dst dst) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = D / VEC;
-  for (int e = threadIdx.x; e < BM * CPR; e += NT) {
-    const int r = e / CPR, c = e % CPR;
-    const int qp = q0 + r / G;
-    const bool ok = r < rows && qp < S && c * VEC < hd;
-    const T* src =
-        ok ? q + ((static_cast<long long>(b) * S + qp) * H + kvh * G + r % G)
-                     * hd + c * VEC
-           : q;
-    cp_async16(dst(r, c), src, ok);
-  }
-}
-
-// Keys [k0, k0 + BK) of KV head kvh, `width` real columns of D.  When a
-// thread's chunks are one column 8 or more rows apart, its source and
-// destination step linearly (the swizzles repeat every 8 rows), so each
-// copy costs an add instead of the index arithmetic.
-template <typename T, int D, int NT, typename Dst>
-__device__ __forceinline__ void load_kv(const T* src, int b, int Tk, int KV,
-                                        int kvh, int width, int k0,
-                                        Dst dst) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = D / VEC;
-  if constexpr (NT % CPR == 0 && (NT / CPR) % 8 == 0) {
-    constexpr int RSTEP = NT / CPR;
-    const int c = threadIdx.x % CPR, j0 = threadIdx.x / CPR;
-    const long long rs = static_cast<long long>(KV) * width;
-    const T* s0 = src + (static_cast<long long>(b) * Tk + k0 + j0) * rs +
-                  static_cast<long long>(kvh) * width + c * VEC;
-    auto d0 = dst(j0, c);
-    const auto dstep = dst(j0 + RSTEP, c) - d0;
-    const bool col = c * VEC < width;
-#pragma unroll
-    for (int i = 0; i < BK / RSTEP; ++i) {
-      const bool ok = col && k0 + j0 + i * RSTEP < Tk;
-      cp_async16(d0 + i * dstep, ok ? s0 + i * RSTEP * rs : src, ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < BK * CPR; e += NT) {
-      const int j = e / CPR, c = e % CPR;
-      const int kp = k0 + j;
-      const bool ok = kp < Tk && c * VEC < width;
-      const T* s = ok ? src + ((static_cast<long long>(b) * Tk + kp) * KV +
-                               kvh) * width + c * VEC
-                      : src;
-      cp_async16(dst(j, c), s, ok);
-    }
-  }
-}
-
-// ---------------------------------------------- flash, bf16, wgmma
-
-// Shared tiles of 64 rows for wgmma: blocks of 64 columns (128 bytes a
-// row), each [64 rows][128 B] with the 128-byte swizzle (16-byte chunk c
-// of row r at chunk c ^ (r % 8)), every block 1024-byte aligned.
-__device__ __forceinline__ bf16* sw128(bf16* base, int row, int chunk) {
-  return base + (chunk >> 3) * 64 * 64 + row * 64 +
-         (((chunk & 7) ^ (row & 7)) << 3);
-}
-
-// A wgmma shared-memory descriptor with the 128-byte swizzle; lbo and sbo
-// in bytes.
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
+// Q row r starts at r * D + (r / 8) * 4: rows 8 apart, which share a
+// warp's 16-byte loads, land on different banks.
+template <int D> __device__ __forceinline__ int q_row(int r) {
+  return r * D + (r >> 3) * 4;
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -315,164 +200,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_arrive() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// d (+)= A . B, m64n64k16 bf16 -> f32, A and B from shared memory
-// through descriptors (both K-major); accumulate == 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A . B, m64n64k16 bf16 -> f32, A from registers (the mma.sync
-// A fragment of each warp's 16 rows), B from shared memory through a
-// descriptor, MN-major (transposed).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A . B, m64n128k16 bf16 -> f32, A from registers (the mma.sync
-// A fragment of each warp's 16 rows), B from shared memory through a
-// descriptor, MN-major (transposed).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
-      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
-      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A . B, m64n256k16 bf16 -> f32, A from registers (the mma.sync
-// A fragment of each warp's 16 rows), B from shared memory through a
-// descriptor, MN-major (transposed).
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
-      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
-      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, "
-      "%68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, "
-      "%79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
-      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, "
-      "%101, %102, %103, %104, %105, %106, %107, %108, %109, "
-      "%110, %111, %112, %113, %114, %115, %116, %117, %118, "
-      "%119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int D> struct PV;
-template <> struct PV<64> {
-  __device__ static void mma(float (&o)[32], const uint32_t (&a)[4],
-                             uint64_t db) { wgmma_rs_n64(o, a, db); }
-};
-template <> struct PV<128> {
-  __device__ static void mma(float (&o)[64], const uint32_t (&a)[4],
-                             uint64_t db) { wgmma_rs_n128(o, a, db); }
-};
-template <> struct PV<256> {
-  __device__ static void mma(float (&o)[128], const uint32_t (&a)[4],
-                             uint64_t db) { wgmma_rs_n256(o, a, db); }
-};
-
 constexpr int TC_WGS = 2;            // warpgroups (of 64 rows) a block
 constexpr int TC_BM = 64 * TC_WGS;   // rows a block
 constexpr int TC_THREADS = 128 * TC_WGS;
@@ -489,10 +216,11 @@ template <int D> constexpr int tc_smem_bytes() {
 // fragment of n8 tile nd the value columns 8nd + 2(l%4) + {0, 1}.  K and
 // V of tile t + 1 are copied in while tile t runs (two buffers each).
 // Two blocks share an SM up to D = 128.
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(TC_THREADS, D <= 128 ? 2 : 1)
 flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ out, int S,
+                  const bf16* __restrict__ v, bf16* __restrict__ out,
+                  float* __restrict__ lse, int S,
                   int Tk, int H, int KV, int hd, int hdv, int G, int bq,
                   int n_qt, int causal, int window, float softcap,
                   float scale) {
@@ -635,8 +363,10 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (!row_ok[i]) continue;
     const float inv = 1.f / fmaxf(lt, 1e-30f);
     const int r = 64 * wg + warp * 16 + (lane >> 2) + 8 * i;
-    bf16* dst = out + ((static_cast<long long>(b) * S + qpos[i]) * H +
-                       kvh * G + r % G) * hdv;
+    const long long row = (static_cast<long long>(b) * S + qpos[i]) * H +
+                          kvh * G + r % G;
+    if (LSE && (lane & 3) == 0) lse[row] = m[i] + log2f(lt);
+    bf16* dst = out + row * hdv;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd) {
       const int c = 8 * nd + 2 * (lane & 3);
@@ -660,19 +390,15 @@ template <int D> struct F32Tile {
       static_cast<int>(sizeof(float)) * (QF + 2 * BK * LDK + BK * LDP);
 };
 
-// Q row r starts at r * D + (r / 8) * 4: rows 8 apart, which share a
-// warp's 16-byte loads, land on different banks.
-template <int D> __device__ __forceinline__ int q_row(int r) {
-  return r * D + (r >> 3) * 4;
-}
 
 // Thread (rg, kg) = (tid / 16, tid % 16) owns rows 8rg + i (i < 8); in
 // the scores keys kg + 16j (j < 4), in the accumulator value columns
 // 4kg + 64jj + e (jj < D / 64, e < 4).
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(F32Tile<D>::NT)
 flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int S,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int S,
                  int Tk, int H, int KV, int hd, int hdv, int G, int bq,
                  int n_qt, int causal, int window, float softcap,
                  float scale) {
@@ -822,8 +548,10 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int qp = q0 + r / G;
     if (r >= rows || qp >= S) continue;
     const float inv = 1.f / fmaxf(lt, 1e-30f);
-    float* dst = out + ((static_cast<long long>(b) * S + qp) * H + kvh * G +
-                        r % G) * hdv;
+    const long long row = (static_cast<long long>(b) * S + qp) * H +
+                          kvh * G + r % G;
+    if (LSE && kg == 0) lse[row] = m[i] + log2f(lt);
+    float* dst = out + row * hdv;
 #pragma unroll
     for (int jj = 0; jj < D / 64; ++jj) {
       const int c = 4 * kg + 64 * jj;
@@ -839,43 +567,44 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t flash_f32(const void* q, const void* k, const void* v,
-                      void* out, int B, int S, int Tk, int H, int KV, int hd,
-                      int hdv, int causal, int window, float softcap,
-                      float scale, cudaStream_t stream) {
+                      void* out, float* lse, int B, int S, int Tk, int H,
+                      int KV, int hd, int hdv, int causal, int window,
+                      float softcap, float scale, cudaStream_t stream) {
   using C = F32Tile<D>;
   static_assert(C::SMEM <= MAX_SMEM, "f32 flash tile exceeds shared memory");
   const int G = H / KV;
   const int bq = C::BM / G;
   const int n_qt = (S + bq - 1) / bq;
+  auto kernel = lse ? flash_kernel_f32<D, true> : flash_kernel_f32<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
-  flash_kernel_f32<D><<<dim3(n_qt, KV, B), C::NT, C::SMEM, stream>>>(
+  kernel<<<dim3(n_qt, KV, B), C::NT, C::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, Tk, H, KV,
-      hd, hdv, G, bq, n_qt, causal, window, softcap, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, Tk, H,
+      KV, hd, hdv, G, bq, n_qt, causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t flash_bf16(const void* q, const void* k, const void* v,
-                       void* out, int B, int S, int Tk, int H, int KV, int hd,
-                       int hdv, int causal, int window, float softcap,
-                       float scale, cudaStream_t stream) {
+                       void* out, float* lse, int B, int S, int Tk, int H,
+                       int KV, int hd, int hdv, int causal, int window,
+                       float softcap, float scale, cudaStream_t stream) {
   constexpr int smem = tc_smem_bytes<D>();
   static_assert(smem <= MAX_SMEM, "bf16 flash tile exceeds shared memory");
   const int G = H / KV;
   const int bq = TC_BM / G;
   const int n_qt = (S + bq - 1) / bq;
+  auto kernel =
+      lse ? flash_kernel_bf16<D, true> : flash_kernel_bf16<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_kernel_bf16<D><<<dim3(n_qt, KV, B), TC_THREADS, smem, stream>>>(
+  kernel<<<dim3(n_qt, KV, B), TC_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, Tk, H, KV, hd,
-      hdv, G, bq, n_qt, causal, window, softcap, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, Tk, H,
+      KV, hd, hdv, G, bq, n_qt, causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -1472,25 +1201,31 @@ extern "C" {
 
 // q (B, S, H, hd), k (B, T, KV, hd), v (B, T, KV, hdv) -> out (B, S, H,
 // hdv), all of one type (dtype 0: float, 1: bf16), contiguous, head dims
-// multiples of 16, at most 64 query heads a KV head.
+// multiples of 16, at most 64 query heads a KV head.  lse, when not null,
+// gets each row's base-2 log-sum-exp (B, S, H) f32: m + log2(l) over the
+// logits x * log2(e) (a row with no valid key gets NEG + log2(T)); the
+// store is a template flag, so a call without it runs the kernel as it
+// was before the flag existed.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int dtype, int B, int S, int Tk, int H,
-                           int KV, int hd, int hdv, int causal, int window,
-                           float softcap, float scale, void* stream) {
+                           void* out, void* lse, int dtype, int B, int S,
+                           int Tk, int H, int KV, int hd, int hdv, int causal,
+                           int window, float softcap, float scale,
+                           void* stream) {
   if (!shapes_ok(B, H, KV, hd) || S <= 0 || Tk <= 0 || H / KV > MAX_GROUP ||
       hdv <= 0 || hdv > MAX_HEAD_DIM || hdv % 16 != 0)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lf = static_cast<float*>(lse);
   const int dmax = hd > hdv ? hd : hdv;
-#define FLASH_CASE(D)                                                        \
-  if (dmax <= D) {                                                           \
-    if (dtype == 0)                                                          \
-      return flash_f32<D>(q, k, v, out, B, S, Tk, H, KV, hd, hdv, causal,    \
-                          window, softcap, scale, st);                       \
-    if (dtype == 1)                                                          \
-      return flash_bf16<D>(q, k, v, out, B, S, Tk, H, KV, hd, hdv, causal,   \
-                           window, softcap, scale, st);                      \
-    return cudaErrorInvalidValue;                                            \
+#define FLASH_CASE(D)                                                       \
+  if (dmax <= D) {                                                          \
+    if (dtype == 0)                                                         \
+      return flash_f32<D>(q, k, v, out, lf, B, S, Tk, H, KV, hd, hdv,       \
+                          causal, window, softcap, scale, st);              \
+    if (dtype == 1)                                                         \
+      return flash_bf16<D>(q, k, v, out, lf, B, S, Tk, H, KV, hd, hdv,      \
+                           causal, window, softcap, scale, st);             \
+    return cudaErrorInvalidValue;                                           \
   }
   FLASH_CASE(64)
   FLASH_CASE(128)

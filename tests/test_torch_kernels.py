@@ -726,9 +726,7 @@ def test_decode_attention_kernel_matches_plain(cuda_device, dtype, b, h,
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,t,h,kv,hd,hdv,causal,window,cap", [
+FLASH_CASES = [  # b, s, t, h, kv, hd, hdv, causal, window, cap
     (2, 256, 256, 4, 2, 64, 64, True, 0, 0.0),
     (1, 200, 200, 4, 4, 32, 32, True, 0, 50.0),
     (2, 128, 384, 2, 1, 64, 32, False, 0, 0.0),
@@ -755,7 +753,12 @@ def test_decode_attention_kernel_matches_plain(cuda_device, dtype, b, h,
     (2, 1, 16, 16, 16, 64, 64, False, 0, 0.0),
     (1, 96, 96, 16, 8, 256, 256, True, 64, 50.0),
     (1, 96, 96, 16, 8, 256, 256, True, 0, 50.0),
-])
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,hd,hdv,causal,window,cap", FLASH_CASES)
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, b, s, t,
                                               h, kv, hd, hdv, causal, window,
                                               cap):
@@ -772,6 +775,39 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, b, s, t,
     atol, rtol = ATT_TOL[dtype][1]
     torch.testing.assert_close(got, att.flash_attention_plain(q, k, v, **kw),
                                rtol=rtol, atol=atol)
+
+
+# the forward's base-2 log-sum-exp against the plain one, absolute: f32
+# a few ulps of |lse| ~ 10-80; bf16 inputs are exact in f32, but the
+# tensor cores sum the products in another order
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,hd,hdv,causal,window,cap", FLASH_CASES)
+def test_flash_forward_lse_matches_plain(cuda_device, dtype, b, s, t, h, kv,
+                                         hd, hdv, causal, window, cap):
+    """The log-sum-exp the forward kernels keep for the backward, against
+    ``torch.logsumexp`` of the plain masked logits (rows with no valid
+    key excluded: the backward never reads theirs), and the same output
+    as the forward without it."""
+    rng = np.random.default_rng(s * h + t)
+    q = _randn(rng, (b, s, h, hd), dtype, cuda_device)
+    k = _randn(rng, (b, t, kv, hd), dtype, cuda_device)
+    v = _randn(rng, (b, t, kv, hdv), dtype, cuda_device)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    att.reset_launches()
+    out, lse = att.flash_attention_with_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert att.launches["flash_attention"] == 1
+    assert lse.dtype == torch.float32 and lse.shape == (b, s, h)
+    assert torch.equal(out, att.flash_attention(q, k, v, **kw))
+    want = att.flash_lse_plain(q, k, **kw)
+    keyed = want > -1e30
+    assert bool(keyed.any())
+    torch.testing.assert_close(lse[keyed], want[keyed], rtol=0,
+                               atol=LSE_TOL[dtype])
 
 
 @pytest.mark.gpu
@@ -918,6 +954,18 @@ BWD_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-3, 1.6e-2)}
     (2, 33, 33, 4, 2, 40, 24, True, 0, 0.0),
     (1, 12, 6, 8, 1, 128, 128, True, 3, 0.0),
     (1, 8, 4, 2, 1, 16, 16, True, 2, 0.0),
+    # the tiles' edges: S and T one past a tile with G = 16, G = 64 (one
+    # or two positions a dQ block), D = 256 with G = 64 and with a window
+    # and the cap (bf16: the dK/dV kernel's split columns), the training
+    # shape (the short-sequence key tile) and enough blocks for the long
+    # tiles (f32 64 keys, bf16 two warpgroups a block; MLA's head dims)
+    (2, 65, 129, 16, 1, 64, 64, False, 0, 0.0),
+    (1, 129, 65, 64, 1, 128, 128, True, 0, 0.0),
+    (1, 33, 33, 64, 1, 256, 256, True, 0, 0.0),
+    (1, 200, 200, 8, 8, 256, 256, True, 64, 30.0),
+    (8, 128, 128, 32, 8, 128, 128, True, 0, 0.0),
+    (8, 640, 640, 16, 8, 64, 64, True, 0, 0.0),
+    (8, 256, 256, 16, 16, 192, 128, True, 0, 0.0),   # f32 D = 192, 64 keys
 ])
 def test_flash_attention_backward_kernel_matches_plain(
         cuda_device, dtype, b, s, t, h, kv, hd, hdv, causal, window, cap):
@@ -927,10 +975,10 @@ def test_flash_attention_backward_kernel_matches_plain(
     k = scale * _randn(rng, (b, t, kv, hd), dtype, cuda_device)
     v = _randn(rng, (b, t, kv, hdv), dtype, cuda_device)
     kw = dict(causal=causal, window=window, softcap=cap)
-    o = att.flash_attention(q, k, v, **kw)
+    o, lse = att.flash_attention_with_lse(q, k, v, **kw)
     do = _randn(rng, (b, s, h, hdv), dtype, cuda_device)
     att.reset_launches()
-    got = att.flash_attention_backward(q, k, v, o, do, **kw)
+    got = att.flash_attention_backward(q, k, v, o, do, lse, **kw)
     torch.cuda.synchronize()
     assert att.launches["flash_attention_backward"] == 1
     want = att.flash_attention_backward_plain(q, k, v, o, do, **kw)
@@ -941,22 +989,58 @@ def test_flash_attention_backward_kernel_matches_plain(
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_is_deterministic(cuda_device, dtype):
+    """Two backward calls on the same inputs give the same dq, dk and dv
+    bit for bit (no atomics)."""
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (2, 300, 16, 128), dtype, cuda_device)
+    k = _randn(rng, (2, 300, 4, 128), dtype, cuda_device)
+    v = _randn(rng, (2, 300, 4, 128), dtype, cuda_device)
+    o, lse = att.flash_attention_with_lse(q, k, v)
+    do = _randn(rng, tuple(o.shape), dtype, cuda_device)
+    first = att.flash_attention_backward(q, k, v, o, do, lse)
+    second = att.flash_attention_backward(q, k, v, o, do, lse)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_needs_the_lse_on_the_card(cuda_device):
+    q = torch.randn(1, 8, 2, 16, device=cuda_device)
+    att.reset_launches()
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        att.flash_attention_backward(q, q, q, q, q)
+    assert att.launches["flash_attention_backward"] == 0
+
+
+@pytest.mark.gpu
 def test_flash_attention_autograd_launches_the_backward_kernel(
-        cuda_device):
+        cuda_device, monkeypatch):
     """Gradients through ``flash_attention`` on the card come from the
-    backward kernel (no plain version) and equal autograd through the
-    plain forward."""
+    backward kernel (no plain version), which reads the log-sum-exp the
+    forward kept, and equal autograd through the plain forward."""
     rng = np.random.default_rng(5)
     q, k, v = (_randn(rng, sh, torch.float32, cuda_device)
                for sh in ((2, 48, 8, 64), (2, 48, 2, 64), (2, 48, 2, 64)))
     do = _randn(rng, (2, 48, 8, 64), torch.float32, cuda_device)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    seen = []
+    backward = att.flash_attention_backward
+
+    def spy(*args, **kw):
+        seen.append(args[5])
+        return backward(*args, **kw)
+    monkeypatch.setattr(att, "flash_attention_backward", spy)
     att.reset_launches()
     got = torch.autograd.grad(att.flash_attention(*leaves), leaves, do)
     torch.cuda.synchronize()
     assert att.launches["flash_attention"] == 1
     assert att.launches["flash_attention_backward"] == 1
     assert not any(att.plain_runs.values())
+    (lse,) = seen
+    torch.testing.assert_close(lse, att.flash_lse_plain(q, k), rtol=0,
+                               atol=LSE_TOL[torch.float32])
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     want = torch.autograd.grad(att.flash_attention_plain(*leaves), leaves,
                                do)

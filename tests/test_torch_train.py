@@ -6,9 +6,11 @@ numpy seed, on the CPU (``device="cpu"``: the kernels' plain versions).
 Tolerances: the pipeline's batches, the int8 codes and scales and the
 checkpoint manifests identical; the schedule within 1e-7; the flash
 backward's plain version within 1e-5 of torch autograd through the plain
-forward, the autograd wrapper within 1e-4 of ``jax.grad`` through the
-reference's ``_sdpa``; ``LM.loss`` within 1e-5 relative and every
-gradient leaf within 1e-3 in relative Frobenius norm on all ten
+forward and of itself without the forward's log-sum-exp, the autograd
+wrapper within 1e-4 of ``jax.grad`` through the reference's ``_sdpa``,
+the plain log-sum-exp within 1e-5 of ``jax.nn.logsumexp`` of its
+logits; ``LM.loss`` within 1e-5 relative and every gradient leaf within
+1e-3 in relative Frobenius norm on all ten
 ``reduced()`` configs (compared in the reference's stacked layout);
 three AdamW steps' losses within 1e-5 and parameters within 1e-4
 relative."""
@@ -554,6 +556,81 @@ def test_flash_autograd_matches_the_reference_sdpa(case):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + [KEYLESS])
+def test_flash_lse_plain_matches_the_reference_logits(case):
+    """The plain log-sum-exp the forward keeps (base 2) against
+    ``jax.nn.logsumexp`` of the reference ``_sdpa``'s logits (its scale,
+    soft cap and -2e38 mask), over the rows with a valid key."""
+    b, s, t, h, kv, hd, hdv, causal, window, cap = case
+    q, k, _, _ = flash_inputs(case, seed=4, big=2.0 if cap else 1.0)
+    i, j = np.arange(s)[:, None], np.arange(t)[None, :]
+    mask = (j <= i) if causal else np.ones((s, t), bool)
+    if window:
+        mask = mask & (i - j < window)
+    qg = jnp.asarray(q.numpy()).reshape(b, s, kv, h // kv, hd)
+    logits = jnp.einsum("bsngd,btnd->bnsgt", qg,
+                        jnp.asarray(k.numpy())) * hd ** -0.5
+    logits = j_attn.L.softcap(logits, cap)
+    logits = logits + jnp.where(jnp.asarray(mask)[None, None, :, None, :],
+                                0.0, j_attn.NEG)
+    want = np.asarray(jax.nn.logsumexp(logits, axis=-1)).transpose(
+        0, 2, 1, 3).reshape(b, s, h)
+    got = t_att.flash_lse_plain(q, k, causal=causal, window=window,
+                                softcap=cap)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    keyed = mask.any(-1)
+    assert keyed.any()
+    np.testing.assert_allclose(got.numpy()[:, keyed] * np.log(2.0),
+                               want[:, keyed], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["grad", "no_grad", "inputs_without_grad"])
+def test_flash_attention_keeps_an_lse_only_for_a_gradient(mode,
+                                                          monkeypatch):
+    """The forward asks for the log-sum-exp only when grad mode is on and
+    an input requires grad (serving runs under ``no_grad``), and saves it
+    for the backward."""
+    case = FLASH_CASES[2]
+    q, k, v, _ = flash_inputs(case)
+    kw = dict(causal=case[7], window=case[8], softcap=case[9])
+    asked = []
+    forward = t_att._flash_forward
+
+    def spy(*args, **kwargs):
+        asked.append(kwargs["with_lse"])
+        return forward(*args, **kwargs)
+    monkeypatch.setattr(t_att, "_flash_forward", spy)
+    qkv = [x.clone().requires_grad_(mode != "inputs_without_grad")
+           for x in (q, k, v)]
+    if mode == "no_grad":
+        with torch.no_grad():
+            o = t_att.flash_attention(*qkv, **kw)
+    else:
+        o = t_att.flash_attention(*qkv, **kw)
+    assert asked == [mode == "grad"]
+    if mode == "grad":
+        lse = o.grad_fn.saved_tensors[4]
+        assert torch.equal(lse, t_att.flash_lse_plain(q, k, **kw))
+    else:
+        assert o.grad_fn is None
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + [KEYLESS])
+def test_flash_backward_plain_reads_the_forward_lse(case):
+    """The plain backward with the forward's log-sum-exp (P from it, 1/T
+    in a row with no key) gives what it gives without (the softmax)."""
+    q, k, v, do = flash_inputs(case, seed=5, big=2.0 if case[9] else 1.0)
+    kw = dict(causal=case[7], window=case[8], softcap=case[9])
+    o, lse = t_att.flash_attention_with_lse(q, k, v, **kw)
+    assert lse.shape == q.shape[:3]
+    t_att.reset_launches()
+    with_lse = t_att.flash_attention_backward(q, k, v, o, do, lse, **kw)
+    without = t_att.flash_attention_backward(q, k, v, o, do, **kw)
+    assert t_att.plain_runs["flash_attention_backward"] == 2
+    for a, b in zip(with_lse, without):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 def test_decode_attention_refuses_inputs_that_require_grad():
