@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port of the Morpheus simulator, its serving
 page pool, its serving engine over every model family, its online
 runtime, its fleet runtime, admission control and autotuner, its
-training stack and its two launchers on one NVIDIA card.
+training stack, its two launchers and its roofline analysis on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -197,10 +198,23 @@ Phases (one line each; any failure exits non-zero and prints no result):
      ``--arrival``, ``--slo-ms``, ``--tenant-slo`` with ``--admission``),
      every printed line but the wall-clock fields equal to the same run
      on the CPU; ``launch.train.main`` of h2o-danube-1.8b for 12 steps;
-  20. the ported kernels with their launches (phase 4 for the engine
+  20. the roofline (``repro_torch.roofline``): (a) the one-device dry
+     run (``launch.dryrun.lower_cell``, counted on ``meta``) of qwen3-4b's
+     four cells, each with its bound, dominant term and whether it fits
+     the card; (b) phase 12's 8 x 1024 prefill and one decode step on its
+     own model (qwen3-4b at full width and depth) and (c) one training
+     step of phase 18's config and batch, each counted by the op counter
+     on the card (through the kernels) and on ``meta``, FLOPs and bytes
+     equal, then set against its measured time (CUDA events and wall
+     clock without the counter, phase 12's profiled device time, phase
+     18's ms a step): the bound, the dominant term, the roofline fraction
+     and the model-FLOPs share, each in (0, 1];
+  21. the ported kernels with their launches (phase 4 for the engine
      scans, phases 14 and 15 for their stateful twins, phase 7 for the
      pool, phases 12, 16 and 18 for attention, phase 18 for the flash
-     backward), errors, times and bounds.
+     backward), errors, times and bounds (every bound from
+     ``repro_torch.roofline.kernel_work``, the count the wrappers charge
+     the op counter).
 
 The last lines are the card (``nvidia-smi``), the ``{"kernels": ...}``
 record, and ``{"ok": true, "device": ...}``.  Needs one CUDA card, the
@@ -236,9 +250,6 @@ SOURCES = ("engine_scan", "pool", "attention", "attention_bwd")
 # their Hopper redesign, quoted from PERF.md (kernel table: NVIDIA H100
 # 80GB HBM3 at 700 W), for the log only
 SCAN_BEFORE_MS = {"conv_scan": "0.0527", "ext_scan": "1.746-1.761"}
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (guide table)
-PEAK_OPS_PER_S = 67e12           # H100 SXM float32 outside tensor cores
-PEAK_BF16_PER_S = 989e12         # H100 SXM bf16 on the tensor cores, dense
 LENGTH = 120_000
 BATCH = 16
 FLOAT_RTOL = 1e-3
@@ -376,25 +387,24 @@ def compare(kernel, plain, ctx: str) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
-def bound_ms(tier: str, pt, b_s: int, ways: int) -> tuple:
-    """Least time for one dispatch: bytes (each input read once, each
-    output written once) over the memory rate, against lane operations
-    (about 4 per way and request, plus 3 hashes on the extended tier) of
-    this run's active requests over the float32 peak; the larger wins."""
-    if tier == "conv":
-        cols = (pt.conv_tag, pt.conv_write, pt.conv_active)
-        active = int(pt.conv_active.sum())
-        per_req = 4 * ways
-    else:
-        cols = (pt.ext_tag, pt.ext_write, pt.ext_level, pt.ext_active)
-        active = int(pt.ext_active.sum())
-        per_req = 4 * ways + 3 * 10
-    slots = cols[0].numel()
-    in_bytes = sum(c.element_size() * c.numel() for c in cols) + slots
-    out_bytes = b_s * (9 + 5) * 4     # (+ slots above: the 1-byte mask)
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = active * per_req / PEAK_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def kernel_work():
+    """``repro_torch.roofline.kernel_work``: each kernel's work by formula,
+    the one count its wrapper charges the op counter and every bound below
+    reads (imported once ``Env`` has put the checkout's ``src`` on the
+    path)."""
+    from repro_torch.roofline import kernel_work as kw
+    return kw
+
+
+def bound_ms(tier: str, pt, ways: int, rows=None) -> tuple:
+    """Least time for one scan dispatch (``kernel_work.scan_work``: its
+    columns and Stats, and its state ``rows`` read and written, against
+    about 4 lane operations a way and active request plus 3 hashes on the
+    extended tier, at the float32 peak)."""
+    kw = kernel_work()
+    cols = ((pt.conv_tag, pt.conv_write, pt.conv_active) if tier == "conv"
+            else (pt.ext_tag, pt.ext_write, pt.ext_level, pt.ext_active))
+    return kw.bound_ms(kw.scan_work(tier, cols, ways, rows))
 
 
 def phase_kernels(env: Env, dev) -> dict:
@@ -434,19 +444,17 @@ def phase_kernels(env: Env, dev) -> dict:
                                   compare(k, p, f"ext_scan {name}"))
             rows["ext"] = k[2]
         if name == "bloom/comp=1":     # the Morpheus-ALL shape of the path
-            b_s_c = pt.conv_tag.shape[0] * pt.conv_tag.shape[1]
-            b_s_e = pt.ext_tag.shape[0] * pt.ext_tag.shape[1]
             timing["conv_scan"] = dict(
                 **times(lambda: scan.conv_scan(*conv_args),
                         lambda: scan.conv_scan_plain(*conv_args), 20, 2,
                         plain_on_graph=False),
-                bound=bound_ms("conv", pt, b_s_c, cfg.conv_ways),
+                bound=bound_ms("conv", pt, cfg.conv_ways),
                 shape=list(pt.conv_tag.shape))
             timing["ext_scan"] = dict(
                 **times(lambda: scan.ext_scan(*ext_args),
                         lambda: scan.ext_scan_plain(*ext_args), 20, 2,
                         plain_on_graph=False),
-                bound=bound_ms("ext", pt, b_s_e, cfg.ext_max_ways),
+                bound=bound_ms("ext", pt, cfg.ext_max_ways),
                 shape=list(pt.ext_tag.shape))
             for tier, ways, act in (("conv", cfg.conv_ways, pt.conv_active),
                                     ("ext", cfg.ext_max_ways, pt.ext_active)):
@@ -687,66 +695,12 @@ def exact(kernel, plain, ctx: str) -> int:
                for k, p in zip(kernel, plain))
 
 
-def bytes_bound(n_bytes: float, n_ops: float) -> tuple:
-    """(least ms, what bounds it): bytes over the memory rate against
-    operations over the float32 peak, the larger."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def pool_bound(name: str, args) -> tuple:
-    """``bytes_bound`` of one call of pool wrapper ``name`` on ``args``:
-    each input read once and each output written once (the block reads
-    count only the rows they select, by this call's rows; the Bloom query
-    one filter row and one mask row a query; the record the filter rows
-    and counts of the sets this batch touches, read and written), against
-    about 4 operations a way, 6 a hash or segment and 1-2 a word read."""
-    if name == "tag_lookup":
-        s, w = args[0].shape
-        return bytes_bound(s * w * (4 + 1 + 4 + 4) + s * 12, 4 * s * w)
-    if name == "lookup_fill":      # the store, plan and records; the rows
-        tags, _, _, sets, _ = args              # of the sets asked about
-        (s, w), k = tags.shape, len(sets)
-        runs = np.unique(sets, return_counts=True)[1]
-        r = min(4, int(runs.max()))             # the pool's 4 rounds a batch
-        return bytes_bound(s * w * 9 + (s + 1 + 2 * k) * 4 + k * 20
-                           + len(runs) * w * 9, 4 * s * w * r)
-    if name == "page_write":       # keys, the probed rows, pages in and out
-        tags, _, data, level, _, sets, _, _ = args
-        n, w, words = len(sets), tags.shape[1], data.shape[2]
-        return bytes_bound(n * (8 + 5 * w + 8 * words
-                                + 8 * (level is not None)),
-                           n * (2 * w + 6 * words))
-    if name == "bloom_query":                  # (+ 4 B a row index)
-        q, words = args[1].shape[0], args[0].shape[1]
-        return bytes_bound(q * (words * 8 + 8 + 4 * (len(args) > 2)),
-                           q * 3 * 6)
-    if name == "bloom_record":
-        bf1, _, _, sets, _, _ = args
-        k, words, runs = len(sets), bf1.shape[1], len(np.unique(sets))
-        return bytes_bound(k * 4 + (2 * runs + 1) * 4
-                           + runs * (2 * 2 * words * 4 + 2 * 4),
-                           k * (3 * 6 + 6 * words))
-    if name == "bdi_compress":
-        n = args[0].shape[0]
-        return bytes_bound(n * (128 + 136), n * 32 * 6)
-    if name == "bdi_decompress":               # level, base, payload
-        n, words = args[2].shape
-        return bytes_bound(n * (8 + 8 * words), n * words * 2)
-    if name == "read_rows":
-        conv, ext, _, _, tier, set_idx, way = args
-        n, words = tier.shape[0], conv.shape[2]
-        read = 0                                # rows, + level/base on ext
-        for t, store in enumerate((conv, ext)):
-            ok = ((tier == t) & (set_idx >= 0) & (set_idx < store.shape[0])
-                  & (way >= 0) & (way < store.shape[1]))
-            read += int(ok.sum()) * (4 * words + 8 * t)
-        return bytes_bound(n * (12 + 4 * words) + read, n * words * 2)
-    s, _, words = args[0].shape
-    if name == "gather_blocks":
-        return bytes_bound(s * (4 + 8 * words), s * words)
-    return bytes_bound(s * (12 + 8 * words), s * words * 2)
+    """Least time for one call of pool wrapper ``name`` on ``args``
+    (``kernel_work.pool_work``: the rows the call touches, against about 4
+    operations a way, 6 a hash or segment and 1-2 a word read)."""
+    kw = kernel_work()
+    return kw.bound_ms(kw.pool_work(name, args))
 
 
 def u32(rng, shape, dev, hi=1 << 32) -> torch.Tensor:
@@ -1487,44 +1441,13 @@ def att_close(got, want, tol: tuple, ctx: str) -> float:
     return float(err.max())
 
 
-def attended_pairs(s: int, t: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the masks let through, per (batch, head)."""
-    i = torch.arange(s)[:, None]
-    j = torch.arange(t)[None, :]
-    mask = (j <= i) if causal else torch.ones((s, t), dtype=torch.bool)
-    if window:
-        mask = mask & (i - j < window)
-    return int(mask.sum())
-
-
 def attention_bound(name: str, args, kwargs) -> tuple:
-    """Least time for one call: the bytes the function must move (q, the
-    keys and values it attends to, the mask and the output, each once)
-    over the memory rate, against its FLOPs (2 a multiply-add of QK^T and
-    of PV over the pairs the masks let through) over the card's peak for
-    the input type: f32 on the CUDA cores, bf16 on the tensor cores."""
-    q = args[0]
-    es = q.element_size()
-    if name == "flash_attention":
-        _, k, v = args
-        b, s, h, hd = q.shape
-        t, hdv = k.shape[1], v.shape[3]
-        pairs = b * h * attended_pairs(s, t, kwargs.get("causal", True),
-                                       kwargs.get("window", 0))
-        n_bytes = (q.numel() + k.numel() + v.numel() + b * s * h * hdv) * es
-        flops = 2 * pairs * (hd + hdv)
-    else:
-        _, k, v, valid = args
-        b, h, hd = q.shape
-        kvh = k.shape[2]
-        n_valid = int(valid.sum())
-        n_bytes = ((q.numel() + 2 * n_valid * kvh * hd) * es + valid.numel()
-                   + b * h * hd * 4)
-        flops = 4 * n_valid * h * hd
-    peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_OPS_PER_S
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """Least time for one attention call (``kernel_work.attention_work``:
+    q, the keys and values it attends to, the mask and the output, each
+    once, against 2 FLOPs a multiply-add of QK^T and of PV over the pairs
+    the masks let through, at the card's peak for the input type)."""
+    kw = kernel_work()
+    return kw.bound_ms(kw.attention_work(name, args, kwargs))
 
 
 def sdpa_call(name: str, args, kwargs):
@@ -1868,10 +1791,12 @@ def phase_serving(env: Env, dev) -> dict:
     dec_w = profiled_window(
         lambda: model.decode_step(cur, caches, SERVE_PROMPT), ATT_KERNELS)
     del caches, box
+    roofline = serving_roofline(env, model, r1, max_len, dev)
     kv_bytes = (n_layers * SERVE_BATCH * (SERVE_PROMPT + SERVE_NEW)
                 * cfg.num_kv_heads * cfg.resolved_head_dim * 4 * 2)
-    bound_w = weight_bytes / HBM_BYTES_PER_S * 1e3
-    bound_kv = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    hbm = kernel_work().CHIP.hbm_Bps
+    bound_w = weight_bytes / hbm * 1e3
+    bound_kv = (weight_bytes + kv_bytes) / hbm * 1e3
     log(f"phase 12: serving {cfg.name}: {len(model.layers)} layers, d_model "
         f"{cfg.d_model}, {n_params} parameters ({weight_bytes / 1e9:.2f} GB "
         f"float32, drawn on the card in {init_s:.2f} s), batch "
@@ -1898,7 +1823,8 @@ def phase_serving(env: Env, dev) -> dict:
     return {"launches": counts, "pool_launches": pool_counts,
             "rounds": results, "calls": calls, "init_s": init_s,
             "params": n_params, "bound_ms": [bound_w, bound_kv],
-            "prefill_window": pre_w, "decode_window": dec_w}
+            "prefill_window": pre_w, "decode_window": dec_w,
+            "roofline": roofline}
 
 
 def phase_attention_path(env: Env, calls: PathCalls,
@@ -2103,16 +2029,9 @@ def online_step(env: Env, rep, dev, ev=None) -> None:
 
 
 def state_bound(tier: str, pt, rows) -> tuple:
-    """``bound_ms`` of a stateful scan: the stateless bound plus its state
-    rows read once and written once."""
-    b_s = pt.conv_tag.shape[0] * pt.conv_tag.shape[1] if tier == "conv" \
-        else pt.ext_tag.shape[0] * pt.ext_tag.shape[1]
-    ways = rows.tags.shape[-1]
-    t, by = bound_ms(tier, pt, b_s, ways)
-    row_ms = 2 * sum(x.element_size() * x.numel() for x in rows) \
-        / HBM_BYTES_PER_S * 1e3
-    t_bytes = (t if by == "bytes" else 0.0) + row_ms
-    return (t_bytes, "bytes") if t_bytes >= t else (t, by)
+    """``bound_ms`` of a stateful scan: its columns and Stats, and its
+    state rows read once and written once."""
+    return bound_ms(tier, pt, rows.tags.shape[-1], rows)
 
 
 def online_handoff(env: Env, cell: dict, dev) -> dict:
@@ -3267,8 +3186,11 @@ LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 BWD_PROFILED = 3             # backward calls in the profiled window
 # profiled windows tried before "not measured": late in the whole script
 # the profiler drops a short window's kernels as out of its range (its
-# KINETO_LOG_LEVEL=0 log) in about half the windows
+# KINETO_LOG_LEVEL=0 log) in about half the windows, all of them or only
+# some (a window with the dK/dV kernels and no dQ kernel), so a window
+# counts only when it holds both kernels
 BWD_WINDOWS = 10
+BWD_PARTS = (("dq_ms", "bwd_dq_"), ("dkdv_ms", "bwd_dkdv_"))
 BWD_TRAINING = "training f32 B8 S=T128 H32/8"
 # The device ms of the backward before its Hopper redesign, quoted from
 # PERF.md (kernel table: NVIDIA H100 80GB HBM3 at 700 W) by phase-17
@@ -3296,20 +3218,11 @@ BWD_CASES = (  # label, (b, s, t, h, kv, hd, hdv), causal, window, cap, dtype
 
 
 def bwd_bound(q, k, v, kw) -> tuple:
-    """Least time of one backward: q, k, v, the output and its gradient
-    read once and dq, dk, dv written once, against 2.5 times the forward's
-    FLOPs (``attention_bound``'s count over the pairs the masks let
-    through) at the card's peak for the input type."""
-    b, s, h, hd = q.shape
-    t, hdv = k.shape[1], v.shape[3]
-    pairs = b * h * attended_pairs(s, t, kw["causal"], kw["window"])
-    n_bytes = 2 * (q.numel() + k.numel() + v.numel()
-                   + b * s * h * hdv) * q.element_size()
-    flops = 2.5 * 2 * pairs * (hd + hdv)
-    peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_OPS_PER_S
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """Least time of one backward (``kernel_work.flash_backward_work``: q,
+    k, v, the output and its gradient read once and dq, dk, dv written
+    once, against 2.5 times the forward's FLOPs)."""
+    work = kernel_work()
+    return work.bound_ms(work.flash_backward_work(q, k, v, kw))
 
 
 def sdpa_backward(q, k, v, do, kw):
@@ -3341,20 +3254,21 @@ def sdpa_backward(q, k, v, do, kw):
 def bwd_split(run) -> dict:
     """Device ms a call of the dQ and the dK/dV kernel, from one
     ``torch.profiler`` window of ``BWD_PROFILED`` calls of ``run``, and
-    the windows it took: up to ``BWD_WINDOWS`` while a window records no
-    device activity (if all do, the times are None, not measured)."""
+    the windows it took: up to ``BWD_WINDOWS`` while a window lacks either
+    kernel (if all do, the times are None, not measured).  The launch
+    counts, not this window, show that the kernels ran."""
     for tries in range(1, BWD_WINDOWS + 1):
         _, us = profiled(lambda: [run() for _ in range(BWD_PROFILED)])
+        hits = {part: [t for name, t in us.items() if key in name]
+                for part, key in BWD_PARTS}
+        if all(hits.values()):
+            return {"split_windows": tries} | {
+                part: sum(h) / 1e3 / BWD_PROFILED
+                for part, h in hits.items()}
         if us:
-            break
-    out = {"split_windows": tries if us else None}
-    for part, key in (("dq_ms", "bwd_dq_"), ("dkdv_ms", "bwd_dkdv_")):
-        hits = [t for name, t in us.items() if key in name]
-        if us and not hits:
-            fail(f"flash backward: no {key} kernel in the profiled window "
-                 f"({sorted(us)})")
-        out[part] = sum(hits) / 1e3 / BWD_PROFILED if hits else None
-    return out
+            log(f"flash backward: profiled window {tries} holds "
+                f"{sorted(us)}, not both kernels")
+    return {"split_windows": None} | {part: None for part, _ in BWD_PARTS}
 
 
 def ms_text(x) -> str:
@@ -3427,7 +3341,8 @@ def phase_flash_backward(env: Env, dev) -> dict:
             f"{c['lse_err']:.3g}), {c['ms']:.4f} ms on the card "
             f"({c['call_ms']:.4f} ms a call; dQ {ms_text(c['dq_ms'])} + "
             f"dK/dV {ms_text(c['dkdv_ms'])} ms profiled, "
-            + (f"{BWD_WINDOWS} windows empty" if c["split_windows"] is None
+            + (f"{BWD_WINDOWS} windows without both kernels"
+               if c["split_windows"] is None
                else f"window {c['split_windows']} of {BWD_WINDOWS}")
             + "; the forward "
             f"{c['forward_ms']:.4f} ms, with its log-sum-exp "
@@ -3588,9 +3503,7 @@ def phase_training(env: Env, dev) -> dict:
             env.configs.get(arch), num_layers=common["num_layers"]),
         common["seed"]) for arch in golden["cells"]}
 
-    cfg = dataclasses.replace(env.configs.get(TRAIN_ARCH),
-                              name=f"{TRAIN_ARCH}-{TRAIN_LAYERS}l",
-                              num_layers=TRAIN_LAYERS)
+    cfg = train_config(env)
     import shutil
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     free_gb = shutil.disk_usage(ROOT).free / 1e9
@@ -3675,6 +3588,249 @@ def phase_training(env: Env, dev) -> dict:
             "first_step_ms": ms[0], "save_ms": save_ms,
             "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": peak_gb,
             "losses": losses, "params": params, "repeats": repeats}
+
+
+# ------------------------------------------------------------- roofline
+
+# (a): the dry run's cells of this arch; the whole 40-cell sweep on meta
+# took 199 s of host time on a CPU where these four took about 10 s, past
+# this phase's share of the script's limit
+ROOFLINE_ARCH = "qwen3-4b"
+ROOFLINE_PREFILLS = 2        # (b): prefills timed after a warm one
+ROOFLINE_DECODES = 5         # (b): decode steps timed, all at one position
+
+
+def count_equal(got, want, ctx: str) -> None:
+    """Fail unless two counts (``op_cost.Cost``) agree exactly in FLOPs and
+    bytes, naming the ops whose charges differ."""
+    if got.flops == want.flops and got.bytes == want.bytes:
+        return
+    diff = {k: (got.by_name.get(k), want.by_name.get(k))
+            for k in set(got.by_name) | set(want.by_name)
+            if got.by_name.get(k) != want.by_name.get(k)}
+    fail(f"{ctx}: the card's count ({got.flops} FLOPs, {got.bytes} bytes) "
+         f"differs from meta's ({want.flops}, {want.bytes}): {diff}")
+
+
+def host_and_events(fn, reps: int) -> tuple:
+    """(median ms by CUDA events, median wall ms) of ``reps`` calls of
+    ``fn()``, each synchronised before and after."""
+    ev, wall = [], []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        ev.append(e0.elapsed_time(e1))
+    return float(np.median(ev)), float(np.median(wall))
+
+
+def serving_roofline(env: Env, model, prompts: np.ndarray, max_len: int,
+                     dev) -> dict:
+    """Phase 20 (b), run inside phase 12 on its model (qwen3-4b at full
+    width and depth, so no second 16 GB model is built): the prefill of
+    ``prompts`` into fresh caches and one decode step at the next
+    position, counted by the op counter on the card (through the kernels:
+    one flash and one decode launch a layer, no plain run) and on
+    ``meta``, FLOPs and bytes equal; then the same calls timed without
+    the counter (CUDA events and wall clock)."""
+    from repro_torch.launch import dryrun as D
+    att = env.att
+    cfg = model.cfg
+    b, s = prompts.shape
+    toks = torch.from_numpy(prompts.astype(np.int32)).to(dev)
+    cur = torch.zeros((b,), dtype=torch.int32, device=dev)
+    att.reset_launches()
+    caches = model.init_caches(b, max_len)
+    pre = D.count_prefill(model, {"tokens": toks}, caches)
+    dec = D.count_decode(model, cur, caches, s)
+    torch.cuda.synchronize()
+    n = len(model.layers)
+    want = {"decode_attention": n, "flash_attention": n,
+            "flash_attention_backward": 0}
+    if att.launches != want or any(att.plain_runs.values()):
+        fail(f"phase 20: the counted steps launched {att.launches} "
+             f"(expected {want}), plain runs {att.plain_runs}")
+    meta = env.models.LM(cfg, device="meta")
+    mc = meta.init_caches(b, max_len)
+    mpre = D.count_prefill(meta, {"tokens": torch.empty(
+        (b, s), dtype=torch.int32, device="meta")}, mc)
+    mdec = D.count_decode(meta, torch.empty((b,), dtype=torch.int32,
+                                            device="meta"), mc, s)
+    count_equal(pre, mpre, "phase 20 prefill")
+    count_equal(dec, mdec, "phase 20 decode")
+    caches = model.init_caches(b, max_len)
+    model.prefill({"tokens": toks}, caches)             # warm
+    pre_ms, pre_wall = host_and_events(
+        lambda: model.prefill({"tokens": toks}, caches), ROOFLINE_PREFILLS)
+    dec_ms, dec_wall = host_and_events(
+        lambda: model.decode_step(cur, caches, s), ROOFLINE_DECODES)
+    del caches
+    shape = env.configs.ShapeConfig
+    return {"prefill": dict(cost=pre, meta=mpre, ms=pre_ms, wall_ms=pre_wall,
+                            shape=shape("phase12", s, b, "prefill")),
+            "decode": dict(cost=dec, meta=mdec, ms=dec_ms, wall_ms=dec_wall,
+                           shape=shape("phase12", max_len, b, "decode"))}
+
+
+def train_config(env: Env):
+    """Phase 18's training config: qwen3-4b at full width, depth cut to
+    ``TRAIN_LAYERS``."""
+    return dataclasses.replace(env.configs.get(TRAIN_ARCH),
+                               name=f"{TRAIN_ARCH}-{TRAIN_LAYERS}l",
+                               num_layers=TRAIN_LAYERS)
+
+
+def training_roofline(env: Env, dev) -> dict:
+    """Phase 20 (c): one training step of phase 18's config and batch
+    (AdamW with the loop's schedule, remat, the flash backward) counted on
+    the card (through the kernels) and on ``meta``, FLOPs and bytes
+    equal."""
+    from repro_torch.launch import dryrun as D
+    att, optim = env.att, env.optim
+    cfg = train_config(env)
+    shape = env.configs.ShapeConfig("phase18", TRAIN_SEQ, TRAIN_BATCH,
+                                    "train")
+
+    def opt():
+        return optim.AdamW(learning_rate=3e-4,
+                           schedule=optim.cosine_with_warmup(3, TRAIN_STEPS))
+
+    def batch(device):
+        size = (TRAIN_BATCH, TRAIN_SEQ)
+        if torch.device(device).type == "meta":
+            t = torch.empty(size, dtype=torch.int32, device=device)
+        else:
+            g = torch.Generator(device=device).manual_seed(0)
+            t = torch.randint(0, cfg.vocab_size, size, generator=g,
+                              device=device, dtype=torch.int32)
+        return {"tokens": t, "targets": t}
+
+    model = env.models.LM(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(0))
+    att.reset_launches()
+    cost = D.count_train(model, batch(dev), opt())
+    torch.cuda.synchronize()
+    want = {"flash_attention": 2 * TRAIN_LAYERS, "decode_attention": 0,
+            "flash_attention_backward": TRAIN_LAYERS}
+    if att.launches != want or any(att.plain_runs.values()):
+        fail(f"phase 20: the counted training step launched "
+             f"{att.launches} (expected {want}), plain runs "
+             f"{att.plain_runs}")
+    del model
+    torch.cuda.empty_cache()
+    meta = D.count_train(env.models.LM(cfg, device="meta"), batch("meta"),
+                         opt())
+    count_equal(cost, meta, "phase 20 training step")
+    return {"cost": cost, "meta": meta, "cfg": cfg, "shape": shape}
+
+
+def roofline_row(cfg, shape, cost, dtype, measured: dict) -> dict:
+    """Bound, dominant term and, for each measured time (ms), the
+    roofline fraction (bound / measured) and the model-FLOPs share
+    (``model_flops / (measured x peak)``)."""
+    from repro_torch.roofline import CHIP, model_flops, roofline_terms
+    terms = roofline_terms(flops=cost.flops, bytes_hbm=cost.bytes,
+                           bytes_collective=cost.collective_bytes, chips=1,
+                           dtype=dtype)
+    mflops = model_flops(cfg, shape)
+    bound_ms = terms["bound_s"] * 1e3
+    shares = {}
+    for what, ms in measured.items():
+        if ms is None:
+            continue
+        shares[what] = {"ms": ms, "fraction": bound_ms / ms,
+                        "mfu": mflops / (ms / 1e3 * CHIP.peak_flops(dtype))}
+    return {"flops": cost.flops, "bytes": cost.bytes, "bound_ms": bound_ms,
+            "dominant": terms["dominant"],
+            "t_compute_ms": terms["t_compute_s"] * 1e3,
+            "t_memory_ms": terms["t_memory_s"] * 1e3,
+            "model_flops": mflops, "shares": shares,
+            "temp_gb": cost.temp_bytes / 1e9}
+
+
+def phase_roofline(env: Env, dev, serving: dict, training: dict) -> dict:
+    """Phase 20: (a) the one-device dry run on ``meta`` of
+    ``ROOFLINE_ARCH``'s four cells; (b) phase 12's prefill and decode step
+    (``serving_roofline``) and (c) phase 18's training step
+    (``training_roofline``), each counted on the card equal to its
+    ``meta`` count, set against their measured times: the bound, its
+    dominant term, the roofline fraction and the model-FLOPs share, each
+    in (0, 1] or the phase fails."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline import CHIP
+    t0 = time.perf_counter()
+    cells = []
+    for arch, shape, skipped in env.configs.cells(include_skipped=True):
+        if arch != ROOFLINE_ARCH:
+            continue
+        if skipped:
+            cells.append({"arch": arch, "shape": shape, "skipped": True})
+            continue
+        rep = D.lower_cell(arch, shape)
+        if not rep["ok"] or rep["hlo_flops_per_chip"] <= 0:
+            fail(f"phase 20: dry run of {arch} x {shape} failed: {rep}")
+        cells.append(rep)
+    dry_s = time.perf_counter() - t0
+    log(f"phase 20: (a) dry run on meta (one H100, datasheet constants: "
+        f"{CHIP.peak_flops_f32 / 1e12:.0f} TFLOP/s f32, "
+        f"{CHIP.peak_flops_bf16 / 1e12:.0f} bf16, "
+        f"{CHIP.hbm_Bps / 1e12:.2f} TB/s, hbm_bytes {CHIP.hbm_bytes} "
+        f"against this card's total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory}) of "
+        f"{ROOFLINE_ARCH}'s four cells in {dry_s:.1f} s (not the whole "
+        f"40-cell sweep: 199 s on meta on a CPU where these took about "
+        f"10 s): " + "; ".join(
+            f"{c['shape']}: documented skip" if c.get("skipped") else
+            f"{c['shape']}: {c['hlo_flops_per_chip']:.4g} FLOPs, "
+            f"{c['hlo_bytes_per_chip']:.4g} bytes, bound "
+            f"{c['bound_s'] * 1e3:.4g} ms ({c['dominant']}), "
+            f"{c['bytes_per_chip'] / 1e9:.1f} GB a chip, fits {c['fits']}, "
+            f"counted in {c['compile_s']} s" for c in cells))
+
+    rows = {}
+    sv = serving["roofline"]
+    windows = {"prefill": serving["prefill_window"],
+               "decode": serving["decode_window"]}
+    cfg = env.configs.get(SERVE_ARCH)
+    for kind in ("prefill", "decode"):
+        r = sv[kind]
+        w = windows[kind]
+        rows[kind] = roofline_row(cfg, r["shape"], r["cost"], torch.float32, {
+            "device_busy": w["device_busy_ms"] if w["measured"] else None,
+            "events": r["ms"], "wall": r["wall_ms"]})
+        rows[kind]["meta_temp_gb"] = r["meta"].temp_bytes / 1e9
+    tr = training_roofline(env, dev)
+    rows["train"] = roofline_row(tr["cfg"], tr["shape"], tr["cost"],
+                                 torch.float32,
+                                 {"step": training["step_ms"]})
+    rows["train"]["meta_temp_gb"] = tr["meta"].temp_bytes / 1e9
+    for kind, row in rows.items():
+        for what, sh in row["shares"].items():
+            if not (0 < sh["fraction"] <= 1 and 0 < sh["mfu"] <= 1):
+                fail(f"phase 20: {kind} share against {what} outside "
+                     f"(0, 1]: {sh} (a share above 1 means the count is "
+                     f"wrong)")
+    log("phase 20: (b, c) counted on the card == counted on meta (FLOPs "
+        "and bytes) for qwen3-4b's 8 x 1024 prefill and one decode step "
+        "(phase 12's model, full width and depth, f32) and phase 18's "
+        f"training step ({tr['cfg'].name}, 8 x 128, f32); against "
+        "NVIDIA H100 SXM5 peaks: " + "; ".join(
+            f"{kind}: {r['flops']:.4g} FLOPs, {r['bytes']:.4g} bytes, bound "
+            f"{r['bound_ms']:.4g} ms ({r['dominant']}; compute "
+            f"{r['t_compute_ms']:.4g}, memory {r['t_memory_ms']:.4g}), "
+            f"model FLOPs {r['model_flops']:.4g}, temp {r['temp_gb']:.2f} "
+            f"GB on the card ({r['meta_temp_gb']:.2f} GB counted on meta); "
+            + ", ".join(f"{what} {sh['ms']:.4g} ms: roofline fraction "
+                        f"{sh['fraction']:.4f}, MFU {sh['mfu']:.4f}"
+                        for what, sh in r["shares"].items())
+            for kind, r in rows.items()))
+    return {"dryrun": cells, "rows": rows}
 
 
 # ----------------------------------------------------------------- CLIs
@@ -4079,6 +4235,7 @@ def main() -> int:
     bwd = phase_flash_backward(env, dev)
     training = phase_training(env, dev)
     phase_clis(env, dev)
+    phase_roofline(env, dev, serving, training)
 
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("the port imported jax or repro")
@@ -4109,7 +4266,7 @@ def main() -> int:
                                      golden_lm["err"], att_ptxas, training)
     kernels.append(backward_kernel_row(
         bwd, training, ptxas_summary(env.build.build_log("attention_bwd"))))
-    log("phase 20: kernels " + ", ".join(
+    log("phase 21: kernels " + ", ".join(
         f"{x['name']} matched plain (max abs err {x['max_abs_err']:.3g}), "
         f"{x['ms']:.4g} ms on the card ({x['call_ms']:.4g} ms a call) vs "
         f"plain {x['plain_ms']:.4g} ms, bound {x['bound_ms']:.4g} ms "

@@ -71,10 +71,14 @@ def resolve_backend(backend: str | None = None) -> str:
     return b
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, *, meta: bool = False) -> torch.device:
     """The device an entry point runs on: None -> the CUDA card (raises
-    ``BackendError`` without one); ``"cpu"`` -> the plain version."""
+    ``BackendError`` without one); ``"cpu"`` -> the plain version;
+    ``"meta"`` (shapes only, for the op counter) where the caller allows
+    it with ``meta=True``, as the model does."""
     dev = torch.device("cuda" if device is None else device)
+    if meta and dev.type == "meta":
+        return dev
     if dev.type not in _BACKEND_OF_DEVICE:
         raise BackendError(f"no engine backend for device {dev}; use "
                            f"'cuda' or 'cpu'")

@@ -76,7 +76,12 @@ without a word.
 Dtypes: q, k, v float32 or bfloat16, all one type; f32 accumulation.
 On CUDA tensors each wrapper launches its kernel (and adds one to its
 entry of ``launches``) or raises; on CPU tensors it runs its plain
-version (and adds one to ``plain_runs``).
+version (and adds one to ``plain_runs``); on ``meta`` tensors it returns
+empty outputs of the kernel's shapes, dtypes and layout and adds to
+neither (a count, ``roofline.op_cost``, not a result).  Each wrapper
+charges its function's work (``roofline.kernel_work``) to an active op
+counter, the same on every device, and the ops inside it are not
+counted.
 """
 from __future__ import annotations
 
@@ -88,6 +93,7 @@ import torch
 
 from . import _build
 from ._build import supported  # noqa: F401
+from ..roofline import kernel_work, op_cost
 
 NEG = -2.0e38
 LOG2E = 1.4426950408889634   # the kernels' softmax runs in base 2
@@ -186,12 +192,15 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid: torch.Tensor, *, softcap: float = 0.0
-                     ) -> torch.Tensor:
+                     valid: torch.Tensor, *, softcap: float = 0.0,
+                     valid_count: Optional[int] = None) -> torch.Tensor:
     """q (B, H, hd); k/v (B, T, KV, hd); valid (B, T) bool -> (B, H, hd)
     f32.  ``valid`` may be a broadcast view (of the cache's (T,) position
     mask, say): it is made contiguous here.  ``softcap`` > 0 caps each
-    scaled logit to ``softcap * tanh(logit / softcap)``."""
+    scaled logit to ``softcap * tanh(logit / softcap)``.  On ``meta``,
+    where ``valid`` holds no data, ``valid_count`` (its True entries)
+    says what the op counter charges; elsewhere the count is read from
+    ``valid``."""
     _check_qkv(q, k, v, 3)
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (q, k, v)):
@@ -199,7 +208,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            "under torch.no_grad() or on inputs that do "
                            "not require grad")
     b, h, hd = q.shape
-    t, kvh = k.shape[1], k.shape[2]
+    t = k.shape[1]
     if v.shape[3] != hd:
         raise ValueError(f"v head dim {v.shape[3]} != q/k head dim {hd}")
     if valid.dtype != torch.bool or tuple(valid.shape) != (b, t):
@@ -207,11 +216,30 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(valid.shape)} {valid.dtype}")
     if softcap < 0:
         raise ValueError(f"softcap {softcap} must be >= 0")
+    meta = q.device.type == "meta"
+    if meta and valid_count is None:
+        raise ValueError("decode_attention on meta needs valid_count: "
+                         "valid holds no data there")
+    work = lambda: kernel_work.attention_work(
+        "decode_attention", (q, k, v, valid), {},
+        n_valid=valid_count if meta else None)
+    with op_cost.charge("decode_attention", work):
+        return _decode_attention(q, k, v, valid, softcap)
+
+
+def _decode_attention(q, k, v, valid, softcap: float) -> torch.Tensor:
+    """``decode_attention`` past its checks: the kernel, the plain
+    version on the CPU, or on ``meta`` an empty output."""
+    b, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
     dev = q.device
+    if dev.type == "meta":
+        return torch.empty((b, h, hd), dtype=torch.float32, device=dev)
     valid = valid.contiguous()
     _build.check("valid", valid, torch.bool, (b, t), dev)
-    if dev.type == "cpu":
-        return decode_attention_plain(q, k, v, valid, softcap=softcap)
+    if dev.type == "cpu":       # laid out as the kernel's output
+        return decode_attention_plain(q, k, v, valid,
+                                      softcap=softcap).contiguous()
     _build.require_cuda(dev, "decode_attention")
     if h // kvh > MAX_GROUP:
         raise ValueError(f"{h // kvh} query heads per KV head; the kernel "
@@ -364,20 +392,31 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    scale: Optional[float], with_lse: bool = False
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The forward of ``flash_attention`` and, ``with_lse``, its base-2
-    log-sum-exp (else None): its kernel, or on the CPU its plain
-    versions."""
+    log-sum-exp (else None): its kernel, on the CPU its plain versions,
+    on ``meta`` empty outputs; charged to the op counter by formula."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    work = lambda: kernel_work.attention_work("flash_attention", (q, k, v),
+                                              kw)
+    with op_cost.charge("flash_attention", work):
+        return _flash_launch(q, k, v, with_lse=with_lse, **kw)
+
+
+def _flash_launch(q, k, v, *, causal: bool, window: int, softcap: float,
+                  scale: Optional[float], with_lse: bool
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     b, s, h, hd = q.shape
     t, kvh, hdv = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-    if dev.type == "cpu":
-        return (flash_attention_plain(q, k, v, **kw),
+    if dev.type == "cpu":       # laid out as the kernel's outputs
+        return (flash_attention_plain(q, k, v, **kw).contiguous(),
                 flash_lse_plain(q, k, **kw) if with_lse else None)
-    _build.require_cuda(dev, "flash_attention")
+    if dev.type != "meta":
+        _build.require_cuda(dev, "flash_attention")
     out = torch.empty((b, s, h, hdv), dtype=q.dtype, device=dev)
     lse = (torch.empty((b, s, h), dtype=torch.float32, device=dev)
            if with_lse else None)
-    if b == 0 or s == 0:            # nothing to attend: no launch
+    if b == 0 or s == 0 or dev.type == "meta":   # no launch
         return out, lse
     scale = hd ** -0.5 if scale is None else float(scale)
     q, k, v = (_aligned(pad_head_dim(x)) for x in (q, k, v))
@@ -462,8 +501,23 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if lse is not None:
         _build.check("lse", lse, torch.float32, (b, s, h), dev)
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-    if dev.type == "cpu":
-        return flash_attention_backward_plain(q, k, v, o, dout, lse, **kw)
+    work = lambda: kernel_work.flash_backward_work(q, k, v, kw)
+    with op_cost.charge("flash_attention_backward", work):
+        if dev.type == "cpu":   # laid out as the kernel's outputs
+            return tuple(x.contiguous() for x in
+                         flash_attention_backward_plain(q, k, v, o, dout,
+                                                        lse, **kw))
+        if dev.type == "meta":
+            return tuple(torch.empty_like(
+                x, memory_format=torch.contiguous_format) for x in (q, k, v))
+        return _backward_launch(q, k, v, o, dout, lse, **kw)
+
+
+def _backward_launch(q, k, v, o, dout, lse, *, causal: bool, window: int,
+                     softcap: float, scale: Optional[float]):
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    dev = q.device
     _build.require_cuda(dev, "flash_attention_backward")
     if lse is None:
         raise ValueError("flash_attention_backward on the card reads the "

@@ -39,7 +39,9 @@ one to ``launches``) or raises; on CPU tensors it runs the plain version
 (``conv_scan_plain``/``ext_scan_plain``), which steps
 ``core.controller``'s set kernels over all (B, S) sets at once with a
 Python loop over the L slots.  The plain versions take any rows, as the
-reference's kernels do.
+reference's kernels do.  An active op counter (``roofline.op_cost``) is
+charged each call's work by ``roofline.kernel_work.scan_work``, whichever
+runs.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ from ..core import controller as ctl
 from ..core.controller import ConvRow, ExtRow, MorpheusConfig, Predictor, Stats
 from ..core.compression import BLOCK_BYTES
 from ..core.tag_store import LRU_MAX
+from ..roofline import kernel_work, op_cost
 
 # Stats layout of the kernels' outputs: one int32 and one float32 vector
 # per set, in ``Stats`` field order.
@@ -203,6 +206,9 @@ def conv_scan_plain(cfg: MorpheusConfig, tag, write, active, mask,
     return ints, flts, (row if keep_state else None)
 
 
+@op_cost.charged(lambda a: kernel_work.scan_work(
+    "conv", (a["tag"], a["write"], a["active"]), a["cfg"].conv_ways,
+    a["state"]))
 def conv_scan(cfg: MorpheusConfig, tag: torch.Tensor, write: torch.Tensor,
               active: torch.Tensor, mask: torch.Tensor, *,
               state: Optional[ConvRow] = None, keep_state: bool = False
@@ -275,6 +281,9 @@ def ext_scan_plain(cfg: MorpheusConfig, tag, write, level, active, mask,
     return ints, flts, (row if keep_state else None)
 
 
+@op_cost.charged(lambda a: kernel_work.scan_work(
+    "ext", (a["tag"], a["write"], a["level"], a["active"]),
+    a["cfg"].ext_max_ways, a["state"]))
 def ext_scan(cfg: MorpheusConfig, tag: torch.Tensor, write: torch.Tensor,
              level: torch.Tensor, active: torch.Tensor, mask: torch.Tensor,
              *, state: Optional[ExtRow] = None, keep_state: bool = False

@@ -89,7 +89,9 @@ Dtypes: tags, LRU counters, requests, filter words, masks, blocks, bases
 and payloads are int32 tensors holding the uint32 bit pattern; valid bits
 are bool; ways and levels int32.  On CUDA tensors each wrapper launches
 its kernel (and adds one to its entry of ``launches``) or raises; on CPU
-tensors it runs its plain version (and adds one to ``plain_runs``).
+tensors it runs its plain version (and adds one to ``plain_runs``).  An
+active op counter (``roofline.op_cost``) is charged each call's work by
+``roofline.kernel_work.pool_work``, whichever runs.
 """
 from __future__ import annotations
 
@@ -106,6 +108,7 @@ from .. import _u32
 from ..core import bloom
 from ..core.compression import HIGH, LOW, UNCOMP
 from ..core.tag_store import LRU_MAX
+from ..roofline import kernel_work, op_cost
 
 SEGMENTS = 32
 MAX_RECORD_WORDS = 256         # bloom_record_kernel: 8 words a lane
@@ -121,6 +124,13 @@ WRAPPERS = ("tag_lookup", "lookup_fill", "bloom_query", "bloom_record",
 # and runs of each plain version (which never count as launches).
 launches: Dict[str, int] = dict.fromkeys(WRAPPERS, 0)
 plain_runs: Dict[str, int] = dict.fromkeys(WRAPPERS, 0)
+
+
+def _charged(name: str):
+    """Charge each call of wrapper ``name`` to an active op counter by
+    ``kernel_work.pool_work`` of its arguments, in signature order."""
+    return op_cost.charged(
+        lambda a: kernel_work.pool_work(name, tuple(a.values())))
 
 
 def reset_launches() -> None:
@@ -187,6 +197,7 @@ def _launch_lookup(name: str, tags, valid, lru, lru_out, plan, n_req,
     launches[name] += 1
 
 
+@_charged("tag_lookup")
 def tag_lookup(tags: torch.Tensor, valid: torch.Tensor, lru: torch.Tensor,
                req: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -274,6 +285,7 @@ def fill_plan(sets: np.ndarray, req: np.ndarray, n_sets: int
     return plan, min(ROUNDS, int(counts.max()))
 
 
+@_charged("lookup_fill")
 def lookup_fill(tags: torch.Tensor, valid: torch.Tensor, lru: torch.Tensor,
                 sets, req) -> torch.Tensor:
     """The pool's conventional tier for one batch, in place on the (S, W)
@@ -327,6 +339,7 @@ def bloom_query_plain(filters: torch.Tensor, tags: torch.Tensor,
     return pred, bloom._bit_mask(bits, words)
 
 
+@_charged("bloom_query")
 def bloom_query(filters: torch.Tensor, tags: torch.Tensor,
                 rows: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -398,6 +411,7 @@ def record_plan(sets: np.ndarray, tags: np.ndarray) -> Tuple[np.ndarray, int]:
     return plan, len(starts)
 
 
+@_charged("bloom_record")
 def bloom_record(bf1: torch.Tensor, bf2: torch.Tensor, n_mru: torch.Tensor,
                  sets, tags, ways: int) -> None:
     """In place: record the keys (``sets[k]``, ``tags[k]``) in order into
@@ -459,6 +473,7 @@ def bdi_compress_plain(blocks: torch.Tensor
     return _compress(blocks)
 
 
+@_charged("bdi_compress")
 def bdi_compress(blocks: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """blocks (N, 32) -> (level (N,) int32, base (N,), payload (N, 32))."""
@@ -518,6 +533,7 @@ def page_write_plain(tags: torch.Tensor, valid: torch.Tensor,
         level[s, w], base[s, w], data[s, w] = lv[0], b[0], pay[0]
 
 
+@_charged("page_write")
 def page_write(tags: torch.Tensor, valid: torch.Tensor, data: torch.Tensor,
                level: Optional[torch.Tensor], base: Optional[torch.Tensor],
                sets, page_tags, pages) -> None:
@@ -601,6 +617,7 @@ def bdi_decompress_plain(level: torch.Tensor, base: torch.Tensor,
     return _restore(level, base, payload)
 
 
+@_charged("bdi_decompress")
 def bdi_decompress(level: torch.Tensor, base: torch.Tensor,
                    payload: torch.Tensor) -> torch.Tensor:
     """level (N,) int32, base (N,), payload (N, words) -> (N, words)."""
@@ -633,12 +650,14 @@ def cached_block_read_plain(data, way, level, base) -> torch.Tensor:
     return _restore(level, base, _gather(data, way))
 
 
+@_charged("gather_blocks")
 def gather_blocks(data: torch.Tensor, way: torch.Tensor) -> torch.Tensor:
     """data (S, W, words), way (S,) -> (S, words): row ``way[s]`` of each
     set."""
     return _read("gather_blocks", data, way, None, None)
 
 
+@_charged("cached_block_read")
 def cached_block_read(data: torch.Tensor, way: torch.Tensor,
                       level: torch.Tensor, base: torch.Tensor
                       ) -> torch.Tensor:
@@ -666,6 +685,7 @@ def read_rows_plain(conv, ext, ext_level, ext_base, tier, set_idx, way
     return out
 
 
+@_charged("read_rows")
 def read_rows(conv: torch.Tensor, ext: torch.Tensor, ext_level: torch.Tensor,
               ext_base: torch.Tensor, tier: torch.Tensor,
               set_idx: torch.Tensor, way: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,10 @@ Host mode runs the continuous-batching engine with the two-tier Morpheus
 page pool on a reduced config, with the weights of
 ``models.seeded_numpy_params(cfg, 0)`` (the reference draws
 ``model.init(PRNGKey(0))``, which the port cannot reproduce).  The
-reference's pod mode (``--mesh pod|multipod``, ``--dry-run``: the
-sharded one-token ``serve_step`` lowered for the production mesh) needs
-more than one device and raises (ROADMAP A8.4).
+reference's pod mode (``--mesh pod|multipod``: the sharded one-token
+``serve_step`` lowered for the production mesh) needs more than one
+device and raises (ROADMAP A8.4); ``--dry-run``, which the reference
+reads in pod mode only, changes nothing in host mode.
 
 ``--split`` chooses the page pool's mode split: an integer pins the
 cache-chip count; ``auto`` attaches the adaptive runtime governor
@@ -30,8 +31,8 @@ Every flag is the reference's; ``main(argv)`` takes an argument list.
 import argparse
 import time
 
-POD_ERROR = ("--mesh pod|multipod and --dry-run lower the production mesh, "
-             "which needs more than one device (ROADMAP A8.4)")
+POD_ERROR = ("--mesh pod|multipod lowers the production mesh, which needs "
+             "more than one device (ROADMAP A8.4)")
 
 
 def main(argv=None) -> None:
@@ -99,7 +100,7 @@ def main(argv=None) -> None:
                     help="'cuda' (the default) or 'cpu'")
     args = ap.parse_args(argv)
 
-    if args.mesh != "host" or args.dry_run:
+    if args.mesh != "host":       # --dry-run alone is read in pod mode only
         raise SystemExit(f"serve: {POD_ERROR}")
 
     from repro_torch import obs

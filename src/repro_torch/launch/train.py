@@ -3,8 +3,9 @@ with ``--full``, the whole) config through the fault-tolerant training
 loop (``repro_torch.train.loop``): checkpointing, restart, straggler
 monitoring.  On the CUDA card by default; ``--device cpu`` runs the
 plain versions on the host.  The reference's pod mode (``--mesh
-pod|multipod``, ``--dry-run``: the production mesh's lowering) needs
-more than one device and raises (ROADMAP A8.4).
+pod|multipod``: the production mesh's lowering) needs more than one
+device and raises (ROADMAP A8.4); ``--dry-run``, which the reference
+reads in pod mode only, changes nothing in host mode.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
@@ -13,8 +14,8 @@ more than one device and raises (ROADMAP A8.4).
 import argparse
 import tempfile
 
-POD_ERROR = ("--mesh pod|multipod and --dry-run lower the production mesh, "
-             "which needs more than one device (ROADMAP A8.4)")
+POD_ERROR = ("--mesh pod|multipod lowers the production mesh, which needs "
+             "more than one device (ROADMAP A8.4)")
 
 
 def main(argv=None) -> None:
@@ -38,7 +39,7 @@ def main(argv=None) -> None:
                     help="'cuda' (the default) or 'cpu'")
     args = ap.parse_args(argv)
 
-    if args.mesh != "host" or args.dry_run:
+    if args.mesh != "host":       # --dry-run alone is read in pod mode only
         raise SystemExit(f"train: {POD_ERROR}")
 
     from repro_torch import configs

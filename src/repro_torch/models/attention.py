@@ -15,7 +15,9 @@ kernel (``kernels.ops.flash_attention``) where the reference calls
 materialising the scores, so the reference's ``CHUNK_THRESHOLD`` has no
 counterpart.  Decode calls the decode kernel
 (``kernels.ops.decode_attention``) over the cache with ``valid = (pos >=
-0) & (pos <= cur_pos)``, and ``cur_pos - pos < window`` on local layers.
+0) & (pos <= cur_pos)``, and ``cur_pos - pos < window`` on local layers
+(on ``meta``, where the cache holds no positions, the op counter is told
+the count of a cache filled up to ``cur_pos``: ``filled_count``).
 Both take ``cfg.logit_softcap``.  The cache ``pos`` is shared by every row
 of the batch, as in the reference.  The port writes the cache in place
 (the reference returns an updated copy); ``prefill_into_cache`` and
@@ -221,6 +223,15 @@ def _mla_decode(p, x: Tensor, cache: Dict[str, Tensor], cur_pos: int,
     return out.reshape(b, 1, h * vd).to(x.dtype) @ p["wo"]
 
 
+def filled_count(cur_pos: int, c: int, window: int) -> int:
+    """Valid keys of a cache of ``c`` slots that holds every position up
+    to ``cur_pos`` (as a prefill and the decode steps after it leave
+    it): what ``decode_attention``'s mask lets through, for ``meta``
+    tensors, which hold no positions to read it from."""
+    n = min(cur_pos + 1, c)
+    return min(n, window) if window else n
+
+
 def decode_attention(p, x: Tensor, cache: Dict[str, Tensor], cur_pos: int,
                      cfg: ArchConfig, spec: LayerSpec
                      ) -> Tuple[Tensor, Dict[str, Tensor]]:
@@ -245,9 +256,12 @@ def decode_attention(p, x: Tensor, cache: Dict[str, Tensor], cur_pos: int,
     window = _window(cfg, spec)
     if window:
         valid = valid & (cur_pos - pos < window)
+    kw = {}
+    if x.device.type == "meta":     # no positions: a cache filled to cur_pos
+        kw["valid_count"] = b * filled_count(cur_pos, c, window)
     out = K.decode_attention(q[:, 0], cache["k"], cache["v"],
                              valid[None].expand(b, c),
-                             softcap=cfg.logit_softcap)
+                             softcap=cfg.logit_softcap, **kw)
     return out.to(x.dtype).reshape(b, 1, h * hd) @ p["wo"], cache
 
 

@@ -18,7 +18,9 @@ buffer is (64, T, D) and its matmuls 64x the routed work.  The port
 computes the same function on the kept pairs alone: they are sorted by
 expert (stably, so each expert's rows stay in queue order) and each
 expert's matmuls run on its segment.  The segments' lengths are read back
-to the host once a call.
+to the host once a call; on ``meta`` (the op counter's shapes-only run)
+there is nothing to read, and each expert takes a balanced router's
+segment (``balanced_counts``).
 
 Not ported: the ``shard_map`` path over a mesh (``moe.py:172-210``) and
 ``aux_load_balance_loss``, which belong to ``distributed/*`` and training
@@ -53,6 +55,19 @@ def init_moe(cfg: ArchConfig) -> dict:
     return p
 
 
+def balanced_counts(tokens: int, cfg: ArchConfig) -> list:
+    """Kept (token, slot) pairs per expert, then the dropped ones, of a
+    balanced router: the ``tokens * k`` pairs spread evenly over the E
+    experts (the first ``tokens * k % E`` take one more), none above its
+    ``_capacity``.  On ``meta`` the router's choice has no data, so the
+    layer charges the op counter these segments: the one count of a step
+    that differs from a real run's."""
+    e, pairs = cfg.num_experts, tokens * cfg.top_k
+    cap = _capacity(tokens, cfg)
+    kept = [min(cap, pairs // e + (i < pairs % e)) for i in range(e)]
+    return kept + [pairs - sum(kept)]
+
+
 def _capacity(tokens: int, cfg: ArchConfig) -> int:
     """Queue places an expert has: ``tokens`` when dropless
     (``capacity_factor <= 0``), else tokens * k / E * factor; padded to a
@@ -83,13 +98,23 @@ def route(p, x2: Tensor, cfg: ArchConfig) -> Routing:
     w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
     e_flat = idx.reshape(-1)
     order = torch.sort(e_flat, stable=True).indices
-    counts = torch.bincount(e_flat, minlength=e)
+    counts = torch.zeros(e, dtype=torch.int64, device=x2.device
+                         ).scatter_add_(0, e_flat, torch.ones_like(e_flat))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.empty_like(e_flat)
     pos[order] = (torch.arange(t * k, device=x2.device)
                   - starts[e_flat[order]])
     return Routing(e_flat, w.reshape(-1), pos, pos < _capacity(t, cfg),
                    gates)
+
+
+def expert_counts(key: Tensor, cfg: ArchConfig) -> list:
+    """The segment lengths of the expert keys ``key`` (T * k): kept pairs
+    per expert, then the dropped ones, read back to the host; on ``meta``,
+    which has no data, ``balanced_counts``."""
+    if key.device.type == "meta":
+        return balanced_counts(key.numel() // cfg.top_k, cfg)
+    return torch.bincount(key, minlength=cfg.num_experts + 1).tolist()
 
 
 def moe_mlp(p, x: Tensor, cfg: ArchConfig) -> Tensor:
@@ -101,10 +126,9 @@ def moe_mlp(p, x: Tensor, cfg: ArchConfig) -> Tensor:
     # the kept pairs by expert in queue order, the dropped ones last
     key = torch.where(r.keep, r.expert, cfg.num_experts)
     rows = torch.sort(key, stable=True).indices
-    counts = torch.bincount(key, minlength=cfg.num_experts + 1).tolist()
     y_tok = torch.zeros((t * k, shape[-1]), dtype=x2.dtype, device=x2.device)
     start = 0
-    for ex, n in enumerate(counts[:-1]):
+    for ex, n in enumerate(expert_counts(key, cfg)[:-1]):
         if not n:
             continue
         seg = rows[start:start + n]

@@ -39,6 +39,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import _pytree as pytree
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig, LayerSpec
@@ -100,11 +101,26 @@ class Caches(list):
     enc_out: Optional[Tensor] = None
 
 
+def _caches_unflatten(children, _ctx) -> Caches:
+    c = Caches(children[:-1])
+    c.enc_out = children[-1]
+    return c
+
+
+# a pytree node, so that what walks a program's arguments (the op
+# counter's memory sizes) reaches every cache tensor and ``enc_out``
+pytree.register_pytree_node(
+    Caches, lambda c: ([*c, c.enc_out], None), _caches_unflatten,
+    serialized_type_name=f"{__name__}.Caches")
+
+
 class LM(nn.Module):
     """Language model over every architecture of ``repro_torch.configs``.
 
     ``device`` None runs on the CUDA card (``BackendError`` without one);
-    ``device="cpu"`` runs the kernels' plain versions.  ``dtype`` None
+    ``device="cpu"`` runs the kernels' plain versions; ``device="meta"``
+    builds shapes only, for the op counter (``roofline.op_cost``), and
+    computes no result.  ``dtype`` None
     takes the config's ``param_dtype``; the MoE router, ``A_log`` and
     ``dt_bias`` stay float32 whatever it is, as in the reference."""
 
@@ -112,7 +128,7 @@ class LM(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, meta=True)
         self.dtype = dtype or L.dtype_of(cfg)
         for name, init in W.top_inits(cfg).items():
             self.register_parameter(name, nn.Parameter(

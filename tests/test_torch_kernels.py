@@ -1271,3 +1271,43 @@ def test_overload_masked_rows_sum_to_the_global_stats(cuda_device):
         [r["served"] for r in cpu.rounds]
     assert [d.compact() for d in card.decisions] == \
         [d.compact() for d in cpu.decisions]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_wrappers_charge_their_meta_count(cuda_device, dtype):
+    """Each attention wrapper on the card charges the op counter exactly
+    what it charges on ``meta`` (its ``kernel_work`` formula, nothing
+    else), launching its kernel there and nothing on ``meta``."""
+    from repro_torch.roofline import op_cost
+    rng = np.random.default_rng(5)
+
+    def randn(shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            cuda_device, dtype)
+
+    q, k, v = randn((2, 96, 8, 64)), randn((2, 96, 2, 64)), randn((2, 96, 2,
+                                                                    32))
+    valid = torch.from_numpy(rng.random((2, 80)) < 0.7).to(cuda_device)
+    qd, kd = randn((2, 8, 64)), randn((2, 80, 2, 64))
+    n_valid = int(valid.sum())
+    out, lse = att.flash_attention_with_lse(q, k, v, window=16)
+    calls = {
+        "flash_attention": lambda x: att.flash_attention(
+            x["q"], x["k"], x["v"], window=16),
+        "decode_attention": lambda x: att.decode_attention(
+            x["qd"], x["kd"], x["kd"], x["valid"], valid_count=n_valid),
+        "flash_attention_backward": lambda x: att.flash_attention_backward(
+            x["q"], x["k"], x["v"], x["out"], x["out"], x["lse"],
+            window=16)}
+    card = dict(q=q, k=k, v=v, qd=qd, kd=kd, valid=valid, out=out, lse=lse)
+    meta = {n: torch.empty_like(t, device="meta") for n, t in card.items()}
+    for name, call in calls.items():
+        att.reset_launches()
+        got = op_cost.analyze(call, card)
+        assert att.launches[name] == 1, name
+        want = op_cost.analyze(call, meta)
+        assert att.launches[name] == 1 and not any(att.plain_runs.values())
+        assert got.by_name == want.by_name == {
+            name: [1, want.flops, want.bytes]}, name
+        assert got.flops > 0 and got.bytes > 0

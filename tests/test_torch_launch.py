@@ -145,10 +145,48 @@ def test_serve_cli_equals_the_reference(mode, tmp_path, capsys,
 
 @pytest.mark.parametrize("main", [t_serve.main, t_train.main])
 @pytest.mark.parametrize("flags", [["--mesh", "pod"], ["--mesh", "multipod"],
-                                   ["--dry-run"]])
+                                   ["--mesh", "pod", "--dry-run"]])
 def test_launchers_refuse_the_production_mesh(main, flags):
     with pytest.raises(SystemExit, match="A8.4"):
         main(flags + ["--device", "cpu"])
+
+
+DONE = re.compile(r"done: steps=(\d+) restarts=(\d+) stragglers=\d+ loss "
+                  r"\d+\.\d+ -> \d+\.\d+")
+
+
+@pytest.mark.parametrize("cli", ["serve", "train"])
+def test_dry_run_in_host_mode_runs_as_the_reference(cli, tmp_path, capsys,
+                                                    monkeypatch):
+    """``--dry-run`` with ``--mesh host``: the reference reads the flag in
+    pod mode only and serves or trains as usual, and so does the port.
+    Serving prints the reference's lines (same weights); training prints
+    its first line and the same step and restart counts (the reference
+    draws other weights, so the losses differ)."""
+    if cli == "serve":
+        argv = ["--arch", "qwen3-4b", "--dry-run", "--mesh", "host"]
+        monkeypatch.setattr(j_tf.LM, "init", seeded_init("qwen3-4b"))
+        want = run_serve(j_serve.main, argv, tmp_path / "ref", capsys,
+                         monkeypatch)
+        got = run_serve(t_serve.main, argv + ["--device", "cpu"],
+                        tmp_path / "port", capsys)
+        assert got == want
+        assert any(ln.startswith("pool: conv") for ln in got)
+        return
+    from repro.launch import train as j_train
+    argv = ["--arch", "h2o-danube-1.8b", "--steps", "2", "--batch", "2",
+            "--seq", "16", "--dry-run", "--ckpt-dir"]
+    monkeypatch.setattr(sys, "argv", ["train"] + argv + [str(tmp_path / "r")])
+    capsys.readouterr()
+    j_train.main()
+    want = capsys.readouterr().out.replace(str(tmp_path / "r"), "CKPT")
+    t_train.main(argv + [str(tmp_path / "p"), "--device", "cpu"])
+    got = capsys.readouterr().out.replace(str(tmp_path / "p"), "CKPT")
+    got, want = got.splitlines(), want.splitlines()
+    assert got[0] == want[0] == ("train h2o-danube-1.8b-reduced: 2 steps "
+                                 "-> ckpt CKPT")
+    assert DONE.match(got[-1]).groups() == DONE.match(want[-1]).groups() \
+        == ("2", "0")
 
 
 def test_launchers_run_on_the_card_by_default(monkeypatch):
