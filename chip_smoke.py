@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port of the Morpheus simulator, its serving
 page pool, its serving engine over every model family, its online
 runtime, its fleet runtime, admission control and autotuner, its
-training stack, its two launchers and its roofline analysis on one
-NVIDIA card.
+training stack, its two launchers, its roofline analysis and its
+multi-device paths (worlds of ranks sharing the card) on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -209,10 +210,33 @@ Phases (one line each; any failure exits non-zero and prints no result):
      clock without the counter, phase 12's profiled device time, phase
      18's ms a step): the bound, the dominant term, the roofline fraction
      and the model-FLOPs share, each in (0, 1];
-  21. the ported kernels with their launches (phase 4 for the engine
-     scans, phases 14 and 15 for their stateful twins, phase 7 for the
-     pool, phases 12, 16 and 18 for attention, phase 18 for the flash
-     backward), errors, times and bounds (every bound from
+  21. more than one device (``distributed.world``, ``launch.mesh``,
+     ``distributed.sharding``): (a) a world of one rank over NCCL in this
+     process: the 64-replica fleet of phase 15 under ``make_fleet_mesh()``
+     held to the golden file and to phase 15's run (1e-9),
+     deepseek-moe-16b's MoE layer at full width (64 experts of 2048 x
+     1408 and 2 shared, f32) on a (1, 1) mesh against the one-process
+     layer, the qwen3-4b golden training cell (full width, 2 layers)
+     through the train step with a (1, 1) mesh held to the golden bounds
+     of phase 18, and ``train.loop.train`` of that config on (1, 1), 2
+     steps with the supervisor's checkpoint and a resumption to 3, held to
+     the same calls in one process without a mesh; (b) a gloo world of
+     4 processes sharing the card
+     (``world.spawn``; each checks that it imported neither ``jax`` nor
+     ``repro``): the fleet on a fleet axis of 4 (each rank advancing 16
+     rows of a B = 64 group) equal to the golden file on every rank, the
+     MoE layer on (1, 4) and (2, 2) (each row within 1e-4 of its max,
+     gradients within 1e-3), the golden training cell on (2, 1) (one row
+     a rank), ``train.loop.train`` on (2, 1) as in (a), both ranks equal
+     and held to the one-process run, and ``restore_on_mesh`` on (2, 2)
+     of the checkpoint its supervisor wrote from rank 0 (each shard
+     bit-identical to its block of the full leaf); the card's compute
+     mode, each rank's
+     launches, seconds and peak memory;
+  22. the ported kernels with their launches (phase 4 for the engine
+     scans, phases 14, 15 and 21 for their stateful twins, phase 7 for
+     the pool, phases 12, 16, 18 and 21 for attention, phases 18 and 21
+     for the flash backward), errors, times and bounds (every bound from
      ``repro_torch.roofline.kernel_work``, the count the wrappers charge
      the op counter).
 
@@ -295,6 +319,12 @@ class Env:
         from repro_torch.launch import train as launch_train
         from repro_torch.train import loop as train_loop
         from repro_torch.train import train_step
+        from repro_torch import checkpoint
+        from repro_torch.distributed import context, sharding, world
+        from repro_torch.launch import mesh
+        self.checkpoint = checkpoint
+        self.context, self.sharding, self.world = context, sharding, world
+        self.mesh = mesh
         self.data, self.optim, self.pytree = data, optim, pytree
         self.train_loop, self.train_step = train_loop, train_step
         self.launch_serve, self.launch_train = launch_serve, launch_train
@@ -2471,7 +2501,7 @@ def fleet_main(env: Env, g: dict, dev) -> dict:
                counters["device_get_bytes"] / fr.dispatches,
            "group_step_s": group_us / 1e6, "float_rel_err": err,
            "serial_rel_err": serial_err, "prefix_rel_err": prefix_err,
-           "aggregate_ipc": fr.aggregate_ipc(),
+           "records": recs, "aggregate_ipc": fr.aggregate_ipc(),
            "mean_convergence_epoch": float(np.mean(
                fr.convergence_epochs()))}
     log(f"phase 15: fleet of {g['replicas']} replicas x {g['epochs']} "
@@ -2831,7 +2861,7 @@ def phase_fleet(env: Env, dev) -> dict:
 GOLDEN_SUBSTRATES = ROOT / "tests" / "data" / "torch_golden_substrates.json"
 # (b): each family served by Engine at full width; depth None is the
 # config's own, "reduced" its reduced() config (jamba-1.5-large's full
-# width needs more than one card: ROADMAP A8)
+# width needs more than one card: ROADMAP A8.4b)
 SUB_SERVE = (("mamba2-780m", None), ("seamless-m4t-medium", None),
              ("deepseek-v2-lite-16b", 8), ("deepseek-moe-16b", 8),
              ("gemma2-9b", 8), ("qwen2-vl-7b", 8),
@@ -3910,10 +3940,507 @@ def phase_clis(env: Env, dev) -> dict:
     return out
 
 
-def backward_kernel_row(bwd: dict, training: dict, ptxas: dict) -> dict:
+# ---------------------------------------------------- more than one device
+
+MESH_RANKS = 4               # (b): gloo ranks, processes sharing the card
+MESH_TIMEOUT_S = 480         # (b): the world's join
+MESH_MOE_ARCH = "deepseek-moe-16b"
+MESH_MOE_TOKENS = 1024       # the layer's input rows: 8 prompts x 128
+MESH_MOE_SEED = 24
+MESH_MOE_SHAPES = ((1, 4), (2, 2))
+MESH_TRAIN_ARCH = "qwen3-4b"
+MESH_CKPT = ROOT / "build" / "chip_smoke_mesh"
+# train.loop.train of the golden cell's config: MESH_LOOP_STEPS steps with
+# the supervisor's checkpoint at the last, then resumed to MESH_LOOP_RESUME;
+# in one process, on (1, 1) over NCCL and on (2, 1) over gloo
+MESH_LOOP_STEPS, MESH_LOOP_RESUME = 2, 3
+MESH_LOOP_BATCH = 4          # x TRAIN_SEQ: two rows a rank on (2, 1)
+MESH_LOOP_SEED = 5
+
+
+def compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def moe_layer_inputs(env: Env, dev) -> tuple:
+    """(cfg, weights, x, gy) of deepseek-moe-16b's MoE layer at full width
+    (64 routed experts of 2048 x 1408 and 2 shared, f32, the reference's
+    distributions), its input rows and the cotangent of its output, drawn
+    on the card from one seed (so every rank draws the same)."""
+    cfg = env.configs.get(MESH_MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(MESH_MOE_SEED)
+
+    def draw(tree):
+        return {k: draw(v) if isinstance(v, dict) else
+                torch.randn(v.shape, generator=gen, device=dev) * v.scale
+                for k, v in tree.items()}
+    p = draw(env.models.moe.init_moe(cfg))
+    x = torch.randn((MESH_MOE_TOKENS, cfg.d_model), generator=gen,
+                    device=dev)
+    gy = torch.randn(x.shape, generator=gen, device=dev)
+    return cfg, p, x, gy
+
+
+def moe_leaves(p) -> list:
+    return [p["router"], p["w_gate"], p["w_up"], p["w_down"]] + \
+        [p["shared"][k] for k in sorted(p["shared"])]
+
+
+def moe_on_mesh(env: Env, mesh, dev) -> dict:
+    """The MoE layer expert-parallel on ``mesh`` (this rank's tokens, its
+    experts' shards only) against the one-process layer on the same tokens
+    with every expert: each row of the output within 1e-4 of that row's
+    max |y|, each gradient (the rank's expert slices, the router summed
+    over ``model``, the shared experts, the input) within 1e-3 of the
+    leaf's max |gradient|."""
+    sh = env.sharding
+    cfg, p, x, gy = moe_layer_inputs(env, dev)
+    spec = sh.batch_spec(mesh, x.shape[0])
+    x, gy = sh.local_shard(x, spec, mesh), sh.local_shard(gy, spec, mesh)
+    full = moe_leaves(p)
+    for t in full:
+        t.requires_grad_(True)
+    x1 = x.clone().requires_grad_(True)
+    y1 = env.models.moe.moe_mlp(p, x1, cfg)
+    g1 = torch.autograd.grad((y1 * gy).sum(), full + [x1])
+    e_local = cfg.num_experts // sh.axis_sizes(mesh)["model"]
+    e_lo = sh.coordinate(mesh)["model"] * e_local
+    local = {"router": p["router"].detach().clone(),
+             "shared": {k: v.detach().clone()
+                        for k, v in p["shared"].items()}}
+    for k in ("w_gate", "w_up", "w_down"):
+        local[k] = sh.local_shard(p[k].detach(), ("model", None, None),
+                                  mesh).clone()
+    want = [g1[0]] + [g[e_lo:e_lo + e_local] for g in g1[1:4]] + \
+        list(g1[4:])
+    y1 = y1.detach()
+    del p, full, g1
+    torch.cuda.empty_cache()
+    mine = moe_leaves(local)
+    for t in mine:
+        t.requires_grad_(True)
+    x2 = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with env.context.use_mesh(mesh):
+        y = env.models.moe.moe_mlp(local, x2, cfg)
+        g = list(torch.autograd.grad((y * gy).sum(), mine + [x2]))
+    torch.distributed.all_reduce(g[0], group=mesh.get_group("model"))
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    row_err = float(((y.detach() - y1).abs().amax(1)
+                     / y1.abs().amax(1).clamp_min(1e-30)).max())
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for a, b in zip(g, want))
+    shape = tuple(mesh.shape)
+    if not (row_err <= 1e-4 and grad_err <= 1e-3):
+        fail(f"MoE on {shape}: output rows {row_err:.3g} of their max "
+             f"(bound 1e-4), gradients {grad_err:.3g} of their max (bound "
+             f"1e-3)")
+    return {"tokens": x.shape[0], "experts": e_local, "row_err": row_err,
+            "grad_err": grad_err, "s": s,
+            "expert_gb": sum(local[k].numel() * 4 for k in
+                             ("w_gate", "w_up", "w_down")) / 1e9}
+
+
+def mesh_train_config(env: Env, common: dict):
+    """The golden training cell's config: the arch, depth cut."""
+    return dataclasses.replace(env.configs.get(MESH_TRAIN_ARCH),
+                               name=f"{MESH_TRAIN_ARCH}-"
+                                    f"{common['num_layers']}l",
+                               num_layers=common["num_layers"])
+
+
+def mesh_train_cell(env: Env, mesh, dev) -> dict:
+    """The qwen3-4b golden training cell (``tests/data/torch_golden_train
+    .json``: full width, 2 decoder layers) through the step ``train``
+    builds with a mesh (``make_train_step(mesh=...)``, this rank's rows by
+    ``shard_batch``, the mesh installed), fed the golden batch (``train``'s
+    pipeline draws other batches from numpy 2.3, ROADMAP §C 5, and its
+    cosine schedule is not the cell's constant rate): step-0 loss within
+    1e-4, the losses after steps 1 and 2 within 1e-3, ``grad_norm`` within
+    1e-3.  Returns the trained model and state too."""
+    golden = json.loads(GOLDEN_TRAIN.read_text())
+    common, want = golden["common"], golden["cells"][MESH_TRAIN_ARCH]
+    cfg = mesh_train_config(env, common)
+    model = env.models.LM(cfg, device=dev)
+    opt = env.optim.AdamW(learning_rate=common["learning_rate"])
+    state = env.train_step.init_state(
+        model, opt, env.models.seeded_numpy_params(cfg, common["seed"]))
+    step = env.train_step.make_train_step(model, opt, mesh=mesh)
+    batch = env.data.shard_batch(
+        {k: np.asarray(v, np.int64) for k, v in want["batch"].items()},
+        mesh, device=dev)
+    env.obs.enable(trace=True, metrics=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, norms = [], []
+    with env.context.use_mesh(mesh):
+        for _ in range(common["steps"]):
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+    s = time.perf_counter() - t0
+    reduce = collective_use(env, "train.all_reduce", "train_all_reduce_bytes")
+    env.obs.disable()
+    err = {"loss": abs(losses[0] - want["loss"][0]) / abs(want["loss"][0]),
+           "steps": max(abs(a - b) / abs(b) for a, b in
+                        zip(losses[1:], want["loss"][1:])),
+           "grad_norm": abs(norms[0] - want["grad_norm"])
+           / want["grad_norm"]}
+    if err["loss"] > 1e-4 or err["steps"] > 1e-3 or err["grad_norm"] > 1e-3:
+        fail(f"golden training on {tuple(mesh.shape)}: losses {losses} "
+             f"(reference {want['loss']}), grad_norm {norms[0]} "
+             f"(reference {want['grad_norm']})")
+    return {"cfg": cfg, "state": state, "rows": int(batch["tokens"].shape[0]),
+            "losses": losses, "err": err, "s": s, "all_reduce": reduce}
+
+
+def mesh_loop(env: Env, cfg, mesh, dev, ckpt: Path) -> dict:
+    """``train.loop.train`` of ``cfg`` on ``mesh`` (None: one process, no
+    mesh) with the supervisor's checkpoints in ``ckpt``:
+    ``MESH_LOOP_STEPS`` steps, the mesh's first rank writing the state at
+    the last step and every rank waiting for it, then a second call that
+    resumes from it to ``MESH_LOOP_RESUME``.  The losses, the reports
+    and the seconds."""
+    kw = dict(batch=MESH_LOOP_BATCH, seq=TRAIN_SEQ, seed=MESH_LOOP_SEED,
+              device=dev, mesh=mesh, ckpt_dir=str(ckpt),
+              ckpt_every=MESH_LOOP_STEPS, print_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, first, rep = env.train_loop.train(cfg, steps=MESH_LOOP_STEPS,
+                                             **kw)
+    del state
+    state, then, rep2 = env.train_loop.train(cfg, steps=MESH_LOOP_RESUME,
+                                             **kw)
+    del state
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    ctx = f"train on {tuple(mesh.shape) if mesh is not None else 'no mesh'}"
+    if not (rep.steps_run == MESH_LOOP_STEPS and rep.restarts == 0
+            and rep2.resumed_from == MESH_LOOP_STEPS and rep2.restarts == 0
+            and rep2.steps_run == MESH_LOOP_RESUME - MESH_LOOP_STEPS):
+        fail(f"{ctx}: supervisor reports {rep} then {rep2}")
+    losses = first + then
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{ctx}: a loss is not finite {losses}")
+    return {"losses": losses, "s": s}
+
+
+def hold_loop(got: list, one: list, ctx: str) -> dict:
+    """A ``mesh_loop``'s losses against the one-process run's: the first
+    within 1e-4 relative, the later ones within 1e-3 (the golden training
+    bounds; the mean of equal shards' mean losses and gradients is the
+    whole batch's, up to f32 rounding)."""
+    err = {"loss": abs(got[0] - one[0]) / abs(one[0]),
+           "steps": max(abs(a - b) / abs(b) for a, b in zip(got[1:],
+                                                            one[1:]))}
+    if len(got) != len(one) or err["loss"] > 1e-4 or err["steps"] > 1e-3:
+        fail(f"{ctx}: losses {got}, one process {one}")
+    return err
+
+
+def block_of(arr, spec, coord: dict, sizes: dict):
+    """``arr``'s block at ``coord`` under ``spec`` (the first axis of a
+    dim's tuple major), cut by index arithmetic of its own."""
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        idx, cnt = 0, 1
+        for a in ((entry,) if isinstance(entry, str) else entry):
+            idx, cnt = idx * sizes[a] + coord[a], cnt * sizes[a]
+        n = arr.shape[d] // cnt
+        arr = arr.narrow(d, idx * n, n)
+    return arr
+
+
+def elastic_check(env: Env, cfg, mesh, dev) -> dict:
+    """``restore_on_mesh`` on ``mesh`` of the parameters of the latest
+    training state in ``MESH_CKPT`` (the supervisor's, written by rank 0):
+    each shard bit-identical to its block of the checkpoint's full
+    leaf."""
+    ckpt = env.checkpoint.latest(MESH_CKPT)
+    template = env.train_step.TrainState(env.models.weights.param_tree(
+        env.models.LM(cfg, device=dev)), None, None)
+    step, shards = env.checkpoint.restore_on_mesh(ckpt, template, mesh)
+    _, full = env.checkpoint.restore(ckpt, template)
+    sh, pt = env.sharding, env.pytree
+    coord, sizes = sh.coordinate(mesh), sh.axis_sizes(mesh)
+    held = cut = n = 0
+    for (name, got), (_, leaf) in zip(pt.flatten(shards), pt.flatten(full)):
+        key = name.rsplit("/", 1)[-1]       # the rules read the leaf's key
+        spec = sh.param_specs({key: leaf}, mesh)[key]
+        n += 1
+        want = block_of(torch.from_numpy(leaf.numpy()), spec, coord, sizes)
+        if not torch.equal(torch.from_numpy(got.numpy()), want):
+            fail(f"restore_on_mesh {name}: the shard at {coord} differs "
+                 f"from its block of the full leaf")
+        held += want.numel()
+        cut += any(e is not None for e in spec)
+    return {"step": step, "leaves": n, "sharded_leaves": cut,
+            "held": held,
+            "full": sum(leaf.numpy().size for _, leaf in pt.flatten(full))}
+
+
+def collective_use(env: Env, span: str, counter: str) -> dict:
+    """(calls, seconds, bytes) of a collective span and its byte counter
+    in the obs run just ended."""
+    s = env.obs.tracer().summary().get(span, {})
+    m = env.obs.metrics_registry().get(counter)
+    return {"calls": s.get("count", 0), "s": s.get("total_us", 0.0) / 1e6,
+            "bytes": int(m.total()) if m is not None else 0}
+
+
+def mesh_fleet(env: Env, g: dict, mesh, dev) -> dict:
+    """The 64-replica golden fleet over ``mesh``'s fleet axis, the scans'
+    counts set to 0 before and read after; the gathers' calls, seconds
+    and bytes (obs span ``fleet.gather``)."""
+    env.scan.reset_launches()
+    env.obs.enable(trace=True, metrics=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fr = env.fleet.simulate_fleet(fleet_specs(env, g, g["replicas"]),
+                                  device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gather = collective_use(env, "fleet.gather", "fleet_gather_bytes")
+    env.obs.disable()
+    return {"wall_s": wall, "gather": gather, "names": fr.names,
+            "epochs": fr.epochs, "dispatches": fr.dispatches,
+            "mesh_devices": fr.mesh_devices,
+            "launches": dict(env.scan.launches),
+            "plain": dict(env.scan.plain_runs),
+            "records": [replica_record(env, r) for r in fr.results]}
+
+
+def hold_fleet(got: dict, g: dict, card: dict, first: bool,
+               ctx: str) -> tuple:
+    """A fleet run on a mesh against the golden file (decisions, splits,
+    integer Stats identical, floats within 1e-3) and phase 15's run on
+    one card (``ipc`` and rewards within 1e-9).  The first rank of the
+    axis holds a group's first rows, so it launches as the one card did;
+    a rank whose rows are all padding skips the scans (``_run_packed``
+    launches nothing on a zero-length pack)."""
+    want = card["launches"]
+    ok = got["launches"] == want if first else all(
+        0 < got["launches"][k] <= want[k] for k in want)
+    if got["names"] != g["names"] or got["epochs"] != g["epochs"] or \
+            got["dispatches"] != g["dispatches"] or \
+            any(got["plain"].values()) or not ok:
+        fail(f"{ctx}: {got['epochs']} steps, {got['dispatches']} "
+             f"dispatches (golden {g['epochs']}, {g['dispatches']}), "
+             f"launches {got['launches']} (one card {want}), plain runs "
+             f"{got['plain']}")
+    err = max(hold_replica(a, w, f"{ctx} replica {i}") for i, (a, w) in
+              enumerate(zip(got["records"], g["replicas_results"])))
+    one = max(same_replica(a, b, f"{ctx} vs one card, replica {i}")
+              for i, (a, b) in enumerate(zip(got["records"],
+                                             card["records"])))
+    return err, one
+
+
+def mesh_rank(rank: int, golden_fleet: dict) -> dict:
+    """One rank of (b)'s gloo world: a process of its own on the card,
+    importing neither JAX nor the reference."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+    env = Env()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    t0 = time.perf_counter()
+    out = {"rank": rank,
+           "fleet": mesh_fleet(env, golden_fleet,
+                               env.mesh.make_fleet_mesh(), dev)}
+    out["moe"] = {shape: moe_on_mesh(env, init_device_mesh(
+        dev.type, shape, mesh_dim_names=("data", "model")), dev)
+        for shape in MESH_MOE_SHAPES}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    train_mesh = DeviceMesh(dev.type, torch.arange(2).reshape(2, 1),
+                            mesh_dim_names=("data", "model"))
+    env.att.reset_launches()
+    if train_mesh.get_coordinate() is not None:
+        cell = mesh_train_cell(env, train_mesh, dev)
+        cfg = cell.pop("cfg")
+        del cell["state"]
+        torch.cuda.empty_cache()
+        cell["loop"] = mesh_loop(env, cfg, train_mesh, dev, MESH_CKPT)
+        cell["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["train"] = cell
+    else:
+        cfg = mesh_train_config(
+            env, json.loads(GOLDEN_TRAIN.read_text())["common"])
+    out["att"] = {"launches": dict(env.att.launches),
+                  "plain": dict(env.att.plain_runs)}
+    torch.cuda.empty_cache()
+    env.world.barrier()
+    out["elastic"] = elastic_check(env, cfg, env.mesh.make_dev_mesh(2), dev)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["s"] = time.perf_counter() - t0
+    out["jax"] = [m for m in ("jax", "repro") if m in sys.modules]
+    return out
+
+
+def phase_multi_device(env: Env, dev, fleet: dict) -> dict:
+    """Phase 21: more than one device.  (a) a world of one rank over NCCL
+    on the card, in this process: the 64-replica golden fleet under
+    ``make_fleet_mesh()``, the full-width MoE layer on a (1, 1) mesh, the
+    qwen3-4b golden training cell on (1, 1), and ``train.loop.train`` of
+    its config on (1, 1) with a checkpoint and a resumption, held to the
+    same call in one process without a mesh; (b) a gloo world of
+    ``MESH_RANKS`` processes sharing the card (``distributed.world.spawn``):
+    the fleet on a fleet axis of 4, each rank advancing 16 rows of a
+    B = 64 group, the MoE layer on (1, 4) and (2, 2), the golden training
+    cell on (2, 1) (one row a rank), ``train.loop.train`` on (2, 1) as in
+    (a), ``restore_on_mesh`` on (2, 2) of the checkpoint its supervisor
+    wrote from rank 0."""
+    import shutil
+    import tempfile
+    g = json.loads(GOLDEN_FLEET.read_text())["fleet"]
+    card = fleet["fleet"]
+    mode = compute_mode()
+    t0 = time.perf_counter()
+    loop_cfg = mesh_train_config(
+        env, json.loads(GOLDEN_TRAIN.read_text())["common"])
+    loop_ckpt = ROOT / "build" / "chip_smoke_loop"
+    shutil.rmtree(loop_ckpt, ignore_errors=True)
+    one_loop = mesh_loop(env, loop_cfg, None, dev, loop_ckpt)
+    shutil.rmtree(loop_ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rdv = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    env.world.init_world("nccl", 0, 1, f"file://{rdv}/rendezvous")
+    nccl_fleet = mesh_fleet(env, g, env.mesh.make_fleet_mesh(), dev)
+    f_err, f_one = hold_fleet(nccl_fleet, g, card, True,
+                              "fleet, NCCL world of 1")
+    mesh11 = env.mesh.make_dev_mesh(1)
+    nccl_moe = moe_on_mesh(env, mesh11, dev)
+    torch.cuda.empty_cache()
+    env.att.reset_launches()
+    nccl_train = mesh_train_cell(env, mesh11, dev)
+    nccl_train.pop("cfg"), nccl_train.pop("state")
+    torch.cuda.empty_cache()
+    nccl_loop = mesh_loop(env, loop_cfg, mesh11, dev, loop_ckpt)
+    nccl_loop["err"] = hold_loop(nccl_loop["losses"], one_loop["losses"],
+                                 "train on (1, 1), NCCL")
+    shutil.rmtree(loop_ckpt, ignore_errors=True)
+    nccl_att = dict(env.att.launches)
+    if any(env.att.plain_runs.values()):
+        fail(f"phase 21 (a): plain attention runs {env.att.plain_runs}")
+    torch.distributed.destroy_process_group()
+    shutil.rmtree(rdv, ignore_errors=True)
+    torch.cuda.empty_cache()
+    a_s = time.perf_counter() - t0
+    log(f"phase 21 (a): NCCL world of 1 rank on the card: fleet of "
+        f"{g['replicas']} on a fleet axis of 1 in {nccl_fleet['wall_s']:.3f}"
+        f" s (phase 15 {fleet['fleet']['wall_s']:.3f} s), launches "
+        f"{json.dumps(nccl_fleet['launches'])}, == the golden (float rel err "
+        f"{f_err:.3g}) and phase 15's run (rel err {f_one:.3g}, bound "
+        f"1e-9); {MESH_MOE_ARCH} MoE layer at full width on (1, 1): "
+        f"{nccl_moe['tokens']} rows, output rows {nccl_moe['row_err']:.3g} "
+        f"of their max, gradients {nccl_moe['grad_err']:.3g}; golden "
+        f"training cell {MESH_TRAIN_ARCH} on (1, 1): losses "
+        f"{nccl_train['losses']}, rel err loss {nccl_train['err']['loss']:.3g}"
+        f", steps {nccl_train['err']['steps']:.3g}, grad_norm "
+        f"{nccl_train['err']['grad_norm']:.3g}; train.loop.train of its "
+        f"config, batch {MESH_LOOP_BATCH} x {TRAIN_SEQ}, {MESH_LOOP_STEPS} "
+        f"steps, checkpointed and resumed to {MESH_LOOP_RESUME}: one process "
+        f"losses {one_loop['losses']} in {one_loop['s']:.1f} s, (1, 1) "
+        f"{nccl_loop['losses']} in {nccl_loop['s']:.1f} s (rel err loss "
+        f"{nccl_loop['err']['loss']:.3g}, steps "
+        f"{nccl_loop['err']['steps']:.3g}); attention launches "
+        f"{json.dumps(nccl_att)}; {a_s:.1f} s")
+
+    t1 = time.perf_counter()
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    ranks = env.world.spawn(mesh_rank, MESH_RANKS, g, backend="gloo",
+                            timeout_s=MESH_TIMEOUT_S)
+    b_s = time.perf_counter() - t1
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    for r in ranks:
+        if r["jax"]:
+            fail(f"phase 21 (b): rank {r['rank']} imported {r['jax']}")
+        if r["fleet"]["mesh_devices"] != MESH_RANKS:
+            fail(f"phase 21 (b): rank {r['rank']}'s fleet axis is "
+                 f"{r['fleet']['mesh_devices']}")
+        r["fleet_err"] = hold_fleet(r["fleet"], g, card, r["rank"] == 0,
+                                    f"fleet, gloo rank {r['rank']}")
+        if any(r["att"]["plain"].values()):
+            fail(f"phase 21 (b): rank {r['rank']} ran plain attention "
+                 f"{r['att']['plain']}")
+    trained = [r for r in ranks if "train" in r]
+    if [r["rank"] for r in trained] != [0, 1] or \
+            trained[0]["train"]["losses"] != trained[1]["train"]["losses"] \
+            or trained[0]["train"]["loop"]["losses"] != \
+            trained[1]["train"]["loop"]["losses"]:
+        fail("phase 21 (b): the (2, 1) training ranks disagree")
+    for r in trained:
+        r["train"]["loop"]["err"] = hold_loop(
+            r["train"]["loop"]["losses"], one_loop["losses"],
+            f"train on (2, 1), gloo rank {r['rank']}")
+    el = [r["elastic"] for r in ranks]
+    if sum(e["held"] for e in el) < el[0]["full"]:
+        fail(f"phase 21 (b): the (2, 2) shards hold "
+             f"{sum(e['held'] for e in el)} of {el[0]['full']} elements")
+    log(f"phase 21 (b): gloo world of {MESH_RANKS} processes sharing the "
+        f"card (compute mode {mode}), {b_s:.1f} s with the world's start: "
+        + "; ".join(
+            f"rank {r['rank']}: fleet {r['fleet']['wall_s']:.3f} s (phase "
+            f"15 {fleet['fleet']['wall_s']:.3f} s; "
+            f"{r['fleet']['gather']['calls']} gathers, "
+            f"{r['fleet']['gather']['s']:.3f} s, "
+            f"{r['fleet']['gather']['bytes'] / 1e6:.1f} MB), launches "
+            f"{json.dumps(r['fleet']['launches'])}, == the golden (float rel "
+            f"err {r['fleet_err'][0]:.3g}) and phase 15 ({r['fleet_err'][1]:.3g});"
+            " MoE " + ", ".join(
+                f"{s}: {m['tokens']} rows, {m['experts']} experts "
+                f"({m['expert_gb']:.2f} GB), rows {m['row_err']:.3g}, "
+                f"gradients {m['grad_err']:.3g}, {m['s']:.3f} s"
+                for s, m in r["moe"].items())
+            + (f"; training (2, 1): {r['train']['rows']} row, losses "
+               f"{r['train']['losses']}, rel err loss "
+               f"{r['train']['err']['loss']:.3g}, steps "
+               f"{r['train']['err']['steps']:.3g}, grad_norm "
+               f"{r['train']['err']['grad_norm']:.3g}, {r['train']['s']:.2f}"
+               f" s ({r['train']['all_reduce']['calls']} gradient "
+               f"all-reduces, {r['train']['all_reduce']['s']:.2f} s, "
+               f"{r['train']['all_reduce']['bytes'] / 1e9:.2f} GB); "
+               f"train.loop.train (2, 1): losses "
+               f"{r['train']['loop']['losses']} (rel err loss "
+               f"{r['train']['loop']['err']['loss']:.3g}, steps "
+               f"{r['train']['loop']['err']['steps']:.3g}), "
+               f"{r['train']['loop']['s']:.1f} s; peak "
+               f"{r['train']['peak_gb']:.2f} GB"
+               if "train" in r else "")
+            + f"; attention launches {json.dumps(r['att']['launches'])}; "
+            f"restore_on_mesh (2, 2): {r['elastic']['sharded_leaves']} of "
+            f"{r['elastic']['leaves']} leaves cut, {r['elastic']['held']} "
+            f"elements held, bit-identical; peak {r['peak_gb']:.2f} GB, "
+            f"{r['s']:.1f} s" for r in ranks))
+    scans = {k: nccl_fleet["launches"][k] + sum(
+        r["fleet"]["launches"][k] for r in ranks)
+        for k in ("conv_scan", "ext_scan")}
+    att = {k: nccl_att[k] + sum(r["att"]["launches"][k] for r in ranks)
+           for k in nccl_att}
+    log(f"phase 21: launches {json.dumps(scans)} (stateful scans), "
+        f"{json.dumps(att)} (attention), no plain run; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"scans": scans, "attention": att,
+            "nccl": {"fleet": nccl_fleet["launches"], "attention": nccl_att},
+            "gloo_ranks": [{"fleet": r["fleet"]["launches"],
+                            "attention": r["att"]["launches"]}
+                           for r in ranks]}
+
+
+def backward_kernel_row(bwd: dict, training: dict, multi: dict,
+                        ptxas: dict) -> dict:
     """The flash backward's entry of the kernels line: launches of the
-    training path (phase 18), times at its shape and the others of phase
-    17."""
+    training paths (phase 18, and phase 21's ranks), times at its shape
+    and the others of phase 17."""
     head = bwd["cases"][BWD_TRAINING]
     return {
         "name": "flash_attention_backward", "route": "cuda",
@@ -3924,9 +4451,11 @@ def backward_kernel_row(bwd: dict, training: dict, ptxas: dict) -> dict:
         "kernel": "bwd_dq_f32<D> + bwd_dkdv_f32<D, KB> (f32), "
                   "bwd_dq_bf16<D, NWG> + bwd_dkdv_bf16<D, SPLIT> "
                   "(bf16, wgmma)",
-        "launches": training["launches"]["flash_attention_backward"],
-        "launches_by_path": {"training": training["launches"][
-            "flash_attention_backward"]},
+        "launches": training["launches"]["flash_attention_backward"]
+        + multi["attention"]["flash_attention_backward"],
+        "launches_by_path": {
+            "training": training["launches"]["flash_attention_backward"],
+            "mesh_training": multi["attention"]["flash_attention_backward"]},
         "max_abs_err": bwd["err"], "lse_max_abs_err": bwd["lse_err"],
         "ms": head["ms"], "call_ms": head["call_ms"],
         "dq_ms": head["dq_ms"], "dkdv_ms": head["dkdv_ms"],
@@ -3947,11 +4476,13 @@ def backward_kernel_row(bwd: dict, training: dict, ptxas: dict) -> dict:
                   for k, v in bwd["cases"].items() if k != BWD_TRAINING}}
 
 
-def online_kernel_rows(online: dict, fleet: dict, scan_ptxas: dict) -> list:
+def online_kernel_rows(online: dict, fleet: dict, multi: dict,
+                       scan_ptxas: dict) -> list:
     """The stateful scans' entries of the kernels line: launches of the
     paths that run them (phase 14's cells, phase 15's 64-replica fleet and
-    overload pair), times at the online path's shape (the handed-off
-    epoch) and at the fleet's B = 64 group."""
+    overload pair, phase 21's fleets on a fleet axis, every rank's),
+    times at the online path's shape (the handed-off epoch) and at the
+    fleet's B = 64 group."""
     source = "src/repro_torch/kernels/csrc/engine_scan.cu"
     rows = {"conv_scan": ("conv_scan_state",
                           "src/repro/kernels/engine_scan.py:248",
@@ -3966,7 +4497,8 @@ def online_kernel_rows(online: dict, fleet: dict, scan_ptxas: dict) -> list:
         by_path = {"online": online["launches"][name],
                    "fleet": fleet["fleet"]["launches"][name],
                    "overload": sum(fleet["overload"][m]["launches"][name]
-                                   for m in ("admission", "none"))}
+                                   for m in ("admission", "none")),
+                   "mesh_fleet": multi["scans"][name]}
         out.append({
             "name": row, "route": "cuda", "source": source,
             "replaces": replaces, "kernel": kernel,
@@ -3994,10 +4526,11 @@ def online_kernel_rows(online: dict, fleet: dict, scan_ptxas: dict) -> list:
 
 def attention_kernel_rows(ak: dict, serving: dict, path: dict, subs: dict,
                           golden_err: float, ptxas: dict,
-                          training: dict) -> list:
+                          training: dict, multi: dict) -> list:
     """The attention kernels' entries of the kernels line: launches of the
     two serving paths (phase 12's qwen3-4b and phase 16's families) and of
-    the training path (phase 18's qwen3-4b), each counted from 0, times at
+    the training paths (phase 18's qwen3-4b, phase 21's golden cell on
+    its meshes, every rank's), each counted from 0, times at
     phase 12's most frequent shape, every shape of phase 16's path, the
     soft-capped decode (phase 16) and the large shapes of phase 10."""
     src = "src/repro_torch/kernels/csrc/attention.cu"
@@ -4024,7 +4557,8 @@ def attention_kernel_rows(ak: dict, serving: dict, path: dict, subs: dict,
                  for k, v in ak["large"].items() if v["wrapper"] == name}
         by_path = {"qwen3_serving": serving["launches"][name],
                    "families_serving": subs["launches"][name],
-                   "qwen3_training": training["launches"][name]}
+                   "qwen3_training": training["launches"][name],
+                   "mesh_training": multi["attention"][name]}
         row = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "kernel": kernel,
@@ -4236,6 +4770,7 @@ def main() -> int:
     training = phase_training(env, dev)
     phase_clis(env, dev)
     phase_roofline(env, dev, serving, training)
+    multi = phase_multi_device(env, dev, fleet)
 
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("the port imported jax or repro")
@@ -4260,13 +4795,15 @@ def main() -> int:
             "ptxas": {n: v for n, v in scan_ptxas.items()
                       if n.startswith(name.split("_")[0])},
         })
-    kernels += online_kernel_rows(online, fleet, scan_ptxas)
+    kernels += online_kernel_rows(online, fleet, multi, scan_ptxas)
     kernels += pool_kernel_rows(pk, cells, paths)
     kernels += attention_kernel_rows(ak, serving, att_path, subs,
-                                     golden_lm["err"], att_ptxas, training)
+                                     golden_lm["err"], att_ptxas, training,
+                                     multi)
     kernels.append(backward_kernel_row(
-        bwd, training, ptxas_summary(env.build.build_log("attention_bwd"))))
-    log("phase 21: kernels " + ", ".join(
+        bwd, training, multi,
+        ptxas_summary(env.build.build_log("attention_bwd"))))
+    log("phase 22: kernels " + ", ".join(
         f"{x['name']} matched plain (max abs err {x['max_abs_err']:.3g}), "
         f"{x['ms']:.4g} ms on the card ({x['call_ms']:.4g} ms a call) vs "
         f"plain {x['plain_ms']:.4g} ms, bound {x['bound_ms']:.4g} ms "

@@ -1,3 +1,4 @@
 from .checkpointer import latest, restore, save
+from .elastic import restore_on_mesh
 
-__all__ = ["latest", "restore", "save"]
+__all__ = ["latest", "restore", "save", "restore_on_mesh"]

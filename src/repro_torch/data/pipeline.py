@@ -3,8 +3,10 @@ streams and document packing (numpy, copied so that the batches are
 bit-identical to the reference's), and the host-to-device copy of a
 batch.
 
-A mesh (the reference's sharding of the batch over the data axes) has no
-counterpart on one card: ``shard_batch`` raises for one (ROADMAP A8.4).
+With a mesh, ``shard_batch`` gives each rank the rows the reference's
+``NamedSharding`` places on its device: dim 0 over the ``(pod, data)``
+axes when they divide it (``sharding.batch_spec``), else the whole
+batch; a rank never holds the other rows.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core.engine import resolve_device
+from ..distributed import sharding as shd
 
 
 @dataclass
@@ -70,14 +73,21 @@ class PackedBatcher:
 
 def shard_batch(batch: Dict[str, np.ndarray], mesh=None, *, device=None
                 ) -> Dict[str, torch.Tensor]:
-    """One host-to-device copy of each array of a host batch; ``device``
-    None is the CUDA card, ``"cpu"`` the host."""
-    if mesh is not None:
-        raise NotImplementedError("shard_batch: a mesh needs more than one "
-                                  "device (ROADMAP A8.4)")
+    """One host-to-device copy of each array of a host batch (with a
+    ``DeviceMesh``, of this rank's rows); ``device`` None is the CUDA
+    card, ``"cpu"`` the host."""
     dev = resolve_device(device)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-            for k, v in batch.items()}
+    if mesh is not None and not hasattr(mesh, "get_coordinate"):
+        raise TypeError("shard_batch: a mesh is a DeviceMesh over an "
+                        "initialised world (repro_torch.launch.mesh)")
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if mesh is not None:
+            t = shd.local_shard(t, shd.batch_spec(mesh, t.shape[0], t.dim()),
+                                mesh)
+        out[k] = t.contiguous().to(dev)
+    return out
 
 
 def make_pipeline(vocab_size: int, batch: int, seq: int, *, seed: int = 0

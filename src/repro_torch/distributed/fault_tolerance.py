@@ -12,6 +12,17 @@
 
 The reference's supervisor never calls its elastic pod-drop path
 (``checkpoint.elastic``); nothing of it is missing here.
+
+On a mesh of ranks (``train(mesh=...)``) every rank of the mesh runs the
+supervisor: the mesh's first rank alone writes a checkpoint, and every
+rank waits at a barrier over the mesh until it is written; each rank
+resumes from it.  There a failed step is re-raised, not restarted: the
+other ranks may be waiting in the step's collectives for the failed
+one, and a rank that restored and stepped again would meet them in the
+wrong collective.  The single controller of the reference has no such
+peers.  The world's launcher restarts the world instead
+(``distributed.world.spawn`` ends every rank when one fails), and the
+new world resumes from the latest checkpoint.
 """
 from __future__ import annotations
 
@@ -22,6 +33,7 @@ from pathlib import Path
 from typing import Any, Callable, Optional
 
 from ..checkpoint import checkpointer as ckpt
+from . import world
 
 Tree = Any
 
@@ -49,9 +61,11 @@ class TrainSupervisor:
     """Wraps a (state, batch) -> (state, metrics) step with fault handling."""
 
     def __init__(self, cfg: SupervisorConfig,
-                 on_straggler: Optional[Callable[[int, float], None]] = None):
+                 on_straggler: Optional[Callable[[int, float], None]] = None,
+                 mesh=None):
         self.cfg = cfg
         self.on_straggler = on_straggler
+        self.mesh = mesh
         self._ema: Optional[float] = None
 
     def _heartbeat(self, step: int):
@@ -79,7 +93,8 @@ class TrainSupervisor:
                 state, metrics = step_fn(state, batch)
             except Exception:
                 rep.restarts += 1
-                if rep.restarts > cfg.max_restarts:
+                if rep.restarts > cfg.max_restarts or (
+                        self.mesh is not None and self.mesh.size() > 1):
                     raise
                 last = ckpt.latest(cfg.ckpt_dir)
                 if last is not None:
@@ -103,6 +118,8 @@ class TrainSupervisor:
             if loss is not None:
                 rep.last_loss = float(loss)
             if step % cfg.ckpt_every == 0 or step == num_steps:
-                ckpt.save(cfg.ckpt_dir, step, state)
+                if world.is_first(self.mesh):
+                    ckpt.save(cfg.ckpt_dir, step, state)
+                world.barrier(self.mesh)
             self._heartbeat(step)
         return state, rep

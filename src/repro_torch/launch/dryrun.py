@@ -27,7 +27,8 @@ real run: an MoE layer's experts are charged a balanced router's rows
 ``meta`` run does not have.
 
 The production meshes (``multi_pod=True``, ``--multi-pod``,
-``--both-meshes``) need more than one device: ROADMAP A8.4.
+``--both-meshes``), counted on a fake process group of 256 or 512
+ranks, are not ported yet: ROADMAP A8.4b.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b
 
@@ -57,7 +58,7 @@ from . import specs as S
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 MESH_ERROR = ("the production mesh (multi_pod, --multi-pod, --both-meshes) "
-              "needs more than one device (ROADMAP A8.4)")
+              "of 256 or 512 ranks is not ported yet (ROADMAP A8.4b)")
 MESH_TAG = "h100x1"
 
 

@@ -6,8 +6,9 @@ page pool on a reduced config, with the weights of
 ``models.seeded_numpy_params(cfg, 0)`` (the reference draws
 ``model.init(PRNGKey(0))``, which the port cannot reproduce).  The
 reference's pod mode (``--mesh pod|multipod``: the sharded one-token
-``serve_step`` lowered for the production mesh) needs more than one
-device and raises (ROADMAP A8.4); ``--dry-run``, which the reference
+``serve_step`` lowered for the production mesh) is not ported
+yet and raises (ROADMAP A8.4b: the production mesh of 256 or 512 ranks
+on a fake process group); ``--dry-run``, which the reference
 reads in pod mode only, changes nothing in host mode.
 
 ``--split`` chooses the page pool's mode split: an integer pins the
@@ -31,8 +32,8 @@ Every flag is the reference's; ``main(argv)`` takes an argument list.
 import argparse
 import time
 
-POD_ERROR = ("--mesh pod|multipod lowers the production mesh, which needs "
-             "more than one device (ROADMAP A8.4)")
+POD_ERROR = ("--mesh pod|multipod lowers the production mesh of 256 or "
+             "512 ranks, which is not ported yet (ROADMAP A8.4b)")
 
 
 def main(argv=None) -> None:

@@ -3,8 +3,9 @@ with ``--full``, the whole) config through the fault-tolerant training
 loop (``repro_torch.train.loop``): checkpointing, restart, straggler
 monitoring.  On the CUDA card by default; ``--device cpu`` runs the
 plain versions on the host.  The reference's pod mode (``--mesh
-pod|multipod``: the production mesh's lowering) needs more than one
-device and raises (ROADMAP A8.4); ``--dry-run``, which the reference
+pod|multipod``: the production mesh's lowering) is not ported
+yet and raises (ROADMAP A8.4b: the production mesh of 256 or 512 ranks
+on a fake process group); ``--dry-run``, which the reference
 reads in pod mode only, changes nothing in host mode.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --steps 50
@@ -14,8 +15,8 @@ reads in pod mode only, changes nothing in host mode.
 import argparse
 import tempfile
 
-POD_ERROR = ("--mesh pod|multipod lowers the production mesh, which needs "
-             "more than one device (ROADMAP A8.4)")
+POD_ERROR = ("--mesh pod|multipod lowers the production mesh of 256 or "
+             "512 ranks, which is not ported yet (ROADMAP A8.4b)")
 
 
 def main(argv=None) -> None:

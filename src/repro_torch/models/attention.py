@@ -35,7 +35,7 @@ Reference behaviours kept on purpose: M-RoPE applies only in the full
 forward with (3, B, S) positions; ``prefill_into_cache`` and
 ``decode_attention`` rotate by plain RoPE over the absolute position, so
 a served qwen2-vl never sees M-RoPE.  Not ported: the mesh constraint
-``_context_parallel_constraint`` (a no-op without a mesh; ROADMAP A8).
+``_context_parallel_constraint`` (a no-op without a mesh; ROADMAP A8.4b).
 """
 from __future__ import annotations
 

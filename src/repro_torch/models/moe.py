@@ -22,9 +22,35 @@ to the host once a call; on ``meta`` (the op counter's shapes-only run)
 there is nothing to read, and each expert takes a balanced router's
 segment (``balanced_counts``).
 
-Not ported: the ``shard_map`` path over a mesh (``moe.py:172-210``) and
-``aux_load_balance_loss``, which belong to ``distributed/*`` and training
-(ROADMAP A8).
+Expert parallelism (the reference's ``_moe_mlp_shardmap``,
+``moe.py:172-210``): when the ambient mesh (``distributed.context``) has
+a ``model`` axis that divides ``num_experts``, each rank of a ``model``
+group routes its tokens with the f32 router, runs only its ``e_local``
+experts ``[e_lo, e_lo + e_local)`` (the reference's
+``_dispatch_compute``, ``:118-170``, as the segment loop above), and one
+all-reduce over ``model`` sums the partial outputs; the shared experts
+are added after it.  The tokens are the rank's own: a rank's activations
+are the rows of its ``(pod, data)`` shard already (``data.shard_batch``
+gives them), where the reference's ``shard_map`` cuts them out of the
+global array (``:180-189``).  So the capacity is taken over the rank's
+tokens, as the reference's per-chip ``_capacity`` is (``:127``): with a
+capacity factor, drops follow the data shard.  Data-parallel training
+installs the mesh with ``global_batch`` (``distributed.context``): its
+reference runs the layer over the whole batch (``_moe_mlp_dense``), so
+each pair's queue place is shifted by its expert's pairs on the batch
+blocks before the rank's (one all-gather of E counts over each batch
+axis) and the capacity is that of the whole batch's tokens; the kept
+pairs are then the reference's, on this path and on the one-process
+path alike.  The expert weights may
+be the full (E, ...) stacks, each rank slicing its own (training keeps
+the parameters replicated), or the rank's (e_local, ...) shards alone
+(``sharding.local_shard`` under ``_MOE_RULES``).  Gradients: the input
+goes through ``copy_to_group`` (its gradient summed over ``model``) and
+the output through ``reduce_from_group`` (the replicated gradient passed
+through once), so the layer's input gradient is whole on every rank; the
+router's and the expert slices' parameter gradients are partial and
+are summed over ``model`` by the train step.  ``aux_load_balance_loss``
+is the reference's Switch-style loss.
 """
 from __future__ import annotations
 
@@ -34,6 +60,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..distributed import collectives as C
+from ..distributed import context as dist_ctx
+from ..distributed import sharding as shd
 from . import layers as L
 
 Tensor = torch.Tensor
@@ -117,18 +146,73 @@ def expert_counts(key: Tensor, cfg: ArchConfig) -> list:
     return torch.bincount(key, minlength=cfg.num_experts + 1).tolist()
 
 
+def _batch_places(r: Routing, t: int, cfg: ArchConfig, mesh) -> Routing:
+    """``r`` of this rank's ``t`` tokens, its ``(pod, data)`` block of a
+    batch, with the places and drops of the whole batch: each pair's
+    place shifted by the pairs of its expert on the blocks before this
+    one (the flattened batch's order), the capacity that of all blocks'
+    tokens.  Dropless archs keep every pair either way."""
+    if cfg.capacity_factor <= 0 or shd.batch_axis_size(mesh) == 1:
+        return r
+    axes = shd.batch_axes(mesh)
+    sizes, coord = shd.axis_sizes(mesh), shd.coordinate(mesh)
+    counts = torch.bincount(r.expert, minlength=cfg.num_experts)[None]
+    for ax in reversed(axes):      # the minor axis first: blocks in order
+        if sizes[ax] > 1:
+            counts = C.all_gather_rows(counts, mesh.get_group(ax))
+    block = 0
+    for ax in axes:
+        block = block * sizes[ax] + coord[ax]
+    pos = r.pos + counts[:block].sum(0)[r.expert]
+    return r._replace(pos=pos,
+                      keep=pos < _capacity(t * counts.shape[0], cfg))
+
+
+def _route(p, x2: Tensor, cfg: ArchConfig, mesh) -> Routing:
+    """``route``, over the whole batch under ``context.global_batch``."""
+    r = route(p, x2, cfg)
+    if mesh is not None and dist_ctx.global_batch():
+        r = _batch_places(r, x2.shape[0], cfg, mesh)
+    return r
+
+
+def expert_parallel(cfg: ArchConfig, mesh) -> bool:
+    """Whether an MoE layer of ``cfg`` runs expert-parallel on ``mesh``:
+    a ``model`` axis that divides ``num_experts``."""
+    if mesh is None:
+        return False
+    m = shd.axis_sizes(mesh).get("model")
+    return m is not None and cfg.num_experts % m == 0
+
+
 def moe_mlp(p, x: Tensor, cfg: ArchConfig) -> Tensor:
-    """x (..., D) -> (..., D) in x's dtype."""
+    """x (..., D) -> (..., D) in x's dtype; expert-parallel under an
+    ambient mesh with a ``model`` axis that divides ``num_experts``."""
+    mesh = dist_ctx.get_mesh()
+    if expert_parallel(cfg, mesh):
+        return _moe_mlp_expert_parallel(p, x, cfg, mesh)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    t, k = x2.shape[0], cfg.top_k
-    r = route(p, x2, cfg)
+    r = _route(p, x2, cfg, mesh)
     # the kept pairs by expert in queue order, the dropped ones last
     key = torch.where(r.keep, r.expert, cfg.num_experts)
+    y = _experts(p, x2, r, key, expert_counts(key, cfg), cfg)
+    if "shared" in p:
+        y = y + L.dense_mlp(p["shared"], x2, cfg.act)
+    return y.reshape(shape)
+
+
+def _experts(p, x2: Tensor, r: Routing, key: Tensor, counts: list,
+             cfg: ArchConfig) -> Tensor:
+    """Sum over the k slots of the weighted outputs of the pairs whose
+    ``key`` names an expert of ``p`` (key i: ``p["w_*"][i]``; ``counts``
+    the segment lengths, the last the pairs left out), (T, D)."""
+    t, k = x2.shape[0], cfg.top_k
     rows = torch.sort(key, stable=True).indices
-    y_tok = torch.zeros((t * k, shape[-1]), dtype=x2.dtype, device=x2.device)
+    y_tok = torch.zeros((t * k, x2.shape[-1]), dtype=x2.dtype,
+                        device=x2.device)
     start = 0
-    for ex, n in enumerate(expert_counts(key, cfg)[:-1]):
+    for ex, n in enumerate(counts[:-1]):
         if not n:
             continue
         seg = rows[start:start + n]
@@ -138,7 +222,49 @@ def moe_mlp(p, x: Tensor, cfg: ArchConfig) -> Tensor:
         a = F.silu(a) if cfg.act == "silu" else F.gelu(a, approximate="tanh")
         y_tok[seg] = (a * (xe @ p["w_up"][ex])) @ p["w_down"][ex]
     y_tok = y_tok * (r.weight * r.keep).to(y_tok.dtype)[:, None]
-    y = y_tok.reshape(t, k, -1).sum(1)
+    return y_tok.reshape(t, k, -1).sum(1)
+
+
+def _local_experts(p, e_lo: int, e_local: int, cfg: ArchConfig) -> dict:
+    """The rank's expert weights: sliced from full (E, ...) stacks, or the
+    (e_local, ...) shards as given."""
+    out = {}
+    for name in ("w_gate", "w_up", "w_down"):
+        w = p[name]
+        if w.shape[0] == cfg.num_experts:
+            w = w[e_lo:e_lo + e_local]
+        elif w.shape[0] != e_local:
+            raise ValueError(f"{name}: {w.shape[0]} experts, expected "
+                             f"{cfg.num_experts} or this rank's {e_local}")
+        out[name] = w
+    return out
+
+
+def _moe_mlp_expert_parallel(p, x: Tensor, cfg: ArchConfig, mesh) -> Tensor:
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    e_local = cfg.num_experts // shd.axis_sizes(mesh)["model"]
+    e_lo = shd.coordinate(mesh)["model"] * e_local
+    group = mesh.get_group("model")
+    xs = C.copy_to_group(x2, group)
+    r = _route(p, xs, cfg, mesh)
+    local = r.keep & (r.expert >= e_lo) & (r.expert < e_lo + e_local)
+    key = torch.where(local, r.expert - e_lo, e_local)
+    counts = torch.bincount(key, minlength=e_local + 1).tolist()
+    y = _experts(_local_experts(p, e_lo, e_local, cfg), xs,
+                 r._replace(keep=local), key, counts, cfg)
+    y = C.reduce_from_group(y, group)
     if "shared" in p:
         y = y + L.dense_mlp(p["shared"], x2, cfg.act)
     return y.reshape(shape)
+
+
+def aux_load_balance_loss(p, x: Tensor, cfg: ArchConfig) -> Tensor:
+    """Switch-style auxiliary loss: E * dot(mean gate prob, token
+    fraction), f32 0-d."""
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    gates = torch.softmax(x2 @ p["router"], dim=-1)
+    idx = torch.sort(gates, dim=-1, descending=True,
+                     stable=True).indices[:, :cfg.top_k]
+    frac = F.one_hot(idx, cfg.num_experts).float().mean((0, 1))
+    return cfg.num_experts * torch.sum(frac * gates.mean(0))

@@ -34,10 +34,22 @@ the reference and to its own serial loop.
 
 ``SplitAdvisor`` is the cross-replica memory (best split and phase /
 context tables a workload mix converged to); a fresh replica of a known
-mix warm-starts there.  The reference shards a group over a
-``("fleet",)`` device mesh; the port runs on one card: ``mesh=None`` is
-the path, and a mesh over more than one device raises
-``NotImplementedError`` (ROADMAP §A 8, ``distributed/*``).
+mix warm-starts there.
+
+Over a ``("fleet",)`` mesh of N ranks (``launch.mesh.make_fleet_mesh``,
+the reference's ``shard_map`` over that axis) every rank runs the whole
+fleet's host logic, and each group of B rows pads to
+``sharding.fleet_padding(B, mesh)`` (a power of two that the axis
+tiles).  Rank r packs and advances rows ``[r P/N, (r+1) P/N)`` of the P
+padded rows through ``_run_packed_state`` (on the card, the stateful
+scans on its rows, the row contract checked on them), then the ranks
+all-gather the Stats delta vectors and the new state rows: on ``gloo``
+one read-back of the rank's rows and the gather on the host, on NCCL
+the gather on the card.  Every rank's epilogue then consumes the whole
+group, as the reference's single controller does: the host logic is
+deterministic from the integer Stats, so no decision is broadcast, and
+every rank holds every replica's state.  A mesh without a fleet axis
+(or of one rank) runs the group whole, as the reference does.
 
 Entry points take ``device`` (None: the CUDA card, ``BackendError``
 without one; ``"cpu"``: the plain versions) where the reference takes
@@ -47,16 +59,20 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from functools import lru_cache
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import obs
 from ..core import cache_sim as cs
 from ..core import engine
 from ..core.controller import Stats
 from ..core.engine import EngineState
+from ..distributed import collectives as C
+from ..distributed.sharding import (FLEET_AXIS, axis_sizes, coordinate,
+                                    fleet_padding)
 from ..kernels import engine_scan
 from .governor import GovernorConfig, OnlineReplica, OnlineResult
 from .telemetry import EpochRecord, TelemetryLog, merge_logs
@@ -179,26 +195,39 @@ def build_replicas(specs: Sequence[ReplicaSpec],
 # ------------------------------------------------------------ fleet step
 
 _ROW_FIELDS = tuple(f for f in EngineState._fields if f != "stats")
+# places of ext_used and ext_valid in a group's carry (the two Stats
+# vectors, then the row fields)
+_USED = 2 + _ROW_FIELDS.index("ext_used")
+_VALID = 2 + _ROW_FIELDS.index("ext_valid")
 _EMPTY_TRACE = (np.zeros(0, np.uint32), np.zeros(0, bool),
                 np.zeros(0, np.int32), 0)
 
 
-def fleet_padding(n_rows: int) -> int:
-    """Rows of padding so a replica batch buckets to a power of two (so
-    governor-driven group churn gives few distinct shapes), as the
-    reference's ``distributed.sharding.fleet_padding`` on one device.
-    Padding rows are fresh ``init_state`` rows fed empty traces, provable
-    no-ops dropped after the step."""
-    assert n_rows > 0
-    return (1 << (n_rows - 1).bit_length()) - n_rows
-
-
 def _mesh_devices(mesh) -> int:
-    """Devices of a mesh (anything with a ``shape`` mapping of axis sizes,
-    as the reference's ``jax.sharding.Mesh``); None is one device."""
+    """Devices of a mesh (the product of its axis sizes); None is one."""
     if mesh is None:
         return 1
-    return int(np.prod(list(dict(mesh.shape).values()) or [1]))
+    return int(np.prod(list(axis_sizes(mesh).values()) or [1]))
+
+
+class _FleetAxis(NamedTuple):
+    """This rank's place on the fleet axis: ``n`` ranks, index ``r``,
+    the axis' process group (None for one rank)."""
+    n: int = 1
+    r: int = 0
+    group: object = None
+
+
+def _fleet_axis(mesh) -> _FleetAxis:
+    n = axis_sizes(mesh).get(FLEET_AXIS, 1) if mesh is not None else 1
+    if n == 1:
+        return _FleetAxis()
+    if not (dist.is_initialized() and hasattr(mesh, "get_group")):
+        raise RuntimeError(f"simulate_fleet over a fleet axis of {n}: a "
+                           f"DeviceMesh over an initialised world is needed "
+                           f"(repro_torch.launch.mesh.make_fleet_mesh)")
+    return _FleetAxis(n, coordinate(mesh)[FLEET_AXIS],
+                      mesh.get_group(FLEET_AXIS))
 
 
 @lru_cache(maxsize=None)
@@ -239,13 +268,24 @@ def _read_back(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     return [h.numpy() for h in hosts]
 
 
-def _advance_group(cfg, group, device: torch.device) -> None:
-    """Advance one same-config group of replicas in a single engine call.
+def _gather_rows(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+    """Every fleet rank's rows of each tensor, in rank order: on ``gloo``
+    one read-back and the gather on the host (host tensors back), on NCCL
+    on the card."""
+    if dist.get_backend(group) == "gloo":
+        tensors = [torch.from_numpy(a) for a in _read_back(tensors)]
+    return [C.all_gather_rows(t, group) for t in tensors]
+
+
+def _advance_group(cfg, group, device: torch.device, mesh=None) -> None:
+    """Advance one same-config group of replicas in a single engine call
+    (a rank's block of its rows over a fleet axis).
 
     ``group`` is ``[(replica, traces, pos0, count)]`` from each replica's
-    ``epoch_inputs()``.  All rows pack in one call, advance in one
+    ``epoch_inputs()``.  The rows pack in one call, advance in one
     ``_run_packed_state`` and read back once; each replica then consumes
     its row slice."""
+    fleet = _fleet_axis(mesh)
     traces, pos0, count, rows = [], [], [], []
     for rep, t, p, m in group:
         rows.append((rep, len(t)))
@@ -253,7 +293,9 @@ def _advance_group(cfg, group, device: torch.device) -> None:
         pos0.extend(p)
         count.extend(m if m is not None else [None] * len(t))
     b = len(traces)
-    pad = fleet_padding(b)
+    pad = fleet_padding(b, mesh)
+    per = (b + pad) // fleet.n
+    lo = fleet.r * per
     with obs.span("fleet.group_step", replicas=len(group), rows=b,
                   pad=pad,
                   config=f"conv{cfg.amap.conv_sets}/"
@@ -262,24 +304,39 @@ def _advance_group(cfg, group, device: torch.device) -> None:
             traces.extend([_EMPTY_TRACE] * pad)
             pos0.extend([0] * pad)
             count.extend([None] * pad)
-        pt = engine.to_device(engine.pack(cfg, traces, pos0=pos0,
-                                          count=count), device)
+        mine = slice(lo, lo + per)
+        pt = engine.to_device(engine.pack(cfg, traces[mine],
+                                          pos0=pos0[mine],
+                                          count=count[mine]), device)
         states = [rep.state for rep, _ in rows]
         if pad:
             states.append(_pad_state(cfg, pad, device))
-        new_state, delta = engine._run_packed_state(cfg, pt,
-                                                    _cat_states(states))
+        state = _cat_states(states)
+        if fleet.n > 1:
+            state = _rows(state, lo, per)
+        new_state, delta = engine._run_packed_state(cfg, pt, state)
         # the fleet calls _run_packed_state, bypassing advance_packed's
         # counter site
         obs.count("engine_dispatches", 1, path="fleet")
         ints, flts = engine_scan.stats_to_vecs(delta)
-        out = [ints, flts, new_state.ext_used, new_state.ext_valid]
+        carry = [ints, flts] + [getattr(new_state, f) for f in _ROW_FIELDS] \
+            + list(new_state.stats)
+        n = len(_ROW_FIELDS)
+        if fleet.n > 1:
+            with obs.span("fleet.gather", ranks=fleet.n, rows=b + pad):
+                carry = _gather_rows(carry, fleet.group)
+            if obs.metrics_on():
+                obs.count("fleet_gather_bytes",
+                          sum(x.numel() * x.element_size() for x in carry))
+            new_state = EngineState(
+                stats=Stats(*[x.to(device) for x in carry[2 + n:]]),
+                **{f: x.to(device) for f, x in zip(_ROW_FIELDS, carry[2:])})
+        out = [carry[0], carry[1], carry[_USED], carry[_VALID]]
         inspecting = obs.inspector() is not None
         if inspecting:
             # the decoded snapshots need the whole carry on the host: the
             # state's leaves join the same read-back
-            out += [getattr(new_state, f) for f in _ROW_FIELDS] \
-                + list(new_state.stats)
+            out += carry[2:]
         host = _read_back(out)
         h_ints, h_flts, h_used, h_valid = host[:4]
         if obs.metrics_on():
@@ -289,7 +346,6 @@ def _advance_group(cfg, group, device: torch.device) -> None:
         host_state = None
         if inspecting:
             leaves = [torch.from_numpy(x) for x in host[4:]]
-            n = len(_ROW_FIELDS)
             host_state = EngineState(stats=Stats(*leaves[n:]),
                                      **dict(zip(_ROW_FIELDS, leaves)))
         o = 0
@@ -382,16 +438,13 @@ def simulate_fleet(specs, *, device=None, mesh=None,
     ``specs`` is a sequence of ``ReplicaSpec`` (or pre-built
     ``OnlineReplica`` on ``device``).  Per step, live replicas running the
     same engine config advance together; replicas the governors have
-    steered to different splits form separate groups.  ``mesh``: None
-    (one device); a mesh over more than one device raises
-    ``NotImplementedError``.  ``advisor`` warm-starts fresh replicas and
-    collects per-epoch reports.
+    steered to different splits form separate groups.  ``mesh``: a
+    ``("fleet",)`` mesh from ``launch.mesh.make_fleet_mesh`` shards each
+    group's rows over its ranks (every rank of the mesh calls this with
+    the same specs); None runs on one device.  ``advisor`` warm-starts
+    fresh replicas and collects per-epoch reports.
     """
-    if _mesh_devices(mesh) > 1:
-        raise NotImplementedError(
-            f"simulate_fleet over a mesh of {_mesh_devices(mesh)} devices: "
-            f"the port runs a fleet on one card; multi-device sharding is "
-            f"ROADMAP §A 8 (distributed/*)")
+    _fleet_axis(mesh)                   # a fleet axis needs a world
     dev = engine.resolve_device(device)
     reps = _build(specs, dev)
     if advisor is not None:
@@ -408,7 +461,7 @@ def simulate_fleet(specs, *, device=None, mesh=None,
             cfg, traces, pos0, count = rep.epoch_inputs()
             groups.setdefault(cfg, []).append((rep, traces, pos0, count))
         for cfg, group in groups.items():
-            _advance_group(cfg, group, dev)
+            _advance_group(cfg, group, dev, mesh)
             dispatches += 1
         if advisor is not None:
             for rep in live:
@@ -416,8 +469,9 @@ def simulate_fleet(specs, *, device=None, mesh=None,
         steps += 1
     return FleetResult(results=[r.result() for r in reps],
                        names=[r.name for r in reps], epochs=steps,
-                       dispatches=dispatches, mesh_devices=1,
-                       device=dev.type, advisor=advisor)
+                       dispatches=dispatches,
+                       mesh_devices=_mesh_devices(mesh), device=dev.type,
+                       advisor=advisor)
 
 
 def evaluate_governors(cells, gcfgs, *, system: str = "Morpheus-ALL",

@@ -1,5 +1,24 @@
 """End-to-end training loop, after ``repro.train.loop``: data pipeline +
-train step + supervisor, on the CUDA card unless ``device="cpu"``."""
+train step + supervisor, on the CUDA card unless ``device="cpu"``.
+
+With a mesh (``launch.mesh.make_dev_mesh`` over a world of ranks, every
+rank calling ``train`` alike) it trains data-parallel: each rank draws
+the same weights and reads the same pipeline, takes its rows of each
+batch (``data.shard_batch``), and the step averages the gradients and
+the loss over the batch shards (``train_step._mesh_reduce``) before the
+compressor, so every rank takes the same AdamW step and reports the
+global loss.  The mesh is installed for the step
+(``distributed.context``), so an MoE layer whose experts the ``model``
+axis divides runs expert-parallel.  The reference's layers see the
+global batch (its ``train`` installs no mesh), so with its rows cut
+over the batch axes the mesh goes in with ``global_batch``: an MoE
+layer takes its capacity and queue places over the whole batch
+(``models.moe``), and the drops are the reference's.  The mesh's first
+rank alone prints and writes the checkpoints; a failed step on a mesh of
+more than one rank is re-raised for the launcher to restart the world
+(``distributed.fault_tolerance``).  Tensor parallelism by
+``sharding.param_specs`` is not done: every rank holds every parameter
+(ROADMAP A8.4b)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,6 +28,8 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.engine import resolve_device
 from ..data import make_pipeline, shard_batch
+from ..distributed import context as dist_ctx
+from ..distributed import world
 from ..distributed.fault_tolerance import (SupervisorConfig, SupervisorReport,
                                            TrainSupervisor)
 from ..models import build_model
@@ -26,9 +47,6 @@ def train(cfg: ArchConfig, *, steps: int = 100, batch: int = 8,
     with ``seed`` (the reference draws ``model.init(PRNGKey(seed))``,
     which the port cannot reproduce), or loaded from ``init``, the
     reference's parameter tree as numpy arrays."""
-    if mesh is not None:
-        raise NotImplementedError("train: a mesh needs more than one "
-                                  "device (ROADMAP A8.4)")
     dev = resolve_device(device)
     model = build_model(cfg, device=dev)
     opt = AdamW(learning_rate=lr,
@@ -38,23 +56,26 @@ def train(cfg: ArchConfig, *, steps: int = 100, batch: int = 8,
         init = torch.Generator(device=dev).manual_seed(seed)
     state = TS.init_state(model, opt, init, compressor=comp)
     step = TS.make_train_step(model, opt, microbatches=microbatches,
-                              compressor=comp)
+                              compressor=comp, mesh=mesh)
 
     pipe = make_pipeline(cfg.vocab_size, batch, seq, seed=seed)
 
     losses = []
 
     def wrapped(state, np_batch):
-        b = shard_batch(np_batch, device=dev)
-        state, metrics = step(state, b)
+        b = shard_batch(np_batch, mesh, device=dev)
+        cut = any(b[k].shape[0] < v.shape[0] for k, v in np_batch.items())
+        with dist_ctx.use_mesh(mesh, global_batch=cut):
+            state, metrics = step(state, b)
         losses.append(float(metrics["loss"]))
-        if len(losses) % log_every == 0:
+        if len(losses) % log_every == 0 and world.is_first(mesh):
             print_fn(f"step {len(losses):5d} loss {losses[-1]:.4f}")
         return state, metrics
 
     if ckpt_dir:
         sup = TrainSupervisor(SupervisorConfig(ckpt_dir=ckpt_dir,
-                                               ckpt_every=ckpt_every))
+                                               ckpt_every=ckpt_every),
+                              mesh=mesh)
         state, rep = sup.run(wrapped, state, pipe, num_steps=steps)
         return state, losses, rep
     for i, np_batch in zip(range(steps), pipe):

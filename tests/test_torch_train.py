@@ -120,12 +120,17 @@ def test_pipeline_deterministic():
 
 
 def test_shard_batch_copies_and_refuses_a_mesh():
+    """Without a mesh every row is copied; a mesh that is no
+    ``DeviceMesh`` over an initialised world (a duck-typed one) raises
+    a one-line error.  Rows over a real mesh: test_torch_distributed.py."""
     nb = next(make_pipeline(100, 2, 8))
     tb = shard_batch(nb, device="cpu")
     assert tb["tokens"].dtype == torch.from_numpy(nb["tokens"]).dtype
     np.testing.assert_array_equal(tb["targets"].numpy(), nb["targets"])
-    with pytest.raises(NotImplementedError, match="A8.4"):
-        shard_batch(nb, mesh=object(), device="cpu")
+    duck = types.SimpleNamespace(shape={"data": 2, "model": 1})
+    with pytest.raises(TypeError, match="initialised world") as e:
+        shard_batch(nb, mesh=duck, device="cpu")
+    assert "\n" not in str(e.value)
 
 
 # -------------------------------------------------------------- schedule
