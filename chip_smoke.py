@@ -3,8 +3,8 @@
 page pool, its serving engine over every model family, its online
 runtime, its fleet runtime, admission control and autotuner, its
 training stack, its two launchers, its roofline analysis and its
-multi-device paths (worlds of ranks sharing the card) on one NVIDIA
-card.
+multi-device paths (worlds of ranks sharing the card, tensor and
+context parallelism) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -233,12 +233,32 @@ Phases (one line each; any failure exits non-zero and prints no result):
      bit-identical to its block of the full leaf); the card's compute
      mode, each rank's
      launches, seconds and peak memory;
-  22. the ported kernels with their launches (phase 4 for the engine
+  22. tensor and context parallelism over DTensor
+     (``distributed.tensor_parallel``): (a) the kernels' two options
+     against their plain versions: the flash forward and backward with a
+     query offset ``q_start`` on qwen2-vl-7b's context-parallel blocks
+     (3 x 1024 rows against 3072 keys, 28/4 heads of 128, f32 and bf16),
+     and ``decode_attention_with_lse`` on two halves of qwen3-4b's decode
+     cache (B 8, 32/8 heads, T 4096, f32) merged against the whole call,
+     each with its time, bound, SDPA's time and the call without the
+     option; (b) a gloo world of 2 processes sharing the card, mesh
+     (1, 2): qwen3-4b at full width and 8 layers placed by
+     ``distribute_model`` (each leaf drawn from one generator, each rank
+     keeping its shard), a 4 x 128 prefill, 8 greedy decode steps and one
+     AdamW step on 4 x 128, held to the same calls in one process
+     (tokens identical, logits 1e-4, loss 1e-5 relative); (c) a gloo
+     world of 3, mesh (1, 3): qwen2-vl-7b at full width, 2 layers (28
+     query heads on an axis of 3: context parallel, its 4 KV heads
+     sequence-sharded), a prefill of 3072 tokens, 6 decode steps and one
+     loss with its gradients, held alike; every rank launches flash,
+     decode and backward (the ranks past 0 with ``q_start``) and runs no
+     plain version; each rank's times and peak memory;
+  23. the ported kernels with their launches (phase 4 for the engine
      scans, phases 14, 15 and 21 for their stateful twins, phase 7 for
      the pool, phases 12, 16, 18 and 21 for attention, phases 18 and 21
-     for the flash backward), errors, times and bounds (every bound from
-     ``repro_torch.roofline.kernel_work``, the count the wrappers charge
-     the op counter).
+     for the flash backward, phase 22 for the options), errors, times
+     and bounds (every bound from ``repro_torch.roofline.kernel_work``,
+     the count the wrappers charge the op counter).
 
 The last lines are the card (``nvidia-smi``), the ``{"kernels": ...}``
 record, and ``{"ok": true, "device": ...}``.  Needs one CUDA card, the
@@ -321,7 +341,9 @@ class Env:
         from repro_torch.train import train_step
         from repro_torch import checkpoint
         from repro_torch.distributed import context, sharding, world
+        from repro_torch.distributed import tensor_parallel
         from repro_torch.launch import mesh
+        self.tp = tensor_parallel
         self.checkpoint = checkpoint
         self.context, self.sharding, self.world = context, sharding, world
         self.mesh = mesh
@@ -1471,6 +1493,13 @@ def att_close(got, want, tol: tuple, ctx: str) -> float:
     return float(err.max())
 
 
+def att_want(att, **counts) -> dict:
+    """Every attention launch count ``att.launches`` keeps (its wrappers
+    and the options' sub-counts): ``counts``, the others 0."""
+    assert set(counts) <= set(att.launches), counts
+    return {k: counts.get(k, 0) for k in att.launches}
+
+
 def attention_bound(name: str, args, kwargs) -> tuple:
     """Least time for one attention call (``kernel_work.attention_work``:
     q, the keys and values it attends to, the mask and the output, each
@@ -1497,8 +1526,9 @@ def sdpa_call(name: str, args, kwargs):
     q, k, v = (a.transpose(1, 2).contiguous() for a in args)
     s, t = q.shape[2], k.shape[2]
     causal, window = kwargs.get("causal", True), kwargs.get("window", 0)
-    if window or (causal and s != t):
-        i = torch.arange(s, device=q.device)[:, None]
+    q_start = kwargs.get("q_start", 0)
+    if window or q_start or (causal and s != t):
+        i = torch.arange(q_start, q_start + s, device=q.device)[:, None]
         j = torch.arange(t, device=q.device)[None, :]
         mask = (j <= i) if causal else torch.ones_like(i - j, dtype=bool)
         if window:
@@ -1785,9 +1815,8 @@ def phase_serving(env: Env, dev) -> dict:
         pool_counts, pool_plain = dict(kp.launches), dict(kp.plain_runs)
     steps = sum(r["steps"] for r in results)
     n_layers = len(model.layers)
-    want = {"flash_attention": n_layers * len(rounds),
-            "decode_attention": n_layers * steps,
-            "flash_attention_backward": 0}
+    want = att_want(att, flash_attention=n_layers * len(rounds),
+                    decode_attention=n_layers * steps)
     if counts != want:
         fail(f"serving: attention launches {counts}, expected {want}")
     if any(plain.values()) or any(pool_plain.values()):
@@ -2861,7 +2890,7 @@ def phase_fleet(env: Env, dev) -> dict:
 GOLDEN_SUBSTRATES = ROOT / "tests" / "data" / "torch_golden_substrates.json"
 # (b): each family served by Engine at full width; depth None is the
 # config's own, "reduced" its reduced() config (jamba-1.5-large's full
-# width needs more than one card: ROADMAP A8.4b)
+# width needs more than one card; the production dry run counts it)
 SUB_SERVE = (("mamba2-780m", None), ("seamless-m4t-medium", None),
              ("deepseek-v2-lite-16b", 8), ("deepseek-moe-16b", 8),
              ("gemma2-9b", 8), ("qwen2-vl-7b", 8),
@@ -2888,10 +2917,10 @@ def want_launches(model, prefills: int, steps: int) -> dict:
     decode steps makes: flash for each self-attention, encoder and cross
     layer a prefill and each cross layer a step, decode for each non-MLA
     self-attention layer a step."""
+    from repro_torch.kernels import attention as att
     attn, mla, cross, enc = attention_layers(model)
-    return {"flash_attention": prefills * (attn + enc + cross)
-            + steps * cross, "decode_attention": steps * (attn - mla),
-            "flash_attention_backward": 0}
+    return att_want(att, flash_attention=prefills * (attn + enc + cross)
+                    + steps * cross, decode_attention=steps * (attn - mla))
 
 
 class RoutingTap:
@@ -3148,8 +3177,11 @@ def phase_substrates(env: Env, dev) -> dict:
         counts, plain = dict(att.launches), dict(att.plain_runs)
     if any(plain.values()):
         fail(f"substrates: plain versions ran {plain}")
-    if counts.pop("flash_attention_backward"):
-        fail("substrates: serving launched the flash backward")
+    if any(counts[k] for k in counts
+           if k not in ("decode_attention", "flash_attention")):
+        fail(f"substrates: serving launched the flash backward or an "
+             f"option of tensor parallelism {counts}")
+    counts = {k: counts[k] for k in ("decode_attention", "flash_attention")}
     if any(v <= 0 for v in counts.values()):
         fail(f"substrates: an attention kernel was not launched {counts}")
     serve_s = time.perf_counter() - t0
@@ -3268,8 +3300,9 @@ def sdpa_backward(q, k, v, do, kw):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     s, t = q.shape[1], k.shape[1]
     mask = None
-    if kw["window"] or (kw["causal"] and s != t):
-        i = torch.arange(s, device=q.device)[:, None]
+    q_start = kw.get("q_start", 0)
+    if kw["window"] or q_start or (kw["causal"] and s != t):
+        i = torch.arange(q_start, q_start + s, device=q.device)[:, None]
         j = torch.arange(t, device=q.device)[None, :]
         mask = (j <= i) if kw["causal"] else torch.ones_like(i - j,
                                                              dtype=bool)
@@ -3552,9 +3585,8 @@ def phase_training(env: Env, dev) -> dict:
     ckpt_gb = sum(f.stat().st_size for f in TRAIN_CKPT.rglob("*.npy")) / 1e9
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     steps = TRAIN_RESUME
-    want = {"flash_attention": 2 * TRAIN_LAYERS * steps,   # with remat
-            "flash_attention_backward": TRAIN_LAYERS * steps,
-            "decode_attention": 0}
+    want = att_want(att, flash_attention=2 * TRAIN_LAYERS * steps,
+                    flash_attention_backward=TRAIN_LAYERS * steps)  # remat
     if counts != want or any(plain.values()):
         fail(f"training: attention launches {counts} (expected {want}), "
              f"plain runs {plain}")
@@ -3681,8 +3713,7 @@ def serving_roofline(env: Env, model, prompts: np.ndarray, max_len: int,
     dec = D.count_decode(model, cur, caches, s)
     torch.cuda.synchronize()
     n = len(model.layers)
-    want = {"decode_attention": n, "flash_attention": n,
-            "flash_attention_backward": 0}
+    want = att_want(att, decode_attention=n, flash_attention=n)
     if att.launches != want or any(att.plain_runs.values()):
         fail(f"phase 20: the counted steps launched {att.launches} "
              f"(expected {want}), plain runs {att.plain_runs}")
@@ -3746,8 +3777,8 @@ def training_roofline(env: Env, dev) -> dict:
     att.reset_launches()
     cost = D.count_train(model, batch(dev), opt())
     torch.cuda.synchronize()
-    want = {"flash_attention": 2 * TRAIN_LAYERS, "decode_attention": 0,
-            "flash_attention_backward": TRAIN_LAYERS}
+    want = att_want(att, flash_attention=2 * TRAIN_LAYERS,
+                    flash_attention_backward=TRAIN_LAYERS)
     if att.launches != want or any(att.plain_runs.values()):
         fail(f"phase 20: the counted training step launched "
              f"{att.launches} (expected {want}), plain runs "
@@ -4436,6 +4467,484 @@ def phase_multi_device(env: Env, dev, fleet: dict) -> dict:
                            for r in ranks]}
 
 
+# ------------------------------------------------------------- phase 22
+
+TP_ARCH = "qwen3-4b"             # (b): phase 18's config, 8 layers
+TP_MESH = (1, 2)
+TP_PROMPT = (4, 128)             # (b): prompts x tokens
+TP_NEW = 8                       # (b): greedy decode steps
+TP_TRAIN = (4, 128)              # (b): the train step's batch
+TP_SEED = 22
+TP_LOGIT_TOL = 1e-4              # logits, tensor-parallel vs one process
+TP_LOSS_TOL = 1e-5               # the train step's loss, relative
+TP_GRAD_TOL = 1e-4               # each gradient leaf's norm, relative
+CP_ARCH = "qwen2-vl-7b"          # (c): the context-parallel path
+CP_LAYERS = 2
+CP_MESH = (1, 3)
+CP_SEQ = 3072                    # a multiple of 3: the rows split evenly
+CP_NEW = 6                       # (c): decode steps over the sharded cache
+CP_TIMEOUT_S = 600
+# (a): qwen2-vl-7b's context-parallel block on (1, 3) and qwen3-4b's
+# decode cache, split in two
+QSTART_CASE = dict(b=1, s=CP_SEQ, h=28, kv=4, hd=128)
+LSE_CASE = dict(b=8, h=32, kv=8, hd=128, t=4096)
+
+
+def tp_config(env: Env, arch: str, layers: int):
+    return dataclasses.replace(env.configs.get(arch),
+                               name=f"{arch}-{layers}l", num_layers=layers)
+
+
+def q_start_blocks(s: int, n: int) -> list:
+    return [(r * s // n, (r + 1) * s // n) for r in range(n)]
+
+
+def phase22_kernels(env: Env, dev) -> dict:
+    """Phase 22 (a): the two kernel options against their plain versions:
+    the flash forward and backward with ``q_start`` on the three row
+    blocks of qwen2-vl-7b's context-parallel prefill (f32 and bf16), and
+    ``decode_attention_with_lse`` on the two halves of qwen3-4b's decode
+    cache, merged, against the whole call.  Times, bounds, the library's
+    time, and the calls without the option at the same shapes (the
+    instances launched before the options existed)."""
+    c = QSTART_CASE
+    rng = np.random.default_rng(TP_SEED)
+    out = {"flash": {}, "backward": {}, "decode": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        q = att_randn(rng, (c["b"], c["s"], c["h"], c["hd"]), dtype, dev)
+        k = att_randn(rng, (c["b"], c["s"], c["kv"], c["hd"]), dtype, dev)
+        v = att_randn(rng, (c["b"], c["s"], c["kv"], c["hd"]), dtype, dev)
+        do = att_randn(rng, tuple(q.shape), dtype, dev)
+        errs, berrs, rows = [], [], {}
+        for a, e in q_start_blocks(c["s"], CP_MESH[1]):
+            qb, dob = q[:, a:e].contiguous(), do[:, a:e].contiguous()
+            kw = dict(causal=True, window=0, softcap=0.0, q_start=a)
+            fwd = lambda: env.att.flash_attention_with_lse(qb, k, v, **kw)
+            o, lse = fwd()
+            errs.append(att_close(
+                o, env.att.flash_attention_plain(qb, k, v, **kw),
+                att_tol("flash_attention", dtype),
+                f"phase 22 (a): flash q_start {a} {dn}"))
+            want = env.att.flash_lse_plain(qb, k, **kw)
+            if float((lse - want).abs().max()) > LSE_TOL[dtype]:
+                fail(f"phase 22 (a): flash q_start {a} {dn}: log-sum-exp "
+                     f"off by {float((lse - want).abs().max())}")
+            bwd = lambda: env.att.flash_attention_backward(
+                qb, k, v, o, dob, lse, **kw)
+            got = bwd()
+            want = env.att.flash_attention_backward_plain(qb, k, v, o, dob,
+                                                          **kw)
+            atol, rtol = BWD_TOL[dtype]
+            for g, w, nm in zip(got, want, ("dq", "dk", "dv")):
+                berrs.append(att_close(g, w, (atol, rtol),
+                                       f"phase 22 (a): {nm} q_start {a} "
+                                       f"{dn}"))
+            args = (qb, k, v)
+            t = times(lambda: env.att.flash_attention(qb, k, v, **kw),
+                      lambda: env.att.flash_attention_plain(qb, k, v, **kw),
+                      5, 2, sdpa_call("flash_attention", args, kw))
+            tb = times(bwd, lambda: env.att.flash_attention_backward_plain(
+                qb, k, v, o, dob, **kw), 5, 2)
+            library = sdpa_backward(qb, k, v, dob, kw)   # autograd: no graph
+            tb["library_ms"] = timed_cuda(library, 5) if library else None
+            del library
+            rows[a] = {"forward": t | {"bound": attention_bound(
+                "flash_attention", args, kw)},
+                "backward": tb | {"bound": bwd_bound(qb, k, v, kw)}}
+        # the call without an offset at the whole shape: the instance
+        # every earlier phase launches
+        kw0 = dict(causal=True, window=0, softcap=0.0)
+        whole = device_ms(lambda: env.att.flash_attention(q, k, v, **kw0), 5)
+        o0, lse0 = env.att.flash_attention_with_lse(q, k, v, **kw0)
+        whole_b = device_ms(lambda: env.att.flash_attention_backward(
+            q, k, v, o0, do, lse0, **kw0), 5)
+        out["flash"][dn] = {"err": max(errs), "blocks": {
+            a: r["forward"] for a, r in rows.items()}, "whole_ms": whole}
+        out["backward"][dn] = {"err": max(berrs), "blocks": {
+            a: r["backward"] for a, r in rows.items()},
+            "whole_ms": whole_b}
+    d = LSE_CASE
+    q = att_randn(rng, (d["b"], d["h"], d["hd"]), torch.float32, dev)
+    k = att_randn(rng, (d["b"], d["t"], d["kv"], d["hd"]), torch.float32, dev)
+    v = att_randn(rng, (d["b"], d["t"], d["kv"], d["hd"]), torch.float32, dev)
+    valid = torch.ones((d["b"], d["t"]), dtype=torch.bool, device=dev)
+    half = d["t"] // 2
+    outs, lses, errs = [], [], []
+    for a, e in ((0, half), (half, d["t"])):
+        kb, vb = k[:, a:e].contiguous(), v[:, a:e].contiguous()
+        vd = valid[:, a:e].contiguous()
+        o, lse = env.att.decode_attention_with_lse(q, kb, vb, vd)
+        wo, wl = env.att.decode_attention_plain(q, kb, vb, vd, with_lse=True)
+        errs.append(att_close(o, wo, att_tol("decode_attention",
+                                             torch.float32),
+                              f"phase 22 (a): decode half {a}"))
+        if float((lse - wl).abs().max()) > LSE_TOL[torch.float32]:
+            fail(f"phase 22 (a): decode half {a}: log-sum-exp off by "
+                 f"{float((lse - wl).abs().max())}")
+        outs.append(o)
+        lses.append(lse)
+    merged = env.att.combine_decode(torch.stack(outs), torch.stack(lses))
+    errs.append(att_close(merged, env.att.decode_attention_plain(
+        q, k, v, valid), att_tol("decode_attention", torch.float32),
+        "phase 22 (a): the halves merged against the whole call"))
+    kb, vb, vd = k[:, :half].contiguous(), v[:, :half].contiguous(), \
+        valid[:, :half].contiguous()
+    args = (q, kb, vb, vd)
+    t = times(lambda: env.att.decode_attention_with_lse(*args),
+              lambda: env.att.decode_attention_plain(*args, with_lse=True),
+              20, 5, sdpa_call("decode_attention", args, {}))
+    work = kernel_work()
+    t["bound"] = work.bound_ms(work.attention_work(
+        "decode_attention", args, {}, with_lse=True))
+    t["without_lse_ms"] = device_ms(
+        lambda: env.att.decode_attention(*args), 20)
+    out["decode"] = t | {"err": max(errs), "shape": {**d, "t": half}}
+    log("phase 22 (a): " + "; ".join(
+        f"flash {dn} q_start blocks of {c['s']} rows x {c['s']} keys, H "
+        f"{c['h']}/{c['kv']}, hd {c['hd']}: max abs err forward "
+        f"{out['flash'][dn]['err']:.3g}, backward "
+        f"{out['backward'][dn]['err']:.3g}; " + ", ".join(
+            f"rows from {a}: forward {r['ms']:.4g} ms (plain "
+            f"{r['plain_ms']:.4g}, SDPA {ms_text(r['library_ms'])}, bound "
+            f"{r['bound'][0]:.4g} {r['bound'][1]}), backward "
+            f"{out['backward'][dn]['blocks'][a]['ms']:.4g} ms (plain "
+            f"{out['backward'][dn]['blocks'][a]['plain_ms']:.4g}, bound "
+            f"{out['backward'][dn]['blocks'][a]['bound'][0]:.4g})"
+            for a, r in out["flash"][dn]["blocks"].items())
+        + "; the whole call without q_start "
+        f"{out['flash'][dn]['whole_ms']:.4g} ms forward, {out['backward'][dn]['whole_ms']:.4g} ms backward"
+        for dn in out["flash"])
+        + f"; decode_attention_with_lse f32 B{d['b']} H{d['h']}/{d['kv']} "
+        f"T {half} (a half of {d['t']}), halves merged == the whole call "
+        f"(max abs err {out['decode']['err']:.3g}): {t['ms']:.4g} ms (without"
+        f" the log-sum-exp {t['without_lse_ms']:.4g} ms, plain "
+        f"{t['plain_ms']:.4g}, SDPA {ms_text(t['library_ms'])}, bound "
+        f"{t['bound'][0]:.4g} {t['bound'][1]})")
+    return out
+
+
+def loss_and_grad_norms(env: Env, model, batch: dict) -> tuple:
+    """One loss of ``batch`` and its gradients: the loss and the norm of
+    each gradient part (``param_tree`` order; a DTensor one in its
+    parameter's placement, its sum of squares all-reduced)."""
+    model.requires_grad_(True)
+    loss = model.loss(batch)
+    flat = env.pytree.parts(env.models.weights.param_tree(model))
+    with model.mesh_context():
+        gs = torch.autograd.grad(loss, flat, allow_unused=True)
+        norms = []
+        for g, p in zip(gs, flat):
+            if g is None:
+                norms.append(0.0)
+                continue
+            sq = torch.sum(torch.square(env.tp.grad_to_param(g, p).float()))
+            norms.append(float(sq.full_tensor() if env.tp.is_dtensor(sq)
+                               else sq) ** 0.5)
+    loss = loss.detach()
+    del gs
+    return (float(loss.full_tensor() if env.tp.is_dtensor(loss) else loss),
+            np.array(norms))
+
+
+def tp_serve_and_train(env: Env, model, case: dict, dev) -> dict:
+    """Prefill ``case["tokens"]``, ``case["new"]`` greedy decode steps, one
+    loss with its gradients (``loss_and_grad_norms``), and with
+    ``case["train"]`` one train step (AdamW): the tokens, the first and
+    last logits, the loss, each gradient part's norm, the step's loss and
+    ``grad_norm``, and the seconds of each part."""
+    tokens = torch.from_numpy(case["tokens"]).to(dev)
+    b, s = tokens.shape
+    caches = model.init_caches(b, s + case["new"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill({"tokens": tokens}, caches)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    first = logits.float().cpu().numpy()
+    toks = [logits.argmax(-1)]
+    t0 = time.perf_counter()
+    for i in range(case["new"]):
+        logits, caches = model.decode_step(toks[-1], caches, s + i)
+        toks.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    out = {"tokens": torch.stack(toks).cpu().numpy(), "first": first,
+           "last": logits.float().cpu().numpy(), "prefill_s": prefill_s,
+           "decode_step_s": (time.perf_counter() - t0) / max(case["new"], 1)}
+    del caches
+    torch.cuda.empty_cache()
+    batch = {k: torch.from_numpy(case[k]).to(dev)
+             for k in ("batch_tokens", "batch_targets") if k in case}
+    batch = {"tokens": batch.get("batch_tokens"),
+             "targets": batch.get("batch_targets")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["loss"], out["grad_norms"] = loss_and_grad_norms(env, model, batch)
+    torch.cuda.synchronize()
+    out["grad_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    if case.get("train"):
+        opt = env.optim.AdamW()
+        state = env.train_step.init_state(model, opt)
+        step = env.train_step.make_train_step(model, opt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        out["step_loss"] = float(met["loss"])
+        out["grad_norm"] = float(met["grad_norm"])
+        del state
+    return out
+
+
+def tp_rank(rank: int, case: dict) -> dict:
+    """One rank of phase 22's gloo worlds: the model placed on
+    ``case["mesh"]`` by tensor parallelism (each leaf drawn from the
+    generator one process draws from, this rank keeping its shard), then
+    ``tp_serve_and_train``; launches and plain runs counted from 0."""
+    env = Env()
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if torch.cuda.is_available() else torch.device("cpu"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    t0 = time.perf_counter()
+    mesh = env.mesh.make_dev_mesh(case["mesh"][1])
+    cfg = tp_config(env, case["arch"], case["layers"])
+    gen = torch.Generator(device=dev).manual_seed(case["seed"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = env.tp.distribute_model(env.models.LM(cfg, device="meta"), mesh,
+                                    gen, device=dev)
+    env.att.reset_launches()
+    out = tp_serve_and_train(env, model, case, dev)
+    out.update(rank=rank, launches=dict(env.att.launches),
+               plain=dict(env.att.plain_runs),
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               s=time.perf_counter() - t0,
+               jax=[m for m in ("jax", "repro") if m in sys.modules])
+    return out
+
+
+def tp_case(env: Env, arch: str, layers: int, mesh: tuple, prompt: tuple,
+            new: int, batch: tuple, **kw) -> dict:
+    cfg = tp_config(env, arch, layers)
+    rng = np.random.default_rng(TP_SEED)
+    case = {"arch": arch, "layers": layers, "mesh": mesh, "seed": TP_SEED,
+            "new": new, "tokens": rng.integers(
+                0, cfg.vocab_size, prompt).astype(np.int64), **kw}
+    toks = rng.integers(0, cfg.vocab_size, (batch[0], batch[1] + 1))
+    case["batch_tokens"] = toks[:, :-1].astype(np.int64)
+    case["batch_targets"] = toks[:, 1:].astype(np.int64)
+    return case
+
+
+def tp_one_process(env: Env, case: dict, dev) -> dict:
+    """``case`` in this process, without a mesh: the reference values of
+    a tensor-parallel world."""
+    cfg = tp_config(env, case["arch"], case["layers"])
+    model = env.models.LM(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(case["seed"]))
+    env.att.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = tp_serve_and_train(env, model, case, dev)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["launches"] = dict(env.att.launches)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_world(ranks: list, one: dict, need: tuple, ctx: str) -> dict:
+    """Every rank against the one-process run: tokens identical, the first
+    and last logits within ``TP_LOGIT_TOL``, the loss (and a train step's
+    loss) within ``TP_LOSS_TOL`` relative, each gradient part's norm (and
+    a train step's ``grad_norm``) within ``TP_GRAD_TOL`` relative (of at
+    least 1e-6 of the largest); each kernel of ``need`` launched and no
+    plain version run; no JAX."""
+    errs = {"logits": 0.0, "loss": 0.0, "grads": 0.0}
+    floor = 1e-6 * float(one["grad_norms"].max())
+    for r in ranks:
+        c = f"{ctx}, rank {r['rank']}"
+        if r["jax"]:
+            fail(f"{c}: imported {r['jax']}")
+        if not np.array_equal(r["tokens"], one["tokens"]):
+            fail(f"{c}: greedy tokens {r['tokens'].T.tolist()} differ from "
+                 f"one process's {one['tokens'].T.tolist()}")
+        for k in ("first", "last"):
+            e = float(np.abs(r[k] - one[k]).max())
+            if not np.isfinite(r[k]).all() or e > TP_LOGIT_TOL:
+                fail(f"{c}: {k} logits off by {e} (bound {TP_LOGIT_TOL})")
+            errs["logits"] = max(errs["logits"], e)
+        for k in ("loss", "step_loss"):
+            if k not in one:
+                continue
+            e = abs(r[k] - one[k]) / abs(one[k])
+            if not np.isfinite(r[k]) or e > TP_LOSS_TOL:
+                fail(f"{c}: {k} {r[k]} vs {one[k]} (rel {e:.3g}, bound "
+                     f"{TP_LOSS_TOL})")
+            errs["loss"] = max(errs["loss"], e)
+        got, want = r["grad_norms"], one["grad_norms"]
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"{c}: gradient norms {got.shape} vs {want.shape}")
+        rel = np.abs(got - want) / np.maximum(want, floor)
+        if "grad_norm" in one:
+            rel = np.append(rel, abs(r["grad_norm"] - one["grad_norm"])
+                            / one["grad_norm"])
+        if rel.max() > TP_GRAD_TOL:
+            i = int(rel.argmax())
+            fail(f"{c}: gradient part {i}'s norm off by {rel[i]:.3g} "
+                 f"relative (bound {TP_GRAD_TOL})")
+        errs["grads"] = max(errs["grads"], float(rel.max()))
+        if any(r["plain"].values()):
+            fail(f"{c}: plain attention runs {r['plain']}")
+        missing = [k for k in need if not r["launches"][k]]
+        if missing:
+            fail(f"{c}: no launch of {missing} ({r['launches']})")
+    return errs
+
+
+def phase_tensor_parallel(env: Env, dev) -> dict:
+    """Phase 22: tensor and context parallelism over DTensor.  (a) the two
+    kernel options against their plain versions (``phase22_kernels``);
+    (b) a gloo world of 2 processes sharing the card, mesh (1, 2):
+    qwen3-4b at full width and 8 layers, prefill, greedy decode steps, one
+    loss with its gradients (each part's norm) and one train step against
+    the same calls in one process; (c) a gloo world of 3, mesh (1, 3):
+    qwen2-vl-7b at full width and 2 layers, the context-parallel prefill
+    (``q_start``), decode steps over its sequence-sharded cache
+    (``decode_attention_with_lse``) and one loss with its gradients (the
+    backward with ``q_start``; each part's norm), against one process."""
+    t0 = time.perf_counter()
+    ka = phase22_kernels(env, dev)
+    torch.cuda.empty_cache()
+    b_case = tp_case(env, TP_ARCH, TRAIN_LAYERS, TP_MESH, TP_PROMPT, TP_NEW,
+                     TP_TRAIN, train=True)
+    b_one = tp_one_process(env, b_case, dev)
+    t1 = time.perf_counter()
+    b_ranks = env.world.spawn(tp_rank, TP_MESH[1], b_case, backend="gloo",
+                              timeout_s=CP_TIMEOUT_S)
+    b_s = time.perf_counter() - t1
+    b_err = hold_world(b_ranks, b_one, ("flash_attention", "decode_attention",
+                                        "flash_attention_backward"),
+                       "phase 22 (b)")
+    torch.cuda.empty_cache()
+    c_case = tp_case(env, CP_ARCH, CP_LAYERS, CP_MESH, (1, CP_SEQ), CP_NEW,
+                     (1, CP_SEQ))
+    c_one = tp_one_process(env, c_case, dev)
+    t1 = time.perf_counter()
+    c_ranks = env.world.spawn(tp_rank, CP_MESH[1], c_case, backend="gloo",
+                              timeout_s=CP_TIMEOUT_S)
+    c_s = time.perf_counter() - t1
+    c_err = hold_world(c_ranks, c_one, ("flash_attention",
+                                        "decode_attention_with_lse",
+                                        "flash_attention_backward"),
+                       "phase 22 (c)")
+    for r in c_ranks[1:]:
+        for k in ("flash_attention_q_start",
+                  "flash_attention_backward_q_start"):
+            if not r["launches"][k]:
+                fail(f"phase 22 (c): rank {r['rank']} made no {k} launch "
+                     f"({r['launches']})")
+
+    def world_text(ranks, one):
+        def step(r):
+            return "" if "train_s" not in r else (
+                f", train step {r['train_s'] * 1e3:.0f} ms "
+                f"({one['train_s'] * 1e3:.0f})")
+        return "; ".join(
+            f"rank {r['rank']}: prefill {r['prefill_s'] * 1e3:.1f} ms (one "
+            f"process {one['prefill_s'] * 1e3:.1f}), decode step "
+            f"{r['decode_step_s'] * 1e3:.1f} ms "
+            f"({one['decode_step_s'] * 1e3:.1f}), loss and gradients "
+            f"{r['grad_s'] * 1e3:.0f} ms ({one['grad_s'] * 1e3:.0f}){step(r)}"
+            f", peak {r['peak_gb']:.2f} GB (one process "
+            f"{one['peak_gb']:.2f}), launches "
+            f"{json.dumps({k: v for k, v in r['launches'].items() if v})}, "
+            f"{r['s']:.1f} s" for r in ranks)
+    log(f"phase 22 (b): gloo world of {TP_MESH[1]} processes sharing the "
+        f"card, mesh {TP_MESH}, {TP_ARCH} at full width, {TRAIN_LAYERS} "
+        f"layers: prefill {TP_PROMPT[0]} x {TP_PROMPT[1]}, {TP_NEW} greedy "
+        f"decode steps (tokens == one process, logits max abs err "
+        f"{b_err['logits']:.3g}, bound {TP_LOGIT_TOL}), one loss with its "
+        f"gradients and one train step on {TP_TRAIN[0]} x {TP_TRAIN[1]} "
+        f"(loss rel err {b_err['loss']:.3g}, bound {TP_LOSS_TOL}; gradient "
+        f"parts' norms and grad_norm rel err {b_err['grads']:.3g}, bound "
+        f"{TP_GRAD_TOL}), {b_s:.1f} s with the world's start; "
+        + world_text(b_ranks, b_one))
+    log(f"phase 22 (c): gloo world of {CP_MESH[1]} processes, mesh "
+        f"{CP_MESH}, {CP_ARCH} at full width, {CP_LAYERS} layers (28 query "
+        f"heads on a model axis of 3: context parallel): prefill of "
+        f"{CP_SEQ} tokens, {CP_NEW} decode steps over the sequence-sharded "
+        f"cache (tokens == one process, logits max abs err "
+        f"{c_err['logits']:.3g}), one loss and its gradients (loss rel err "
+        f"{c_err['loss']:.3g}, gradient parts' norms rel err "
+        f"{c_err['grads']:.3g}), {c_s:.1f} s; " + world_text(c_ranks, c_one))
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s")
+
+    def total(ranks, key):
+        return sum(r["launches"][key] for r in ranks)
+    return {"kernels": ka, "launches": {
+        "flash_attention_q_start": total(c_ranks, "flash_attention_q_start"),
+        "flash_attention_backward_q_start": total(
+            c_ranks, "flash_attention_backward_q_start"),
+        "decode_attention_with_lse": total(c_ranks,
+                                           "decode_attention_with_lse"),
+        "tp": {k: total(b_ranks, k) + total(c_ranks, k)
+               for k in ("flash_attention", "decode_attention",
+                         "flash_attention_backward")}}}
+
+
+def tensor_parallel_kernel_rows(tpp: dict) -> list:
+    """The kernel options' entries of the kernels line: launches of phase
+    22's worlds, times at qwen2-vl-7b's context-parallel block (the rows
+    from S / 3) and of the merged decode."""
+    ka, n = tpp["kernels"], tpp["launches"]
+    src = "src/repro_torch/kernels/csrc/"
+    block = CP_SEQ // CP_MESH[1]
+    out = []
+    for name, part, wrapper, source, replaces in (
+            ("flash_attention_q_start", "flash", "flash_attention",
+             src + "attention.cu", "src/repro/kernels/flash_attn.py:47"),
+            ("flash_attention_backward_q_start", "backward",
+             "flash_attention_backward", src + "attention_bwd.cu",
+             "src/repro/models/attention.py:64")):
+        rows = ka[part]["float32"]["blocks"]
+        head = rows[block]
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "wrapper": f"{wrapper}(q_start=...)",
+            "launches": n[name],
+            "max_abs_err": max(ka[part][d]["err"] for d in ka[part]),
+            "ms": head["ms"], "call_ms": head["call_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
+            "bound_by": head["bound"][1], "library_ms": head["library_ms"],
+            "library": "torch.nn.functional.scaled_dot_product_attention "
+                       "with the block's causal mask"
+                       + (" (autograd.grad)" if part == "backward" else ""),
+            "shape": dict(QSTART_CASE, rows=block, q_start=block),
+            "dtype": "float32",
+            "blocks": {d: {a: {f: r[f] for f in ("ms", "plain_ms",
+                                                 "library_ms")}
+                           | {"bound_ms": r["bound"][0]}
+                           for a, r in ka[part][d]["blocks"].items()}
+                       | {"whole_without_q_start_ms": ka[part][d]["whole_ms"]}
+                       for d in ka[part]}})
+    d = ka["decode"]
+    out.append({
+        "name": "decode_attention_with_lse", "route": "cuda",
+        "source": src + "attention.cu",
+        "replaces": "src/repro/kernels/decode_attn.py:26",
+        "kernel": "decode_partial_kernel* + decode_combine_kernel<true>",
+        "launches": n["decode_attention_with_lse"],
+        "max_abs_err": d["err"], "ms": d["ms"], "call_ms": d["call_ms"],
+        "plain_ms": d["plain_ms"], "bound_ms": d["bound"][0],
+        "bound_by": d["bound"][1], "library_ms": d["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention",
+        "without_lse_ms": d["without_lse_ms"], "shape": d["shape"],
+        "dtype": "float32"})
+    return out
+
+
 def backward_kernel_row(bwd: dict, training: dict, multi: dict,
                         ptxas: dict) -> dict:
     """The flash backward's entry of the kernels line: launches of the
@@ -4771,6 +5280,7 @@ def main() -> int:
     phase_clis(env, dev)
     phase_roofline(env, dev, serving, training)
     multi = phase_multi_device(env, dev, fleet)
+    tpp = phase_tensor_parallel(env, dev)
 
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("the port imported jax or repro")
@@ -4803,7 +5313,8 @@ def main() -> int:
     kernels.append(backward_kernel_row(
         bwd, training, multi,
         ptxas_summary(env.build.build_log("attention_bwd"))))
-    log("phase 22: kernels " + ", ".join(
+    kernels += tensor_parallel_kernel_rows(tpp)
+    log("phase 23: kernels " + ", ".join(
         f"{x['name']} matched plain (max abs err {x['max_abs_err']:.3g}), "
         f"{x['ms']:.4g} ms on the card ({x['call_ms']:.4g} ms a call) vs "
         f"plain {x['plain_ms']:.4g} ms, bound {x['bound_ms']:.4g} ms "

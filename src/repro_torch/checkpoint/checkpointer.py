@@ -8,8 +8,10 @@ numbered as the reference's (``pytree.flatten``: ``.params/blocks/l0/ln1``,
 ``.opt/.mu/embed``, ``.opt/.step``), and a ``pytree.Leaf`` is written
 stacked as the reference stacks it, so a checkpoint written by either
 package restores in the other.  bfloat16 is stored as its raw ``uint16``
-bits.  A mesh (``mesh_desc``, the reference's ``shardings``) has no
-counterpart on one card.
+bits.  A tree of DTensors (tensor parallelism) is written whole, as one
+device's: every rank of its mesh calls ``save`` (each leaf is gathered,
+a collective) and the one given ``write`` writes; ``restore`` on every
+rank copies each rank's block into its shards.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..pytree import Leaf, flatten, from_numpy, to_numpy, tree_map
 
@@ -40,14 +43,28 @@ def _host(leaf) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _gather(leaf) -> None:
+    """The collectives of ``_host(leaf)`` without its host copy."""
+    for p in leaf.parts if isinstance(leaf, Leaf) else [leaf]:
+        if isinstance(p, DTensor):
+            p.full_tensor()
+
+
 def save(ckpt_dir: str | Path, step: int, tree: Tree, *,
-         mesh_desc: str = "", keep: int = 3, async_: bool = False) -> Path:
+         mesh_desc: str = "", keep: int = 3, async_: bool = False,
+         write: bool = True) -> Path:
     """Write a checkpoint; returns its directory.  ``async_`` runs the file
-    writes on a daemon thread (the arrays are first fetched to host)."""
+    writes on a daemon thread (the arrays are first fetched to host).
+    Without ``write`` only the DTensor leaves' gathers run: the part of a
+    rank that does not write."""
     ckpt_dir = Path(ckpt_dir)
     out = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f".tmp_step_{step:08d}"
     flat = flatten(tree)
+    if not write:
+        for _, leaf in flat:
+            _gather(leaf)
+        return out
     host = [_host(leaf) for _, leaf in flat]
 
     def _write():

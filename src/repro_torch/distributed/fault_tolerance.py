@@ -14,9 +14,10 @@ The reference's supervisor never calls its elastic pod-drop path
 (``checkpoint.elastic``); nothing of it is missing here.
 
 On a mesh of ranks (``train(mesh=...)``) every rank of the mesh runs the
-supervisor: the mesh's first rank alone writes a checkpoint, and every
-rank waits at a barrier over the mesh until it is written; each rank
-resumes from it.  There a failed step is re-raised, not restarted: the
+supervisor: the mesh's first rank alone writes a checkpoint (the others
+join the gathers of a tensor-parallel state's shards), and every rank
+waits at a barrier over the mesh until it is written; each rank resumes
+from it, a tensor-parallel one into its shards.  There a failed step is re-raised, not restarted: the
 other ranks may be waiting in the step's collectives for the failed
 one, and a rank that restored and stepped again would meet them in the
 wrong collective.  The single controller of the reference has no such
@@ -118,8 +119,8 @@ class TrainSupervisor:
             if loss is not None:
                 rep.last_loss = float(loss)
             if step % cfg.ckpt_every == 0 or step == num_steps:
-                if world.is_first(self.mesh):
-                    ckpt.save(cfg.ckpt_dir, step, state)
+                ckpt.save(cfg.ckpt_dir, step, state,
+                          write=world.is_first(self.mesh))
                 world.barrier(self.mesh)
             self._heartbeat(step)
         return state, rep

@@ -24,11 +24,12 @@ tensor or ``Leaf``.
 
 The port's paths call the batch rules (``shard_batch``, the train
 step, the MoE layer), ``param_specs`` through ``local_params``
-(``restore_on_mesh``) and ``fleet_padding`` (the fleet).
-``opt_state_specs``, ``kv_cache_specs``, ``cache_shardings``,
-``fleet_spec`` and ``placements`` have no caller but their parity tests
-until tensor parallelism over DTensor (ROADMAP A8.4b) places the
-parameters, optimizer state and caches by them.
+(``restore_on_mesh``) and ``fleet_padding`` (the fleet); tensor
+parallelism over DTensor (``distributed.tensor_parallel``) places the
+parameters by ``param_spec``, AdamW's moments by ``opt_state_spec``, the
+inputs by ``batch_spec`` and the decode caches by ``cache_shardings``
+(``kv_cache_specs``), each through ``placements``.  ``fleet_spec``
+names the fleet axis's prefix, which the fleet cuts by hand.
 """
 from __future__ import annotations
 
@@ -156,27 +157,35 @@ def param_specs(params_shape: Any, mesh) -> Any:
     return _map_named(lambda n, x: _spec_for(n, x, mesh), params_shape)
 
 
-def opt_state_specs(params_shape: Any, mesh, *, zero1: bool = True) -> Any:
-    """Adam moment specs.  With ``zero1`` the largest replicated dim of
-    each moment is also sharded over ``data`` (ZeRO-1 optimizer-state
-    partitioning) when divisible."""
+def param_spec(name: Optional[str], leaf, mesh) -> Spec:
+    """The spec of one leaf named ``name`` (its last dict key)."""
+    return _spec_for(name, leaf, mesh)
+
+
+def opt_state_spec(name: Optional[str], leaf, mesh, *,
+                   zero1: bool = True) -> Spec:
+    """The Adam moment spec of one leaf: its parameter's, and with
+    ``zero1`` its largest replicated dim also sharded over ``data``
+    (ZeRO-1 optimizer-state partitioning) when divisible."""
+    spec = _spec_for(name, leaf, mesh)
+    if not zero1:
+        return spec
     dsize = _axis_size(mesh, "data")
+    shape = _shape(leaf)
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for d in np.argsort([-s for s in shape]):
+        d = int(d)
+        if parts[d] is None and shape[d] % dsize == 0 and \
+                shape[d] >= 4 * dsize:
+            parts[d] = "data"
+            break
+    return tuple(parts)
 
-    def one(name, leaf):
-        spec = _spec_for(name, leaf, mesh)
-        if not zero1:
-            return spec
-        shape = _shape(leaf)
-        parts = list(spec) + [None] * (len(shape) - len(spec))
-        for d in np.argsort([-s for s in shape]):
-            d = int(d)
-            if parts[d] is None and shape[d] % dsize == 0 and \
-                    shape[d] >= 4 * dsize:
-                parts[d] = "data"
-                break
-        return tuple(parts)
 
-    return _map_named(one, params_shape)
+def opt_state_specs(params_shape: Any, mesh, *, zero1: bool = True) -> Any:
+    """Adam moment specs (``opt_state_spec`` of each leaf)."""
+    return _map_named(lambda n, x: opt_state_spec(n, x, mesh, zero1=zero1),
+                      params_shape)
 
 
 # ------------------------------------------------------------- activations

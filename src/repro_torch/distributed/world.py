@@ -12,7 +12,9 @@ starts such a world and says where a rank runs.
     this process to a world: a rank's device is ``cuda:{rank %
     device_count}``, or the CPU when asked (``device="cpu"``).  NCCL needs
     a card a rank, so ranks that share a card (a world larger than the
-    host's card count) take ``gloo``.  The group's ``timeout`` is
+    host's card count) take ``gloo``, whose all-gather, reduce-scatter
+    and all-to-all then stage CUDA tensors through the host
+    (``collectives.stage_through_host``).  The group's ``timeout`` is
     minutes, not PyTorch's 30-minute default: a collective that hangs
     fails its caller instead.
   * ``spawn(fn, world_size, *args)`` starts ``world_size`` processes
@@ -32,6 +34,7 @@ and a wait for every rank of the mesh.  Outside a world
 from __future__ import annotations
 
 import datetime
+import faulthandler
 import multiprocessing as mp
 import queue
 import shutil
@@ -70,6 +73,9 @@ def init_world(backend: str, rank: int, world_size: int, init_method: str,
                          f"{dev}); ranks that share a card take gloo")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+        if backend == "gloo":
+            from .collectives import stage_through_host
+            stage_through_host()
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size, timeout=TIMEOUT)
     return dev
@@ -104,6 +110,7 @@ def barrier(mesh=None) -> None:
 
 def _rank_main(rank: int, world_size: int, init_method: str, backend: str,
                device, fn: Callable, args: tuple, results) -> None:
+    faulthandler.enable()           # a rank killed by a signal: its stack
     try:
         torch.set_num_threads(1)
         init_world(backend, rank, world_size, init_method, device)

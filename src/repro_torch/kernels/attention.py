@@ -101,18 +101,22 @@ MAX_HEAD_DIM = 256
 MAX_GROUP = 64              # query heads per KV head a kernel block holds
 HEAD_ALIGN = 16             # head dims the kernels take are multiples
 DECODE_MAX_CHUNK = 256      # keys a decode block takes at most, as in C
-WRAPPERS = ("decode_attention", "flash_attention",
-            "flash_attention_backward")
+WRAPPERS = ("decode_attention", "decode_attention_with_lse",
+            "flash_attention", "flash_attention_backward")
+# the launches (plain runs) of the two flash wrappers with a query offset
+# q_start > 0, counted in their wrapper's entry too
+OFFSET_COUNTS = ("flash_attention_q_start",
+                 "flash_attention_backward_q_start")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of each wrapper's kernel since the last ``reset_launches``,
 # and runs of each plain version (which never count as launches).
-launches: Dict[str, int] = dict.fromkeys(WRAPPERS, 0)
-plain_runs: Dict[str, int] = dict.fromkeys(WRAPPERS, 0)
+launches: Dict[str, int] = dict.fromkeys(WRAPPERS + OFFSET_COUNTS, 0)
+plain_runs: Dict[str, int] = dict.fromkeys(WRAPPERS + OFFSET_COUNTS, 0)
 
 
 def reset_launches() -> None:
-    for k in WRAPPERS:
+    for k in WRAPPERS + OFFSET_COUNTS:
         launches[k] = plain_runs[k] = 0
 
 
@@ -174,11 +178,14 @@ def decode_chunk(t: int, pairs: int, group: int, sms: int) -> int:
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, valid: torch.Tensor, *,
-                           softcap: float = 0.0) -> torch.Tensor:
+                           softcap: float = 0.0, with_lse: bool = False):
     """Plain PyTorch version of ``decode_attention`` (the reference's
     ``kernels/ref.py::decode_attention``, with the soft cap of the
-    reference model's ``_sdpa``)."""
-    plain_runs["decode_attention"] += 1
+    reference model's ``_sdpa``); ``with_lse`` also returns each head's
+    base-2 log-sum-exp over its masked logits (B, H) f32, as
+    ``decode_attention_with_lse``."""
+    plain_runs["decode_attention_with_lse" if with_lse
+               else "decode_attention"] += 1
     b, h, hd = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, kvh, h // kvh, hd).float()
@@ -187,8 +194,10 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
         logits = softcap * torch.tanh(logits / softcap)
     logits = torch.where(valid[:, None, None, :], logits, NEG)
     w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bngt,btnd->bngd", w, v.float())
-    return out.reshape(b, h, hd)
+    out = torch.einsum("bngt,btnd->bngd", w, v.float()).reshape(b, h, hd)
+    if not with_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).reshape(b, h) * LOG2E
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -201,6 +210,34 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     where ``valid`` holds no data, ``valid_count`` (its True entries)
     says what the op counter charges; elsewhere the count is read from
     ``valid``."""
+    return _decode_call(q, k, v, valid, softcap, valid_count, False)
+
+
+def decode_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, valid: torch.Tensor, *,
+                              softcap: float = 0.0,
+                              valid_count: Optional[int] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``decode_attention``'s output and each head's base-2 log-sum-exp
+    over its masked logits (B, H) f32 (``decode_combine_kernel<true>``),
+    from which outputs over disjoint blocks of the keys merge into the
+    output over all of them (``combine_decode``): the decode of a cache
+    whose sequence is sharded over ranks."""
+    return _decode_call(q, k, v, valid, softcap, valid_count, True)
+
+
+def combine_decode(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """The decode output over the union of N disjoint blocks of keys from
+    each block's ``decode_attention_with_lse``: ``outs`` (N, B, H, hd) and
+    ``lses`` (N, B, H) f32, weights ``2^(lse_i - max)`` normalised (a
+    block with no valid key has an lse near -2e38 and weight 0 beside one
+    that has)."""
+    w = torch.softmax(lses * (1.0 / LOG2E), dim=0)
+    return (w[..., None] * outs).sum(0)
+
+
+def _decode_call(q, k, v, valid, softcap: float,
+                 valid_count: Optional[int], with_lse: bool):
     _check_qkv(q, k, v, 3)
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (q, k, v)):
@@ -220,33 +257,41 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if meta and valid_count is None:
         raise ValueError("decode_attention on meta needs valid_count: "
                          "valid holds no data there")
+    name = "decode_attention_with_lse" if with_lse else "decode_attention"
     work = lambda: kernel_work.attention_work(
         "decode_attention", (q, k, v, valid), {},
-        n_valid=valid_count if meta else None)
-    with op_cost.charge("decode_attention", work):
-        return _decode_attention(q, k, v, valid, softcap)
+        n_valid=valid_count if meta else None, with_lse=with_lse)
+    with op_cost.charge(name, work):
+        return _decode_attention(q, k, v, valid, softcap, with_lse)
 
 
-def _decode_attention(q, k, v, valid, softcap: float) -> torch.Tensor:
+def _decode_attention(q, k, v, valid, softcap: float, with_lse: bool):
     """``decode_attention`` past its checks: the kernel, the plain
-    version on the CPU, or on ``meta`` an empty output."""
+    version on the CPU, or on ``meta`` an empty output; with
+    ``with_lse`` a pair (output, log-sum-exp)."""
     b, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     dev = q.device
     if dev.type == "meta":
-        return torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+        out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+        return (out, torch.empty((b, h), dtype=torch.float32, device=dev)
+                ) if with_lse else out
     valid = valid.contiguous()
     _build.check("valid", valid, torch.bool, (b, t), dev)
     if dev.type == "cpu":       # laid out as the kernel's output
-        return decode_attention_plain(q, k, v, valid,
-                                      softcap=softcap).contiguous()
+        res = decode_attention_plain(q, k, v, valid, softcap=softcap,
+                                     with_lse=with_lse)
+        return tuple(x.contiguous() for x in res) if with_lse \
+            else res.contiguous()
     _build.require_cuda(dev, "decode_attention")
     if h // kvh > MAX_GROUP:
         raise ValueError(f"{h // kvh} query heads per KV head; the kernel "
                          f"takes at most {MAX_GROUP}")
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=dev)
+           if with_lse else None)
     if b == 0 or h == 0:            # nothing to attend: no launch
-        return out
+        return (out, lse) if with_lse else out
     scale = hd ** -0.5
     q, k, v = (_aligned(pad_head_dim(x)) for x in (q, k, v))
     hdp = q.shape[-1]
@@ -264,12 +309,13 @@ def _decode_attention(q, k, v, valid, softcap: float) -> torch.Tensor:
         err = _lib().decode_attention_launch(
             ptr(q), ptr(k), ptr(v), ptr(valid), _DTYPES[q.dtype], b, t, h,
             kvh, hdp, chunk, scale, float(softcap), ptr(m), ptr(l),
-            ptr(acc), ptr(res), _build.stream(dev))
+            ptr(acc), ptr(res), ptr(lse), _build.stream(dev))
     _build.raise_on(err, "decode_attention")
-    launches["decode_attention"] += 1
+    launches["decode_attention_with_lse" if with_lse
+             else "decode_attention"] += 1
     if res is not out:
         out.copy_(res[..., :hd])
-    return out
+    return (out, lse) if with_lse else out
 
 
 # ------------------------------------------------------------- flash
@@ -277,22 +323,32 @@ def _decode_attention(q, k, v, valid, softcap: float) -> torch.Tensor:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
                           window: int = 0, softcap: float = 0.0,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          q_start: int = 0) -> torch.Tensor:
     """Plain PyTorch version of ``flash_attention`` (the reference's
     ``kernels/ref.py::flash_attention``: the (B, KV, S, G, T) logits
     materialised)."""
-    plain_runs["flash_attention"] += 1
+    _count(plain_runs, "flash_attention", q_start)
     b, s, h, _ = q.shape
-    logits, _, mask = _flash_logits(q, k, causal, window, softcap, scale)
+    logits, _, mask = _flash_logits(q, k, causal, window, softcap, scale,
+                                    q_start)
     w = torch.softmax(torch.where(mask, logits, NEG), dim=-1)
     out = torch.einsum("bnsgt,btnd->bsngd", w, v.float())
     return out.reshape(b, s, h, v.shape[3]).to(q.dtype)
 
 
+def _count(counts: Dict[str, int], name: str, q_start: int) -> None:
+    counts[name] += 1
+    if q_start:
+        counts[name + "_q_start"] += 1
+
+
 def _flash_logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
-                  window: int, softcap: float, scale: Optional[float]):
+                  window: int, softcap: float, scale: Optional[float],
+                  q_start: int = 0):
     """(logits (B, KV, S, G, T) f32 after the scale and the soft cap,
-    the cap's tanh or None, the (1, 1, S, 1, T) mask of valid keys)."""
+    the cap's tanh or None, the (1, 1, S, 1, T) mask of valid keys; row
+    i at position ``q_start + i``)."""
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
@@ -302,7 +358,7 @@ def _flash_logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
     if softcap:
         th = torch.tanh(logits / softcap)
         logits = softcap * th
-    i = torch.arange(s, device=q.device)[:, None]
+    i = torch.arange(q_start, q_start + s, device=q.device)[:, None]
     j = torch.arange(t, device=q.device)[None, :]
     mask = (j <= i) if causal else torch.ones((s, t), dtype=torch.bool,
                                               device=q.device)
@@ -313,28 +369,30 @@ def _flash_logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
 
 def flash_lse_plain(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
                     window: int = 0, softcap: float = 0.0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    q_start: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the log-sum-exp the flash forward keeps:
     ``torch.logsumexp`` over each row's masked logits, in base 2 as the
     kernels store it (divided by ln 2), (B, S, H) f32.  A row with no
     valid key gets about -2.9e38 here and about -2e38 from a kernel; the
     backward never reads it."""
     b, s, h, _ = q.shape
-    logits, _, mask = _flash_logits(q, k, causal, window, softcap, scale)
+    logits, _, mask = _flash_logits(q, k, causal, window, softcap, scale,
+                                    q_start)
     lse = torch.logsumexp(torch.where(mask, logits, NEG), dim=-1) * LOG2E
     return lse.permute(0, 2, 1, 3).reshape(b, s, h).contiguous()
 
 
 def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 window: int, softcap: float) -> None:
+                 window: int, softcap: float, q_start: int = 0) -> None:
     _check_qkv(q, k, v, 4)
     h, kvh = q.shape[2], k.shape[2]
     if h // kvh > MAX_GROUP:
         raise ValueError(f"{h // kvh} query heads per KV head; the kernel "
                          f"takes at most {MAX_GROUP}")
-    if window < 0 or softcap < 0:
-        raise ValueError(f"window {window} and softcap {softcap} must be "
-                         f">= 0")
+    if window < 0 or softcap < 0 or q_start < 0:
+        raise ValueError(f"window {window}, softcap {softcap} and q_start "
+                         f"{q_start} must be >= 0")
 
 
 class FlashAttention(torch.autograd.Function):
@@ -344,8 +402,10 @@ class FlashAttention(torch.autograd.Function):
     k, v, output and log-sum-exp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, scale, with_lse):
-        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    def forward(ctx, q, k, v, causal, window, softcap, scale, with_lse,
+                q_start):
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                  q_start=q_start)
         out, lse = _flash_forward(q, k, v, with_lse=with_lse, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
@@ -356,45 +416,53 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, out, dout, lse,
                                               **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, scale: Optional[float] = None
-                    ) -> torch.Tensor:
+                    softcap: float = 0.0, scale: Optional[float] = None,
+                    q_start: int = 0) -> torch.Tensor:
     """q (B, S, H, hd), k (B, T, KV, hd), v (B, T, KV, hdv) ->
     (B, S, H, hdv) in q's dtype.  H = KV * G (grouped-query attention).
-    Differentiable in q, k and v (``FlashAttention``)."""
-    _check_flash(q, k, v, window, softcap)
+    Row i of q is at position ``q_start + i`` for the masks (a
+    context-parallel rank's block of rows of a longer query against all T
+    keys: rows [a, b) of a call equal the call on rows [a, b) with
+    ``q_start = a``).  Differentiable in q, k and v
+    (``FlashAttention``)."""
+    _check_flash(q, k, v, window, softcap, q_start)
     # ctx.needs_input_grad holds under no_grad too: ask grad mode here
     with_lse = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v))
     return FlashAttention.apply(q, k, v, causal, window, softcap, scale,
-                                with_lse)
+                                with_lse, int(q_start))
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
                              window: int = 0, softcap: float = 0.0,
-                             scale: Optional[float] = None
+                             scale: Optional[float] = None,
+                             q_start: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``flash_attention``'s output and the base-2 log-sum-exp (B, S, H)
     f32 its backward reads (``flash_lse_plain`` on the CPU); one forward
     launch, no autograd."""
-    _check_flash(q, k, v, window, softcap)
+    _check_flash(q, k, v, window, softcap, q_start)
     return _flash_forward(q, k, v, causal=causal, window=window,
-                          softcap=softcap, scale=scale, with_lse=True)
+                          softcap=softcap, scale=scale, with_lse=True,
+                          q_start=q_start)
 
 
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, window: int, softcap: float,
-                   scale: Optional[float], with_lse: bool = False
+                   scale: Optional[float], with_lse: bool = False,
+                   q_start: int = 0
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The forward of ``flash_attention`` and, ``with_lse``, its base-2
     log-sum-exp (else None): its kernel, on the CPU its plain versions,
     on ``meta`` empty outputs; charged to the op counter by formula."""
-    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              q_start=q_start)
     work = lambda: kernel_work.attention_work("flash_attention", (q, k, v),
                                               kw)
     with op_cost.charge("flash_attention", work):
@@ -402,12 +470,13 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _flash_launch(q, k, v, *, causal: bool, window: int, softcap: float,
-                  scale: Optional[float], with_lse: bool
+                  scale: Optional[float], with_lse: bool, q_start: int
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     b, s, h, hd = q.shape
     t, kvh, hdv = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
-    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              q_start=q_start)
     if dev.type == "cpu":       # laid out as the kernel's outputs
         return (flash_attention_plain(q, k, v, **kw).contiguous(),
                 flash_lse_plain(q, k, **kw) if with_lse else None)
@@ -427,10 +496,10 @@ def _flash_launch(q, k, v, *, causal: bool, window: int, softcap: float,
     with torch.cuda.device(dev):
         err = _lib().flash_attention_launch(
             ptr(q), ptr(k), ptr(v), ptr(res), ptr(lse), _DTYPES[q.dtype], b,
-            s, t, h, kvh, hdp, hdvp, int(causal), int(window),
+            s, t, h, kvh, hdp, hdvp, int(causal), int(window), int(q_start),
             float(softcap), scale, _build.stream(dev))
     _build.raise_on(err, "flash_attention")
-    launches["flash_attention"] += 1
+    _count(launches, "flash_attention", q_start)
     if res is not out:
         out.copy_(res[..., :hdv])
     return out, lse
@@ -444,21 +513,23 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
                                    lse: Optional[torch.Tensor] = None, *,
                                    causal: bool = True, window: int = 0,
                                    softcap: float = 0.0,
-                                   scale: Optional[float] = None):
+                                   scale: Optional[float] = None,
+                                   q_start: int = 0):
     """Plain PyTorch version of ``flash_attention_backward``: the explicit
     formula over the materialised (B, KV, S, G, T) logits, P under the
     reference's -2e38 masks (the softmax, or ``2^(logit * log2(e) -
     lse)`` from the forward's base-2 ``lse`` where given, 1/T over all
     keys in a row with no valid key), ``D = rowsum(dO * O)``, and the
     soft cap's derivative ``1 - tanh^2``."""
-    plain_runs["flash_attention_backward"] += 1
+    _count(plain_runs, "flash_attention_backward", q_start)
     b, s, h, hd = q.shape
     t, kvh, hdv = k.shape[1], k.shape[2], v.shape[3]
     g = h // kvh
     scale = hd ** -0.5 if scale is None else scale
     qg = q.reshape(b, s, kvh, g, hd).float()
     kf, vf = k.float(), v.float()
-    logits, th, mask = _flash_logits(q, k, causal, window, softcap, scale)
+    logits, th, mask = _flash_logits(q, k, causal, window, softcap, scale,
+                                     q_start)
     if lse is None:
         p = torch.softmax(torch.where(mask, logits, NEG), dim=-1)
     else:
@@ -485,13 +556,14 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              lse: Optional[torch.Tensor] = None, *,
                              causal: bool = True, window: int = 0,
                              softcap: float = 0.0,
-                             scale: Optional[float] = None):
+                             scale: Optional[float] = None,
+                             q_start: int = 0):
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` whose output is ``o``,
     given the output's gradient ``dout`` (B, S, H, hdv) and the forward's
     base-2 log-sum-exp ``lse`` (B, S, H) f32 (``flash_attention_with_lse``;
     required on the card, recomputed by the plain version when None);
     each in its input's dtype and shape."""
-    _check_flash(q, k, v, window, softcap)
+    _check_flash(q, k, v, window, softcap, q_start)
     b, s, h, hd = q.shape
     t, kvh, hdv = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
@@ -500,7 +572,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         _build.check(name, x.contiguous(), q.dtype, (b, s, h, hdv), dev)
     if lse is not None:
         _build.check("lse", lse, torch.float32, (b, s, h), dev)
-    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              q_start=q_start)
     work = lambda: kernel_work.flash_backward_work(q, k, v, kw)
     with op_cost.charge("flash_attention_backward", work):
         if dev.type == "cpu":   # laid out as the kernel's outputs
@@ -514,7 +587,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
 
 
 def _backward_launch(q, k, v, o, dout, lse, *, causal: bool, window: int,
-                     softcap: float, scale: Optional[float]):
+                     softcap: float, scale: Optional[float], q_start: int):
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     dev = q.device
@@ -538,10 +611,10 @@ def _backward_launch(q, k, v, o, dout, lse, *, causal: bool, window: int,
         err = _bwd_lib().flash_attention_backward_launch(
             ptr(q), ptr(k), ptr(v), ptr(o), ptr(dout), ptr(lse), ptr(rq),
             ptr(rk), ptr(rv), ptr(dvec), _DTYPES[q.dtype], b, s, t, h, kvh,
-            hdp, hdvp, int(causal), int(window), float(softcap), scale,
-            _build.stream(dev))
+            hdp, hdvp, int(causal), int(window), int(q_start),
+            float(softcap), scale, _build.stream(dev))
     _build.raise_on(err, "flash_attention_backward")
-    launches["flash_attention_backward"] += 1
+    _count(launches, "flash_attention_backward", q_start)
     for res, out in ((rq, dq), (rk, dk), (rv, dv)):
         if res is not out:
             out.copy_(res[..., :out.shape[-1]])
@@ -554,7 +627,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("attention_bwd")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_backward_launch.argtypes = (
-        [p] * 10 + [i] * 10 + [f, f, p])
+        [p] * 10 + [i] * 11 + [f, f, p])
     lib.flash_attention_backward_launch.restype = i
     return lib
 
@@ -571,8 +644,8 @@ def _lib() -> ctypes.CDLL:
     raises if its chunk cap is not ``DECODE_MAX_CHUNK``."""
     lib = _build.load("attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_launch.argtypes = [p] * 5 + [i] * 10 + [f, f, p]
-    lib.decode_attention_launch.argtypes = [p] * 4 + [i] * 7 + [f, f] + [p] * 5
+    lib.flash_attention_launch.argtypes = [p] * 5 + [i] * 11 + [f, f, p]
+    lib.decode_attention_launch.argtypes = [p] * 4 + [i] * 7 + [f, f] + [p] * 6
     lib.decode_max_chunk.argtypes = []
     for fn in (lib.flash_attention_launch, lib.decode_attention_launch,
                lib.decode_max_chunk):

@@ -4,7 +4,7 @@
 //   flash_kernel_bf16<D, LSE> <- _flash_kernel (flash_attn.py:47, called
 //   flash_kernel_f32<D, LSE>     at :128): one entry point, two designs
 //   decode_partial_kernel<..> <- _decode_kernel (decode_attn.py:26, called
-//   decode_combine_kernel        at :87), split over chunks of T
+//   decode_combine_kernel<LSE>   at :87), split over chunks of T
 //
 // Semantics (all kernels, as the reference): online softmax in f32; a
 // masked logit is NEG = -2e38 (never -inf), so a row whose every key is
@@ -24,7 +24,10 @@
 // that cross a boundary; order the blocks longest first (under a causal
 // mask the last positions have the most keys); and copy K and V in by
 // 16-byte cp.async, whose addresses step linearly from offsets computed
-// once.  Head dims are compile-time ceilings D in {64, 128, 256}; the copy
+// once.  A query offset q_start (context parallelism: a rank's block of
+// query rows against every key) shifts each row's position by q_start in
+// the masks; it is an argument, 0 outside a context-parallel layer.
+// Head dims are compile-time ceilings D in {64, 128, 256}; the copy
 // zero-fills the columns past hd (hdv), so the d loops have fixed bounds.
 // The wrapper pads head dims to a multiple of 16 (a zero column changes no
 // dot product).  With LSE the epilogue also stores each row's base-2
@@ -222,8 +225,8 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ out,
                   float* __restrict__ lse, int S,
                   int Tk, int H, int KV, int hd, int hdv, int G, int bq,
-                  int n_qt, int causal, int window, float softcap,
-                  float scale) {
+                  int n_qt, int causal, int window, int q_start,
+                  float softcap, float scale) {
   extern __shared__ __align__(1024) unsigned char tc_smem[];
   bf16* Qs = reinterpret_cast<bf16*>(
       tc_smem + ((1024 - (smem_u32(tc_smem) & 1023)) & 1023));
@@ -236,7 +239,9 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (n_qt - 1 - blockIdx.x) * bq;
   const int rows = bq * G;
   const int q_last = min(q0 + bq, S) - 1;
-  const KeyRange kr = key_range(q0, q_last, Tk, causal, window);
+  // the masks compare key positions with q_start + the row's position
+  const int a0 = q0 + q_start, a_last = q_last + q_start;
+  const KeyRange kr = key_range(a0, a_last, Tk, causal, window);
   const int t_begin = kr.lo / BK, t_end = kr.hi / BK;
   const LogitScale ls = logit_scale(scale, softcap);
 
@@ -299,7 +304,7 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // on a tile with no mask and no cap the scale rides in the exponent's
     // FMA (the max of s * scale is scale * max(s))
     const bool masked =
-        tile_masked(kr, k0, q0, q_last, Tk, causal, window);
+        tile_masked(kr, k0, a0, a_last, Tk, causal, window);
     const bool raw = !masked && ls.cap == 0.f;
     const float mul = raw ? ls.mul : 1.f;
 #pragma unroll
@@ -311,8 +316,8 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 2; ++e) {
           float& x = s[4 * nt + 2 * i + e];
           if (!raw)
-            x = logit2(x, ls, masked, qpos[i], k0 + 8 * nt + 2 * (lane & 3)
-                       + e, Tk, causal, window);
+            x = logit2(x, ls, masked, qpos[i] + q_start,
+                       k0 + 8 * nt + 2 * (lane & 3) + e, Tk, causal, window);
           mx = fmaxf(mx, x);
         }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -400,8 +405,8 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int S,
                  int Tk, int H, int KV, int hd, int hdv, int G, int bq,
-                 int n_qt, int causal, int window, float softcap,
-                 float scale) {
+                 int n_qt, int causal, int window, int q_start,
+                 float softcap, float scale) {
   using C = F32Tile<D>;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
@@ -414,7 +419,9 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (n_qt - 1 - blockIdx.x) * bq;
   const int rows = bq * G;
   const int q_last = min(q0 + bq, S) - 1;
-  const KeyRange kr = key_range(q0, q_last, Tk, causal, window);
+  // the masks compare key positions with q_start + the row's position
+  const int a0 = q0 + q_start, a_last = q_last + q_start;
+  const KeyRange kr = key_range(a0, a_last, Tk, causal, window);
   const int t_begin = kr.lo / BK, t_end = kr.hi / BK;
   const LogitScale ls = logit_scale(scale, softcap);
 
@@ -473,15 +480,15 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
 
     // online softmax in registers, rows reduced over the half-warp
     const bool masked =
-        tile_masked(kr, k0, q0, q_last, Tk, causal, window);
+        tile_masked(kr, k0, a0, a_last, Tk, causal, window);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int qp = q0 + (8 * rg + i) / G;
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = logit2(s[i][j], ls, masked, qp, k0 + kg + 16 * j, Tk,
-                         causal, window);
+        s[i][j] = logit2(s[i][j], ls, masked, qp + q_start,
+                         k0 + kg + 16 * j, Tk, causal, window);
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -569,7 +576,8 @@ template <int D>
 cudaError_t flash_f32(const void* q, const void* k, const void* v,
                       void* out, float* lse, int B, int S, int Tk, int H,
                       int KV, int hd, int hdv, int causal, int window,
-                      float softcap, float scale, cudaStream_t stream) {
+                      int q_start, float softcap, float scale,
+                      cudaStream_t stream) {
   using C = F32Tile<D>;
   static_assert(C::SMEM <= MAX_SMEM, "f32 flash tile exceeds shared memory");
   const int G = H / KV;
@@ -582,7 +590,7 @@ cudaError_t flash_f32(const void* q, const void* k, const void* v,
   kernel<<<dim3(n_qt, KV, B), C::NT, C::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, S, Tk, H,
-      KV, hd, hdv, G, bq, n_qt, causal, window, softcap, scale);
+      KV, hd, hdv, G, bq, n_qt, causal, window, q_start, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -590,7 +598,8 @@ template <int D>
 cudaError_t flash_bf16(const void* q, const void* k, const void* v,
                        void* out, float* lse, int B, int S, int Tk, int H,
                        int KV, int hd, int hdv, int causal, int window,
-                       float softcap, float scale, cudaStream_t stream) {
+                       int q_start, float softcap, float scale,
+                       cudaStream_t stream) {
   constexpr int smem = tc_smem_bytes<D>();
   static_assert(smem <= MAX_SMEM, "bf16 flash tile exceeds shared memory");
   const int G = H / KV;
@@ -604,7 +613,7 @@ cudaError_t flash_bf16(const void* q, const void* k, const void* v,
   kernel<<<dim3(n_qt, KV, B), TC_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, Tk, H,
-      KV, hd, hdv, G, bq, n_qt, causal, window, softcap, scale);
+      KV, hd, hdv, G, bq, n_qt, causal, window, q_start, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -1090,10 +1099,16 @@ decode_partial_kernel_tc(const bf16* __restrict__ q,
 }
 
 // Block (head h, batch b): merge the chunks of head h (m in base 2).
+// With LSE it also stores the head's base-2 log-sum-exp mx + log2(denom)
+// (B, H), which merges this call's output with another's over other keys
+// (a sequence-sharded cache); without it the kernel is what it was before
+// the flag.
+template <bool LSE>
 __global__ void __launch_bounds__(COMBINE_THREADS)
 decode_combine_kernel(const float* __restrict__ m, const float* __restrict__ l,
                       const float* __restrict__ acc, float* __restrict__ out,
-                      int H, int KV, int hd, int G, int n_chunks) {
+                      float* __restrict__ lse, int H, int KV, int hd, int G,
+                      int n_chunks) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int kvh = h / G, g = h - (h / G) * G;
   const long long base =
@@ -1104,6 +1119,8 @@ decode_combine_kernel(const float* __restrict__ m, const float* __restrict__ l,
   for (int c = 0; c < n_chunks; ++c)
     denom += fast_exp2(m[base + c * G] - mx) * l[base + c * G];
   const float inv = 1.f / fmaxf(denom, 1e-30f);
+  if (LSE && threadIdx.x == 0)
+    lse[static_cast<long long>(b) * H + h] = mx + log2f(denom);
   for (int d = threadIdx.x; d < hd; d += COMBINE_THREADS) {
     float o = 0.f;
     for (int c = 0; c < n_chunks; ++c)
@@ -1113,12 +1130,24 @@ decode_combine_kernel(const float* __restrict__ m, const float* __restrict__ l,
   }
 }
 
+cudaError_t combine(const float* m, const float* l, const float* acc,
+                    float* out, float* lse, int B, int H, int KV, int hd,
+                    int G, int n_chunks, cudaStream_t stream) {
+  if (lse)
+    decode_combine_kernel<true><<<dim3(H, B), COMBINE_THREADS, 0, stream>>>(
+        m, l, acc, out, lse, H, KV, hd, G, n_chunks);
+  else
+    decode_combine_kernel<false><<<dim3(H, B), COMBINE_THREADS, 0, stream>>>(
+        m, l, acc, out, lse, H, KV, hd, G, n_chunks);
+  return cudaGetLastError();
+}
+
 template <typename T, int GB, typename C, bool CAP>
 cudaError_t decode_launch(const void* q, const void* k, const void* v,
                           const void* valid, int B, int Tk, int H, int KV,
                           int hd, int chunk, float scale, float softcap,
                           float* m, float* l, float* acc, float* out,
-                          cudaStream_t stream) {
+                          float* lse, cudaStream_t stream) {
   using L = DecodeSmem<T, C>;
   const int G = H / KV;
   const int n_chunks = (Tk + chunk - 1) / chunk;
@@ -1135,9 +1164,7 @@ cudaError_t decode_launch(const void* q, const void* k, const void* v,
       hd, G, chunk, n_chunks, scale, softcap, m, l, acc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<<<dim3(H, B), COMBINE_THREADS, 0, stream>>>(
-      m, l, acc, out, H, KV, hd, G, n_chunks);
-  return cudaGetLastError();
+  return combine(m, l, acc, out, lse, B, H, KV, hd, G, n_chunks, stream);
 }
 
 template <typename C, bool CAP>
@@ -1145,7 +1172,7 @@ cudaError_t decode_launch_tc(const void* q, const void* k, const void* v,
                              const void* valid, int B, int Tk, int H, int KV,
                              int hd, int chunk, float scale, float softcap,
                              float* m, float* l, float* acc, float* out,
-                             cudaStream_t stream) {
+                             float* lse, cudaStream_t stream) {
   const int G = H / KV;
   const int n_chunks = (Tk + chunk - 1) / chunk;
   const int ldk = hd + 8;
@@ -1162,9 +1189,7 @@ cudaError_t decode_launch_tc(const void* q, const void* k, const void* v,
       KV, hd, G, chunk, n_chunks, scale, softcap, m, l, acc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<<<dim3(H, B), COMBINE_THREADS, 0, stream>>>(
-      m, l, acc, out, H, KV, hd, G, n_chunks);
-  return cudaGetLastError();
+  return combine(m, l, acc, out, lse, B, H, KV, hd, G, n_chunks, stream);
 }
 
 // The heads a pass over v: G rounded up to a power of two, at most
@@ -1174,20 +1199,20 @@ cudaError_t decode_dispatch(const void* q, const void* k, const void* v,
                             const void* valid, int B, int Tk, int H, int KV,
                             int hd, int chunk, float scale, float softcap,
                             float* m, float* l, float* acc, float* out,
-                            cudaStream_t stream) {
+                            float* lse, cudaStream_t stream) {
   const int G = H / KV;
 #define DECODE_CASE(GB)                                                    \
   if (G <= GB)                                                             \
     return decode_launch<T, GB, C, CAP>(q, k, v, valid, B, Tk, H, KV, hd,  \
                                    chunk, scale, softcap, m, l, acc, out,  \
-                                   stream);
+                                   lse, stream);
   DECODE_CASE(1)
   DECODE_CASE(2)
   DECODE_CASE(4)
 #undef DECODE_CASE
   return decode_launch<T, DEC_GB, C, CAP>(q, k, v, valid, B, Tk, H, KV, hd,
                                           chunk, scale, softcap, m, l, acc,
-                                          out, stream);
+                                          out, lse, stream);
 }
 
 bool shapes_ok(int B, int H, int KV, int hd) {
@@ -1209,10 +1234,10 @@ extern "C" {
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, void* lse, int dtype, int B, int S,
                            int Tk, int H, int KV, int hd, int hdv, int causal,
-                           int window, float softcap, float scale,
-                           void* stream) {
+                           int window, int q_start, float softcap,
+                           float scale, void* stream) {
   if (!shapes_ok(B, H, KV, hd) || S <= 0 || Tk <= 0 || H / KV > MAX_GROUP ||
-      hdv <= 0 || hdv > MAX_HEAD_DIM || hdv % 16 != 0)
+      hdv <= 0 || hdv > MAX_HEAD_DIM || hdv % 16 != 0 || q_start < 0)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lf = static_cast<float*>(lse);
@@ -1221,10 +1246,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (dmax <= D) {                                                          \
     if (dtype == 0)                                                         \
       return flash_f32<D>(q, k, v, out, lf, B, S, Tk, H, KV, hd, hdv,       \
-                          causal, window, softcap, scale, st);              \
+                          causal, window, q_start, softcap, scale, st);     \
     if (dtype == 1)                                                         \
       return flash_bf16<D>(q, k, v, out, lf, B, S, Tk, H, KV, hd, hdv,      \
-                           causal, window, softcap, scale, st);             \
+                           causal, window, q_start, softcap, scale, st);    \
     return cudaErrorInvalidValue;                                           \
   }
   FLASH_CASE(64)
@@ -1238,11 +1263,12 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 // (B, H, hd) f32, logits scaled by scale, then (softcap > 0) capped to
 // softcap * tanh(logit / softcap), then masked; m/l (B, KV, chunks, G)
 // and acc (B, KV, chunks, G, hd) f32 scratch, chunks = ceil(T / chunk).
+// lse, when not null, gets each head's base-2 log-sum-exp (B, H) f32.
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* valid, int dtype, int B, int Tk,
                             int H, int KV, int hd, int chunk, float scale,
                             float softcap, void* m, void* l, void* acc,
-                            void* out, void* stream) {
+                            void* out, void* lse, void* stream) {
   if (!shapes_ok(B, H, KV, hd) || Tk <= 0 || chunk <= 0 ||
       chunk > DEC_MAX_CHUNK || softcap < 0.f)
     return cudaErrorInvalidValue;
@@ -1251,10 +1277,12 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
   float* lf = static_cast<float*>(l);
   float* af = static_cast<float*>(acc);
   float* of = static_cast<float*>(out);
+  float* ef = static_cast<float*>(lse);
   // the soft cap is a template flag, so the kernels without it compile
   // as they did before it existed (the cap's tanh costs registers)
 #define DECODE_ARGS                                                         \
-  q, k, v, valid, B, Tk, H, KV, hd, chunk, scale, softcap, mf, lf, af, of, st
+  q, k, v, valid, B, Tk, H, KV, hd, chunk, scale, softcap, mf, lf, af, of,  \
+      ef, st
   const bool cap = softcap > 0.f;
   if (dtype == 0)
     return cap ? decode_dispatch<float, DecCfg<256, 32, 3>, true>(DECODE_ARGS)

@@ -7,7 +7,8 @@
 // Semantics: those of the forward and of its plain version.  Logits are
 // s = scale * q.k, capped to c * tanh(s / c) when softcap c > 0; a key is
 // valid for query position i when j < T, j <= i (causal) and i - j <
-// window (window > 0).  P = softmax over the valid keys; a row with no
+// window (window > 0), where row r of q has position q_start + r (q_start
+// > 0 for a context-parallel rank's block of rows against all T keys).  P = softmax over the valid keys; a row with no
 // valid key (only possible with a window) has P = 1/T over all T keys
 // (the forward's -2e38 masks make every logit equal), so each key's dV
 // gets dO / T from it and no gradient flows to its q or to any k.  With
@@ -112,12 +113,14 @@ struct Geo {
   int S, Tk, H, KV, G, hd, hdv, causal, window;
   float scale, inv_t;                 // 1 / T: P of a row with no key
   LogitScale ls;
-  // the valid keys of query position i are [lo(i), hi(i)]; none if lo > hi
+  int q_start;                        // the masks' position of query row 0
+  // the valid keys of query row i (position q_start + i) are [lo(i),
+  // hi(i)]; none if lo > hi
   __device__ __forceinline__ int lo(int i) const {
-    return window > 0 ? max(0, i - window + 1) : 0;
+    return window > 0 ? max(0, q_start + i - window + 1) : 0;
   }
   __device__ __forceinline__ int hi(int i) const {
-    return causal ? min(i, Tk - 1) : Tk - 1;
+    return causal ? min(q_start + i, Tk - 1) : Tk - 1;
   }
   // (b, position, head) row of flattened row R = position * G + head
   __device__ __forceinline__ long long row(int b, int kvh, int R) const {
@@ -1154,16 +1157,18 @@ int flash_attention_backward_launch(const void* q, const void* k,
                                     void* dq, void* dk, void* dv,
                                     void* dvec, int dtype, int B, int S,
                                     int Tk, int H, int KV, int hd, int hdv,
-                                    int causal, int window, float softcap,
-                                    float scale, void* stream) {
+                                    int causal, int window, int q_start,
+                                    float softcap, float scale,
+                                    void* stream) {
   if (B <= 0 || S <= 0 || Tk <= 0 || KV <= 0 || H % KV != 0 ||
       H / KV > MAX_GROUP || hd <= 0 || hd > MAX_HEAD_DIM || hd % 16 != 0 ||
       hdv <= 0 || hdv > MAX_HEAD_DIM || hdv % 16 != 0 || window < 0 ||
-      softcap < 0.f || B > 65535 || KV > 65535)
+      softcap < 0.f || B > 65535 || KV > 65535 || q_start < 0)
     return cudaErrorInvalidValue;
   const Geo g{S,     Tk,     H,     KV,    H / KV,
               hd,    hdv,    causal, window, scale,
-              1.f / static_cast<float>(Tk), logit_scale(scale, softcap)};
+              1.f / static_cast<float>(Tk), logit_scale(scale, softcap),
+              q_start};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lf = static_cast<const float*>(lse);
   float* df = static_cast<float*>(dvec);

@@ -1,6 +1,6 @@
-"""One-device dry run, after ``repro.launch.dryrun``: count one (arch x
-shape) cell on one H100 without allocating anything, and set the count
-against the card's roofline.
+"""Dry runs, after ``repro.launch.dryrun``: count one (arch x shape) cell
+on one H100, or per chip on a production mesh, without allocating
+anything, and set the count against the card's roofline.
 
 The reference lowers and compiles each cell for its production mesh
 (256 or 512 devices) and reads XLA's HLO.  The port builds the model,
@@ -26,11 +26,27 @@ real run: an MoE layer's experts are charged a balanced router's rows
 (``models.moe.balanced_counts``), the one count that depends on data a
 ``meta`` run does not have.
 
-The production meshes (``multi_pod=True``, ``--multi-pod``,
-``--both-meshes``), counted on a fake process group of 256 or 512
-ranks, are not ported yet: ROADMAP A8.4b.
+The production meshes (``lower_cell(multi_pod=False)``: (16, 16) over
+("data", "model"), 256 chips; ``multi_pod=True``: (2, 16, 16) over
+("pod", "data", "model"), 512 chips; ``--multi-pod``, ``--both-meshes``)
+are counted per chip, as the reference's post-SPMD HLO is: a ``fake``
+process group of 256 or 512 ranks (``torch.testing._internal.distributed
+.fake_pg``; its collectives move nothing) in a fresh process, the
+production ``DeviceMesh`` over it (``launch.mesh``), the model placed by
+``distributed.tensor_parallel`` on ``meta`` (parameters by
+``param_specs``, AdamW's moments by ``opt_state_specs`` with ZeRO-1,
+the inputs by ``batch_spec``, the caches by ``cache_shardings``), and
+the step counted on rank 0 by the op counter, which counts DTensor
+programs per rank: the local ops at local shapes and the redistributions'
+``_c10d_functional`` collectives by kind (``collective_by_kind``,
+``collective_counts``).  ``bytes_per_chip`` and ``fits`` are the rank's
+own shards and temporaries.  Rank 0 holds block 0 of every sharded
+dimension: under context parallelism its causal block of rows sees the
+fewest keys, so its attention count is the least of the ranks'.  The
+files end ``__pod1`` / ``__pod2``.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --both-meshes
 
 writes one JSON a cell under ``results/dryrun_torch/`` (the reference's
 ``results/dryrun/`` is never touched) and needs no card.
@@ -39,13 +55,17 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing as mp
 import time
 import traceback
 from pathlib import Path
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import configs
+from ..distributed import tensor_parallel as tp
 from ..models import LM
 from ..models import layers as L
 from ..optim import AdamW
@@ -55,11 +75,26 @@ from ..roofline import (CHIP, collective_bytes, collective_op_counts,
                         roofline_terms)
 from ..train.train_step import init_state, make_train_step
 from . import specs as S
+from .mesh import make_production_mesh
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
-MESH_ERROR = ("the production mesh (multi_pod, --multi-pod, --both-meshes) "
-              "of 256 or 512 ranks is not ported yet (ROADMAP A8.4b)")
 MESH_TAG = "h100x1"
+
+
+def mesh_name(multi_pod: Optional[bool]) -> str:
+    """The report's ``mesh``: "1" on one chip, else the reference's."""
+    return "1" if multi_pod is None else ("2x16x16" if multi_pod
+                                           else "16x16")
+
+
+def mesh_tag(multi_pod: Optional[bool]) -> str:
+    """The file name's mesh tag."""
+    return MESH_TAG if multi_pod is None else ("pod2" if multi_pod
+                                               else "pod1")
+
+
+def chips_of(multi_pod: Optional[bool]) -> int:
+    return 1 if multi_pod is None else (512 if multi_pod else 256)
 
 
 def moment_dtype(cfg) -> torch.dtype:
@@ -83,16 +118,22 @@ def count_train(model, batch, opt=None, microbatches: int = 1
 
 
 def count_prefill(model, batch, caches) -> op_cost.Cost:
-    """The ``Cost`` of ``model.prefill(batch, caches)``."""
-    return op_cost.analyze(lambda _, b, c: model.prefill(b, c),
-                           list(model.parameters()), batch, caches)
+    """The ``Cost`` of ``model.prefill(batch, caches)`` (on a mesh, the
+    step's logits left sharded, as the reference's jitted step leaves
+    them)."""
+    def run(_, b, c):
+        with torch.no_grad(), model.mesh_context():
+            return model._prefill(b, c)
+    return op_cost.analyze(run, list(model.parameters()), batch, caches)
 
 
 def count_decode(model, tokens, caches, cur_pos: int) -> op_cost.Cost:
-    """The ``Cost`` of one ``model.decode_step`` at ``cur_pos``."""
-    return op_cost.analyze(
-        lambda _, t, c: model.decode_step(t, c, cur_pos),
-        list(model.parameters()), tokens, caches)
+    """The ``Cost`` of one ``model.decode_step`` at ``cur_pos`` (the
+    logits left sharded on a mesh)."""
+    def run(_, t, c):
+        with torch.no_grad(), model.mesh_context():
+            return model._decode_step(t, c, cur_pos)
+    return op_cost.analyze(run, list(model.parameters()), tokens, caches)
 
 
 def count_cell(cfg, shape, *, microbatches: int = 1, model=None
@@ -102,16 +143,19 @@ def count_cell(cfg, shape, *, microbatches: int = 1, model=None
     batch = S.input_specs(cfg, shape)
     if shape.kind == "train":
         return count_train(model, batch, microbatches=microbatches)
-    caches = S.abstract_caches(model, shape)
+    caches = S.abstract_caches(model, shape)   # placed on a mesh
+    if model.mesh is not None and caches.enc_out is not None:
+        caches.enc_out = tp.batch_input(caches.enc_out, model.mesh)
     if shape.kind == "prefill":
         return count_prefill(model, batch, caches)
     return count_decode(model, batch["tokens"], caches, shape.seq_len - 1)
 
 
 def report(arch: str, shape_name: str, cost: op_cost.Cost, *,
-           microbatches: int = 1, lower_s: float = 0.0) -> dict:
+           microbatches: int = 1, lower_s: float = 0.0,
+           multi_pod: Optional[bool] = None) -> dict:
     """The reference's report keys over a ``meta`` count of one cell on
-    one chip."""
+    one chip (``multi_pod`` None) or per chip on a production mesh."""
     cfg = configs.get(arch)
     shape = configs.SHAPES[shape_name]
     dtype = L.dtype_of(cfg)
@@ -120,11 +164,13 @@ def report(arch: str, shape_name: str, cost: op_cost.Cost, *,
     terms = roofline_terms(flops=flops, bytes_hbm=bytes_hbm,
                            bytes_collective=coll_total, chips=1,
                            dtype=dtype)
-    mflops = model_flops(cfg, shape)
+    chips = chips_of(multi_pod)
+    mflops = model_flops(cfg, shape) / chips
     mem = memory_stats(cost)
     per_chip = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
     return {
-        "arch": arch, "shape": shape_name, "mesh": "1", "chips": 1,
+        "arch": arch, "shape": shape_name, "mesh": mesh_name(multi_pod),
+        "chips": chips,
         "kind": shape.kind, "microbatches": microbatches, "ok": True,
         "device": "meta", "chip": "NVIDIA H100 SXM5 (datasheet)",
         "compute_dtype": str(dtype).replace("torch.", ""),
@@ -138,35 +184,88 @@ def report(arch: str, shape_name: str, cost: op_cost.Cost, *,
         "useful_flops_ratio": (mflops / flops) if flops else None,
         "memory": mem, "bytes_per_chip": per_chip,
         "hbm_bytes": CHIP.hbm_bytes, "fits": per_chip <= CHIP.hbm_bytes,
-        "counted_on": ("meta: each MoE expert charged a balanced router's "
-                       "rows (models.moe.balanced_counts)"
-                       if cfg.num_experts else "meta"),
+        "counted_on": (("meta" if multi_pod is None else
+                        f"meta, rank 0 of a fake group of {chips}")
+                       + (": each MoE expert charged a balanced router's "
+                          "rows (models.moe.balanced_counts)"
+                          if cfg.num_experts else "")),
         **terms,
     }
 
 
-def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+def lower_cell(arch: str, shape_name: str, *,
+               multi_pod: Optional[bool] = None,
                microbatches: int = 1) -> dict:
-    """Count one (arch x shape) cell on one H100 on ``meta``; return the
-    report."""
-    if multi_pod:
-        raise NotImplementedError(f"dryrun: {MESH_ERROR}")
+    """Count one (arch x shape) cell on ``meta`` and return the report: on
+    one H100 (``multi_pod`` None), or per chip on the (16, 16) pod
+    (False) or the (2, 16, 16) pods (True), in a fresh process that holds
+    a fake group of 256 or 512 ranks unless this process is already rank
+    0 of one that size."""
+    if multi_pod is None:
+        return _lower(arch, shape_name, None, microbatches)
+    n = chips_of(multi_pod)
+    if in_fake_world_of(n):
+        return _lower(arch, shape_name, multi_pod, microbatches)
+    return in_fake_world(n, _lower, arch, shape_name, multi_pod,
+                         microbatches)
+
+
+def _lower(arch: str, shape_name: str, multi_pod: Optional[bool],
+           microbatches: int) -> dict:
     cfg = configs.get(arch)
     shape = configs.SHAPES[shape_name]
     t0 = time.perf_counter()
     model = LM(cfg, device=S.META)
+    if multi_pod is not None:
+        mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        tp.distribute_model(model, mesh, device=S.META)
     lower_s = time.perf_counter() - t0
     cost = count_cell(cfg, shape, microbatches=microbatches, model=model)
     return report(arch, shape_name, cost, microbatches=microbatches,
-                  lower_s=lower_s)
+                  lower_s=lower_s, multi_pod=multi_pod)
 
 
-def run_cells(cells, *, multi_pod: bool, out_dir: Path):
-    if multi_pod:
-        raise NotImplementedError(f"dryrun: {MESH_ERROR}")
+# ------------------------------------------------ the fake process group
+
+def in_fake_world_of(n_ranks: int) -> bool:
+    """Whether this process is rank 0 of a ``fake`` group of ``n_ranks``."""
+    return (dist.is_initialized() and dist.get_backend() == "fake"
+            and dist.get_world_size() == n_ranks)
+
+
+def _fake_main(n_ranks: int, fn, args):
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    torch.set_num_threads(1)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n_ranks)
+    try:
+        return fn(*args)
+    finally:
+        dist.destroy_process_group()
+
+
+def in_fake_world(n_ranks: int, fn, *args):
+    """``fn(*args)`` in a fresh process as rank 0 of a ``fake`` group of
+    ``n_ranks`` (256 for the pod, 512 for two), which never meets this
+    process's world; ``fn`` and its result must pickle."""
+    with mp.get_context("spawn").Pool(1) as pool:
+        return pool.apply(_fake_main, (n_ranks, fn, args))
+
+
+def run_cells(cells, *, multi_pod: Optional[bool], out_dir: Path):
+    """Count and write each cell (one process for all of them on a
+    production mesh); a failed cell's report records its error."""
+    if multi_pod is not None and not in_fake_world_of(chips_of(multi_pod)):
+        return in_fake_world(chips_of(multi_pod), _run_cells, cells,
+                             multi_pod, out_dir)
+    return _run_cells(cells, multi_pod, out_dir)
+
+
+def _run_cells(cells, multi_pod: Optional[bool], out_dir: Path):
     out_dir.mkdir(parents=True, exist_ok=True)
+    tag = mesh_tag(multi_pod)
     for arch, shape_name, skipped in cells:
-        name = f"{arch}__{shape_name}__{MESH_TAG}.json"
+        name = f"{arch}__{shape_name}__{tag}.json"
         path = out_dir / name
         if path.exists():
             print(f"[skip existing] {name}")
@@ -178,9 +277,9 @@ def run_cells(cells, *, multi_pod: bool, out_dir: Path):
                  "reason": "full-attention@500k (DESIGN.md)"}, indent=1))
             print(f"[documented skip] {name}")
             continue
-        print(f"=== {arch} x {shape_name} ({MESH_TAG}) ===", flush=True)
+        print(f"=== {arch} x {shape_name} ({tag}) ===", flush=True)
         try:
-            rep = lower_cell(arch, shape_name)
+            rep = lower_cell(arch, shape_name, multi_pod=multi_pod)
             print(f"  ok: count={rep['compile_s']}s dominant="
                   f"{rep['dominant']} frac={rep['roofline_fraction']:.3f} "
                   f"fits={rep['fits']}", flush=True)
@@ -200,15 +299,16 @@ def main(argv=None):
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default=str(RESULTS))
     args = ap.parse_args(argv)
-    if args.multi_pod or args.both_meshes:
-        raise SystemExit(f"dryrun: {MESH_ERROR}")
 
     cells = configs.cells(include_skipped=True)
     if args.arch:
         cells = [c for c in cells if c[0] == args.arch]
     if args.shape:
         cells = [c for c in cells if c[1] == args.shape]
-    run_cells(cells, multi_pod=False, out_dir=Path(args.out))
+    meshes = ([False, True] if args.both_meshes
+              else [True] if args.multi_pod else [None])
+    for m in meshes:
+        run_cells(cells, multi_pod=m, out_dir=Path(args.out))
 
 
 if __name__ == "__main__":

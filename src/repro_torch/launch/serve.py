@@ -4,12 +4,14 @@ as a deployed feature, on the CUDA card (``--device cpu``: the host).
 Host mode runs the continuous-batching engine with the two-tier Morpheus
 page pool on a reduced config, with the weights of
 ``models.seeded_numpy_params(cfg, 0)`` (the reference draws
-``model.init(PRNGKey(0))``, which the port cannot reproduce).  The
-reference's pod mode (``--mesh pod|multipod``: the sharded one-token
-``serve_step`` lowered for the production mesh) is not ported
-yet and raises (ROADMAP A8.4b: the production mesh of 256 or 512 ranks
-on a fake process group); ``--dry-run``, which the reference
-reads in pod mode only, changes nothing in host mode.
+``model.init(PRNGKey(0))``, which the port cannot reproduce).  Pod mode
+(``--mesh pod|multipod``) is the reference's: the sharded one-token step
+of ``--shape`` counted per chip on the production mesh
+(``launch.dryrun.lower_cell`` on a fake process group of 256 or 512
+ranks, the model placed by tensor parallelism), its roofline keys
+printed as JSON, then the reference's NOTE unless ``--dry-run``;
+``--dry-run``, which the reference reads in pod mode only, changes
+nothing in host mode.
 
 ``--split`` chooses the page pool's mode split: an integer pins the
 cache-chip count; ``auto`` attaches the adaptive runtime governor
@@ -30,10 +32,12 @@ Every flag is the reference's; ``main(argv)`` takes an argument list.
       --split auto --workload tenantA,tenantB --slo-ms 2.5
 """
 import argparse
+import json
 import time
 
-POD_ERROR = ("--mesh pod|multipod lowers the production mesh of 256 or "
-             "512 ranks, which is not ported yet (ROADMAP A8.4b)")
+# the report keys pod mode prints (the reference's)
+POD_KEYS = ("arch", "shape", "mesh", "chips", "dominant", "t_compute_s",
+            "t_memory_s", "t_collective_s")
 
 
 def main(argv=None) -> None:
@@ -101,13 +105,21 @@ def main(argv=None) -> None:
                     help="'cuda' (the default) or 'cpu'")
     args = ap.parse_args(argv)
 
-    if args.mesh != "host":       # --dry-run alone is read in pod mode only
-        raise SystemExit(f"serve: {POD_ERROR}")
-
     from repro_torch import obs
     if args.trace_out or args.metrics_out or args.inspect_out:
         obs.enable(trace=args.trace_out is not None,
                    inspect=args.inspect_out is not None)
+
+    if args.mesh != "host":       # --dry-run alone is read in pod mode only
+        from repro_torch.launch import dryrun as D
+        rep = D.lower_cell(args.arch, args.shape,
+                           multi_pod=args.mesh == "multipod")
+        print(json.dumps({k: rep[k] for k in POD_KEYS}, indent=1))
+        if not args.dry_run:
+            print("NOTE: production-mesh serving requires real hosts; the "
+                  "sharded serve_step compiled successfully.")
+        _save_obs(args)
+        return
 
     from repro_torch import configs
     from repro_torch.core.engine import resolve_device

@@ -2,21 +2,24 @@
 with ``--full``, the whole) config through the fault-tolerant training
 loop (``repro_torch.train.loop``): checkpointing, restart, straggler
 monitoring.  On the CUDA card by default; ``--device cpu`` runs the
-plain versions on the host.  The reference's pod mode (``--mesh
-pod|multipod``: the production mesh's lowering) is not ported
-yet and raises (ROADMAP A8.4b: the production mesh of 256 or 512 ranks
-on a fake process group); ``--dry-run``, which the reference
-reads in pod mode only, changes nothing in host mode.
+plain versions on the host.  Pod mode (``--mesh pod|multipod``) is the
+reference's: the train step of ``--shape`` (full width) counted per chip
+on the production mesh (``launch.dryrun.lower_cell`` on a fake process
+group of 256 or 512 ranks), its roofline keys printed as JSON, then the
+reference's NOTE unless ``--dry-run``; ``--dry-run``, which the
+reference reads in pod mode only, changes nothing in host mode.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
       --steps 12 --device cpu
 """
 import argparse
+import json
 import tempfile
 
-POD_ERROR = ("--mesh pod|multipod lowers the production mesh of 256 or "
-             "512 ranks, which is not ported yet (ROADMAP A8.4b)")
+# the report keys pod mode prints (the reference's)
+POD_KEYS = ("arch", "shape", "mesh", "chips", "dominant", "t_compute_s",
+            "t_memory_s", "t_collective_s", "roofline_fraction")
 
 
 def main(argv=None) -> None:
@@ -41,7 +44,16 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     if args.mesh != "host":       # --dry-run alone is read in pod mode only
-        raise SystemExit(f"train: {POD_ERROR}")
+        from repro_torch.launch import dryrun as D
+        rep = D.lower_cell(args.arch, args.shape,
+                           multi_pod=args.mesh == "multipod",
+                           microbatches=args.microbatches)
+        print(json.dumps({k: rep[k] for k in POD_KEYS}, indent=1))
+        if not args.dry_run:
+            print("NOTE: execution on the production mesh requires real "
+                  "TPU/TRN hosts; this container compiled the step "
+                  "successfully and stopped (implicit --dry-run).")
+        return
 
     from repro_torch import configs
     from repro_torch.train.loop import train

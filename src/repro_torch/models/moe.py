@@ -42,15 +42,26 @@ blocks before the rank's (one all-gather of E counts over each batch
 axis) and the capacity is that of the whole batch's tokens; the kept
 pairs are then the reference's, on this path and on the one-process
 path alike.  The expert weights may
-be the full (E, ...) stacks, each rank slicing its own (training keeps
-the parameters replicated), or the rank's (e_local, ...) shards alone
-(``sharding.local_shard`` under ``_MOE_RULES``).  Gradients: the input
-goes through ``copy_to_group`` (its gradient summed over ``model``) and
-the output through ``reduce_from_group`` (the replicated gradient passed
-through once), so the layer's input gradient is whole on every rank; the
-router's and the expert slices' parameter gradients are partial and
-are summed over ``model`` by the train step.  ``aux_load_balance_loss``
-is the reference's Switch-style loss.
+be the full (E, ...) stacks, each rank slicing its own, or the rank's
+(e_local, ...) shards alone (``sharding.local_shard`` under
+``_MOE_RULES``).  Gradients: the input goes through ``copy_to_group``
+(its gradient summed over ``model``) and the output through
+``reduce_from_group`` (the replicated gradient passed through once), so
+the layer's input gradient is whole on every rank; the router's and the
+expert slices' parameter gradients are partial, each rank's part
+(training on a ``model`` axis is tensor-parallel, below, where
+``local_map`` places them so).  ``aux_load_balance_loss`` is the
+reference's Switch-style loss.
+
+Under tensor parallelism (DTensor parameters, ``distributed.
+tensor_parallel``) the expert weights arrive as ``Shard(0)`` DTensors
+over ``model`` and the shared experts' MLP column- then row-parallel
+(``param_specs``); the layer runs per rank in ``local_map`` on the
+weights' local shards (``to_local``: no second copy), the path above
+with the shared experts' partial output added before the one
+all-reduce over ``model``.  The tokens are the rank's rows of the batch
+(its ``(pod, data)`` block), placed as the reference's whole batch
+(``global_batch``).
 """
 from __future__ import annotations
 
@@ -63,6 +74,8 @@ from ..configs.base import ArchConfig
 from ..distributed import collectives as C
 from ..distributed import context as dist_ctx
 from ..distributed import sharding as shd
+from ..distributed import tensor_parallel as tp
+from ..distributed.tensor_parallel import Replicate, Shard
 from . import layers as L
 
 Tensor = torch.Tensor
@@ -171,7 +184,8 @@ def _batch_places(r: Routing, t: int, cfg: ArchConfig, mesh) -> Routing:
 def _route(p, x2: Tensor, cfg: ArchConfig, mesh) -> Routing:
     """``route``, over the whole batch under ``context.global_batch``."""
     r = route(p, x2, cfg)
-    if mesh is not None and dist_ctx.global_batch():
+    if (mesh is not None and dist_ctx.global_batch()
+            and x2.device.type != "meta"):
         r = _batch_places(r, x2.shape[0], cfg, mesh)
     return r
 
@@ -188,6 +202,8 @@ def expert_parallel(cfg: ArchConfig, mesh) -> bool:
 def moe_mlp(p, x: Tensor, cfg: ArchConfig) -> Tensor:
     """x (..., D) -> (..., D) in x's dtype; expert-parallel under an
     ambient mesh with a ``model`` axis that divides ``num_experts``."""
+    if tp.is_dtensor(x):
+        return _moe_mlp_tp(p, x, cfg)
     mesh = dist_ctx.get_mesh()
     if expert_parallel(cfg, mesh):
         return _moe_mlp_expert_parallel(p, x, cfg, mesh)
@@ -212,8 +228,12 @@ def _experts(p, x2: Tensor, r: Routing, key: Tensor, counts: list,
     y_tok = torch.zeros((t * k, x2.shape[-1]), dtype=x2.dtype,
                         device=x2.device)
     start = 0
+    # under autograd every expert's matmuls run, an empty segment's too,
+    # so each expert weight gets a gradient (zero where no pair went):
+    # the ranks of a mesh then agree on which gradients exist
+    every = torch.is_grad_enabled()
     for ex, n in enumerate(counts[:-1]):
-        if not n:
+        if not n and not every:
             continue
         seg = rows[start:start + n]
         start += n
@@ -240,7 +260,8 @@ def _local_experts(p, e_lo: int, e_local: int, cfg: ArchConfig) -> dict:
     return out
 
 
-def _moe_mlp_expert_parallel(p, x: Tensor, cfg: ArchConfig, mesh) -> Tensor:
+def _moe_mlp_expert_parallel(p, x: Tensor, cfg: ArchConfig, mesh,
+                             shared_sharded: bool = False) -> Tensor:
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     e_local = cfg.num_experts // shd.axis_sizes(mesh)["model"]
@@ -250,13 +271,55 @@ def _moe_mlp_expert_parallel(p, x: Tensor, cfg: ArchConfig, mesh) -> Tensor:
     r = _route(p, xs, cfg, mesh)
     local = r.keep & (r.expert >= e_lo) & (r.expert < e_lo + e_local)
     key = torch.where(local, r.expert - e_lo, e_local)
-    counts = torch.bincount(key, minlength=e_local + 1).tolist()
+    if key.device.type == "meta":       # a balanced router's segments
+        kept = balanced_counts(x2.shape[0], cfg)[e_lo:e_lo + e_local]
+        counts = kept + [key.numel() - sum(kept)]
+    else:
+        counts = torch.bincount(key, minlength=e_local + 1).tolist()
     y = _experts(_local_experts(p, e_lo, e_local, cfg), xs,
                  r._replace(keep=local), key, counts, cfg)
+    if "shared" in p and shared_sharded:    # partial, summed with y
+        y = y + L.dense_mlp(p["shared"], xs, cfg.act)
     y = C.reduce_from_group(y, group)
-    if "shared" in p:
+    if "shared" in p and not shared_sharded:
         y = y + L.dense_mlp(p["shared"], x2, cfg.act)
     return y.reshape(shape)
+
+
+_NAMES = ("router", "w_gate", "w_up", "w_down")
+
+
+def _moe_mlp_tp(p, x, cfg: ArchConfig):
+    """``moe_mlp`` on DTensors: the expert-parallel path per rank on the
+    local shards, the output replicated over ``model``."""
+    mesh = x.device_mesh
+    if not expert_parallel(cfg, mesh):
+        raise ValueError(f"an MoE layer under tensor parallelism needs a "
+                         f"model axis that divides its {cfg.num_experts} "
+                         f"experts (axis {tp.model_size(mesh)})")
+    names = [("", k) for k in _NAMES]
+    if "shared" in p:
+        names += [("shared", k) for k in ("w_gate", "w_up", "w_down")]
+    ws = [p[k] if not d else p[d][k] for d, k in names]
+    shared_sharded = "shared" in p and tp.on_model(p["shared"]["w_up"]) \
+        == Shard(1)
+    batch_sharded = any(isinstance(pl, Shard) for pl in x.placements)
+    x_pl = tp.with_model(x, Replicate())
+    grads = [x_pl] + [tp.grad_placements(w.placements, x,
+                                         model_partial=(k == "router"))
+                      for (_, k), w in zip(names, ws)]
+
+    def local(xl, *wl):
+        pl = {k: w for (d, k), w in zip(names, wl) if not d}
+        if "shared" in p:
+            pl["shared"] = {k: w for (d, k), w in zip(names, wl) if d}
+        with dist_ctx.use_mesh(mesh, global_batch=batch_sharded):
+            return _moe_mlp_expert_parallel(pl, xl, cfg, mesh,
+                                            shared_sharded)
+
+    return tp.run_local(local, (x, *ws),
+                        (x_pl,) + tuple(w.placements for w in ws),
+                        x_pl, mesh, grads)
 
 
 def aux_load_balance_loss(p, x: Tensor, cfg: ArchConfig) -> Tensor:

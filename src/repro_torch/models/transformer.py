@@ -23,6 +23,19 @@ reads (``prefill`` rotates by ``arange(S)``, as the reference's does).
 the encoder's output in ``caches.enc_out``; ``decode_step`` projects the
 cross K/V from it at every step, as the reference does.
 
+Tensor parallelism: ``distributed.tensor_parallel.distribute_model``
+places the parameters on a mesh as DTensors (``LM.mesh`` set).  The
+entry points then take the GLOBAL batch on every rank (each rank keeps
+its rows, ``batch_input``) and the caches ``init_caches`` places by
+``cache_shardings``, run the layers on DTensors under
+``mesh_context`` (``implicit_replication``: the plain tensors the model
+makes count as replicated), and return the logits whole
+(``full_tensor``: the last token's for ``prefill`` and ``decode_step``,
+all of them for ``forward``); ``loss`` returns a replicated 0-d DTensor,
+differentiable in the DTensor parameters.  A decode step writes position
+``cur_pos`` into a sequence-sharded cache on the rank that holds it
+(``attention._decode_tp``): the cache is never gathered.
+
 ``loss(batch, remat=True)`` is the reference's: the mean cross-entropy
 of ``_logits`` over the padded vocabulary.  With ``remat`` each repeat of
 the block pattern runs under ``torch.utils.checkpoint`` (non-reentrant),
@@ -33,6 +46,7 @@ the whole block.  Both give the same numbers.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 from typing import Dict, Optional, Tuple
@@ -44,6 +58,7 @@ from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig, LayerSpec
 from ..core.engine import resolve_device
+from ..distributed import tensor_parallel as tp
 from . import attention as A
 from . import layers as L
 from . import mamba2 as M
@@ -128,6 +143,7 @@ class LM(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = None            # a DeviceMesh after distribute_model
         self.device = resolve_device(device, meta=True)
         self.dtype = dtype or L.dtype_of(cfg)
         for name, init in W.top_inits(cfg).items():
@@ -179,9 +195,29 @@ class LM(nn.Module):
                 t.normal_(generator=generator).mul_(init.scale)
         return self
 
+    # --------------------------------------------------------- the mesh
+    def mesh_context(self):
+        """The context of a step on DTensors (plain tensors the model
+        makes count as replicated), which a backward through ``loss``
+        needs too (its recomputation and saved plain tensors); nothing
+        off a mesh."""
+        return (tp.implicit_replication() if self.mesh is not None
+                else contextlib.nullcontext())
+
+    def _input(self, x: Tensor, batch_dim: int = 0) -> Tensor:
+        """A batch input on the model's device, placed by ``batch_spec``
+        under a mesh."""
+        x = x.to(self.device)
+        if self.mesh is None:
+            return x
+        return tp.batch_input(x, self.mesh, batch_dim)
+
+    def _whole(self, x: Tensor) -> Tensor:
+        return x.full_tensor() if tp.is_dtensor(x) else x
+
     # -------------------------------------------------------------- embed
     def _embed(self, tokens: Tensor) -> Tensor:
-        return L.embed_tokens(self.embed, tokens.to(self.device), self.cfg)
+        return L.embed_tokens(self.embed, self._input(tokens), self.cfg)
 
     def _embed_inputs(self, batch: Dict[str, Tensor]
                       ) -> Tuple[Tensor, Tensor]:
@@ -191,27 +227,27 @@ class LM(nn.Module):
         tokens = batch["tokens"]
         x = self._embed(tokens)
         if "patch_embeds" in batch:
-            pe = batch["patch_embeds"].to(self.device, x.dtype)
+            pe = self._input(batch["patch_embeds"].to(self.dtype))
             scale = torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
-                                 device=x.device)
+                                 device=self.device)
             x = torch.cat([pe * scale, x[:, pe.shape[1]:]], dim=1)
         b, s = tokens.shape
         if "positions" in batch:
-            positions = batch["positions"].to(self.device)
+            positions = batch["positions"]
         else:
             positions = torch.arange(s, dtype=torch.int32,
                                      device=self.device).expand(b, s)
-        return x, positions
+        return x, self._input(positions, positions.dim() - 2)
 
     def _encode(self, batch: Dict[str, Tensor]) -> Optional[Tensor]:
         """The encoder's output over ``batch["frame_embeds"]`` (B, T, D),
         non-causal, for an encoder-decoder arch; None otherwise."""
         if not self.cfg.is_encdec:
             return None
-        x = batch["frame_embeds"].to(self.device, self.dtype)
+        x = self._input(batch["frame_embeds"].to(self.dtype))
         b, s, _ = x.shape
-        pos = torch.arange(s, dtype=torch.int32,
-                           device=self.device).expand(b, s)
+        pos = self._input(torch.arange(s, dtype=torch.int32,
+                                       device=self.device).expand(b, s))
         for layer in self.encoder_layers:
             h = L.rms_norm(x, layer.ln1)
             x = x + A.attention(layer.mixer, h, self.cfg, W.ENCODER_SPEC, pos,
@@ -290,20 +326,33 @@ class LM(nn.Module):
     def forward(self, batch: Dict[str, Tensor]) -> Tensor:
         """Logits (B, S, V) of a full causal forward over
         ``batch["tokens"]`` (B, S) and the optional inputs above."""
-        return self._logits(batch)
+        with self.mesh_context():
+            return self._whole(self._logits(batch))
 
     def loss(self, batch: Dict[str, Tensor], remat: bool = True) -> Tensor:
         """Mean cross-entropy (f32, 0-d) of the logits against
         ``batch["targets"]`` (B, S), over the padded vocabulary."""
-        return L.cross_entropy(self._logits(batch, remat=remat),
-                               batch["targets"].to(self.device),
-                               self.cfg.vocab_size)
+        with self.mesh_context():
+            return L.cross_entropy(self._logits(batch, remat=remat),
+                                   self._input(batch["targets"]),
+                                   self.cfg.vocab_size)
 
     # ------------------------------------------------------------ serving
     def init_caches(self, batch_size: int, max_len: int) -> Caches:
-        """One cache per layer, in layer order, in the model's dtype."""
+        """One cache per layer, in layer order, in the model's dtype;
+        placed on the model's mesh by ``cache_shardings`` when it has
+        one (each rank keeps its block)."""
         cfg = self.cfg
-        return Caches(
+        if self.mesh is not None:
+            return Caches(
+                tp.distribute_caches(Caches([c]), cfg, self.mesh,
+                                     batch_size)[0]
+                for c in self._whole_caches(batch_size, max_len))
+        return Caches(self._whole_caches(batch_size, max_len))
+
+    def _whole_caches(self, batch_size: int, max_len: int):
+        cfg = self.cfg
+        return (
             M.init_mamba_cache(cfg, batch_size, self.dtype, self.device)
             if s.mixer == "mamba" else
             A.init_kv_cache(cfg, s, batch_size, max_len, self.dtype,
@@ -315,6 +364,11 @@ class LM(nn.Module):
         """Run the prompt ``batch["tokens"]`` (B, S), filling the caches in
         place; returns (last-token logits (B, V) f32, caches), with
         ``caches.enc_out`` set for an encoder-decoder model."""
+        with self.mesh_context():
+            logits, caches = self._prefill(batch, caches)
+            return self._whole(logits), caches
+
+    def _prefill(self, batch, caches):
         x, _ = self._embed_inputs(batch)
         enc_out = self._encode(batch)
         caches = caches if isinstance(caches, Caches) else Caches(caches)
@@ -337,6 +391,11 @@ class LM(nn.Module):
         tokens (shared by the batch).  Updates the caches in place;
         returns (logits (B, V) f32, caches).  Caches without ``enc_out``
         skip the cross-attention blocks, as the reference's do."""
+        with self.mesh_context():
+            logits, caches = self._decode_step(tokens, caches, cur_pos)
+            return self._whole(logits), caches
+
+    def _decode_step(self, tokens, caches, cur_pos):
         x = self._embed(tokens[:, None])
         enc_out = getattr(caches, "enc_out", None)
         for layer, spec, cache in zip(self.layers, self.specs, caches):

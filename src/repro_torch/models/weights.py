@@ -161,26 +161,39 @@ def _load(param: torch.Tensor, arr) -> None:
         param.data.copy_(t)
 
 
-def params_from_numpy(model, tree: dict) -> None:
-    """Load the reference's parameter tree (numpy arrays) into ``model``
-    (a ``models.LM``), unstacking ``tree["blocks"]``.  On the CPU, in the
-    tree's dtype, the parameters share the arrays' memory."""
+def _sources(model, tree: dict) -> Iterator[Tuple[torch.Tensor, object]]:
+    """(parameter of ``model``, its array in the reference's ``tree``)
+    of every parameter, a block leaf's array unstacked."""
     cfg = model.cfg
     for name, _ in leaves(top_inits(cfg)):
-        _load(getattr(model, name), tree[name])
+        yield getattr(model, name), tree[name]
     for li, layer in enumerate(model.layers):
         where, i = layer_source(cfg, li)
         src = tree["prefix"][i] if where == "prefix" else tree["blocks"][where]
         for name, _ in leaves(layer_inits(cfg, model.specs[li],
                                           cross=has_cross(cfg, li))):
             arr = _get(src, name)
-            _load(layer.param(name), arr if where == "prefix" else arr[i])
+            yield layer.param(name), arr if where == "prefix" else arr[i]
     if cfg.is_encdec:
         enc = tree["encoder"]
         for layer, src in zip(model.encoder_layers, enc["layers"]):
             for name, _ in leaves(encoder_inits(cfg)):
-                _load(layer.param(name), _get(src, name))
-        _load(model.encoder_norm, enc["final_norm"])
+                yield layer.param(name), _get(src, name)
+        yield model.encoder_norm, enc["final_norm"]
+
+
+def numpy_sources(model, tree: dict) -> Dict[int, object]:
+    """{id(parameter): its array} of the reference's ``tree`` (views; the
+    tensor-parallel build cuts each into this rank's shard)."""
+    return {id(p): arr for p, arr in _sources(model, tree)}
+
+
+def params_from_numpy(model, tree: dict) -> None:
+    """Load the reference's parameter tree (numpy arrays) into ``model``
+    (a ``models.LM``), unstacking ``tree["blocks"]``.  On the CPU, in the
+    tree's dtype, the parameters share the arrays' memory."""
+    for param, arr in _sources(model, tree):
+        _load(param, arr)
 
 
 def param_tree(model) -> dict:

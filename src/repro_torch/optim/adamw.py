@@ -10,6 +10,14 @@ are stacked over the blocks, so a block layer's norm (``ln1``,
 ``q_norm``, ``A_log`` ...) is decayed there while ``final_norm`` and the
 prefix layers' norms are not; ``Leaf.ndim`` counts the stacking axis, so
 the port decays the same leaves.
+
+DTensor parameters (tensor parallelism, ``distributed.tensor_parallel``)
+take DTensor gradients in their own placements, and the moments are
+DTensors placed by ``init``'s ``placements`` (``tensor_parallel.
+moment_placements``: ``opt_state_specs``, ZeRO-1 over ``data``).  The
+same ops then run through DTensor's dispatch: the moments' update on
+each rank's shard, the parameter's update gathered back to its
+placement, the global norm's sum of squares all-reduced over the shards.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..distributed import tensor_parallel as tp
 from ..pytree import Leaf, leaves, tree_map
 
 Tree = Any
@@ -44,10 +53,11 @@ class AdamW:
     moment_dtype: torch.dtype = torch.float32
     schedule: Optional[Any] = None    # callable step -> lr scale
 
-    def init(self, params: Tree) -> AdamWState:
+    def init(self, params: Tree, placements=None) -> AdamWState:
+        """Zero moments of ``params``; a DTensor part's placed by
+        ``placements`` ({id(part): placements}, by default its own)."""
         z = lambda leaf: leaf.map(
-            lambda p: torch.zeros(p.shape, dtype=self.moment_dtype,
-                                  device=p.device))
+            lambda p: zeros_like_part(p, self.moment_dtype, placements))
         return AdamWState(step=0, mu=tree_map(z, params),
                           nu=tree_map(z, params))
 
@@ -87,6 +97,16 @@ class AdamW:
                     u = u + decay * p.float()
                 p.copy_(p.float() - lr * u)
         return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
+
+
+def zeros_like_part(p: torch.Tensor, dtype: torch.dtype, placements=None
+                    ) -> torch.Tensor:
+    """Zeros of ``p``'s shape in ``dtype`` on its device; for a DTensor
+    ``p``, placed by ``placements[id(p)]`` (default ``p``'s own)."""
+    if tp.is_dtensor(p):
+        pl = (placements or {}).get(id(p), p.placements)
+        return tp.placed_zeros(p, pl, dtype)
+    return torch.zeros(p.shape, dtype=dtype, device=p.device)
 
 
 def global_norm(tree: Tree) -> torch.Tensor:

@@ -8,7 +8,10 @@ round half to even, so the int8 codes are the reference's bit for bit.
 On one card there is no all-reduce to shrink; ``roundtrip`` (quantize,
 dequantize, keep the residual) is what the train step runs, as in the
 reference.  Torch ops: an elementwise pass and one ``amax`` a part (the
-reference has no kernel here).
+reference has no kernel here).  On DTensor gradients (tensor
+parallelism) a part's ``amax`` is a partial max over its shards, which
+DTensor all-reduces before the scale is taken: the one scale is the
+whole leaf's, as the reference's.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Any, List, NamedTuple, Sequence, Tuple, Union
 import torch
 
 from ..pytree import Leaf, tree_map
+from .adamw import zeros_like_part
 
 Tree = Any
 
@@ -38,8 +42,8 @@ class Int8Compressor:
 
     def init(self, params: Tree) -> CompressorState:
         return CompressorState(residual=tree_map(
-            lambda leaf: leaf.map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device)), params))
+            lambda leaf: leaf.map(lambda p: zeros_like_part(
+                p, torch.float32)), params))
 
     def quantize(self, g: Union[torch.Tensor, Leaf, Sequence[torch.Tensor]]
                  ) -> Tuple[Any, torch.Tensor]:

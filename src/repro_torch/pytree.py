@@ -24,6 +24,9 @@ from typing import Any, Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 Tree = Any
 
@@ -63,17 +66,28 @@ class Leaf:
         return np.stack(host) if self.stacked else host[0]
 
     def load_(self, arr: np.ndarray) -> None:
-        """Copy the reference's array ``arr`` into the parts, in place."""
-        if self.stacked:
-            for p, a in zip(self.parts, arr):
-                p.copy_(from_numpy(a, p.dtype))
-        else:
-            self.parts[0].copy_(from_numpy(arr, self.dtype))
+        """Copy the reference's array ``arr`` into the parts, in place (a
+        DTensor part: this rank's block of it into the local shard)."""
+        for p, a in zip(self.parts, arr if self.stacked else [arr]):
+            if isinstance(p, DTensor):
+                a = a[_local_block(p)]
+                p = p.to_local()
+            p.copy_(from_numpy(a, p.dtype))
+
+
+def _local_block(t: DTensor) -> Tuple[slice, ...]:
+    """The index of this rank's block in the whole of ``t``."""
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return tuple(slice(o, o + n) for o, n in zip(offset, shape))
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor on the host as numpy; bfloat16 as its raw ``uint16``
-    bits."""
+    bits.  A DTensor is gathered whole first (a collective: every rank of
+    its mesh calls this)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)

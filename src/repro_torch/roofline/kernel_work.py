@@ -51,21 +51,24 @@ def bound_ms(work: Work, chip: H100 = CHIP) -> Tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attended_pairs(s: int, t: int, causal: bool, window: int) -> int:
+def attended_pairs(s: int, t: int, causal: bool, window: int,
+                   q_start: int = 0) -> int:
     """(query, key) pairs the masks let through, per (batch, head): query
-    i sees key j when ``j <= i`` (causal) and ``i - j < window``
-    (window > 0), counted a query row at a time."""
-    i = torch.arange(s, dtype=torch.int64)
+    row r, at position i = ``q_start + r``, sees key j when ``j <= i``
+    (causal) and ``i - j < window`` (window > 0), counted a query row at
+    a time."""
+    i = torch.arange(q_start, q_start + s, dtype=torch.int64)
     hi = torch.clamp(i, max=t - 1) if causal else torch.full_like(i, t - 1)
     lo = torch.clamp(i - window + 1, min=0) if window else torch.zeros_like(i)
     return int((hi - lo + 1).clamp(min=0).sum())
 
 
-def attention_work(name: str, args, kwargs, n_valid: Optional[int] = None
-                   ) -> Work:
-    """One call of ``flash_attention`` (args q, k, v) or
-    ``decode_attention`` (args q, k, v, valid; ``n_valid`` the valid
-    entries of ``valid``, read from it when None): q, the keys and
+def attention_work(name: str, args, kwargs, n_valid: Optional[int] = None,
+                   with_lse: bool = False) -> Work:
+    """One call of ``flash_attention`` (args q, k, v; ``kwargs`` its
+    masks and ``q_start``) or ``decode_attention`` (args q, k, v, valid;
+    ``n_valid`` the valid entries of ``valid``, read from it when None;
+    ``with_lse`` its (B, H) f32 log-sum-exp written too): q, the keys and
     values it attends to, the mask and the output, each once, and its
     FLOPs at the peak of the input type."""
     q = args[0]
@@ -75,7 +78,8 @@ def attention_work(name: str, args, kwargs, n_valid: Optional[int] = None
         b, s, h, hd = q.shape
         t, hdv = k.shape[1], v.shape[3]
         pairs = b * h * attended_pairs(s, t, kwargs.get("causal", True),
-                                       kwargs.get("window", 0))
+                                       kwargs.get("window", 0),
+                                       kwargs.get("q_start", 0))
         n_bytes = (q.numel() + k.numel() + v.numel() + b * s * h * hdv) * es
         flops = 2 * pairs * (hd + hdv)
     else:
@@ -85,7 +89,7 @@ def attention_work(name: str, args, kwargs, n_valid: Optional[int] = None
         if n_valid is None:
             n_valid = int(valid.sum())
         n_bytes = ((q.numel() + 2 * n_valid * kvh * hd) * es + valid.numel()
-                   + b * h * hd * 4)
+                   + b * h * (hd + with_lse) * 4)
         flops = 4 * n_valid * h * hd
     return Work(n_bytes, flops, q.dtype)
 
@@ -96,7 +100,8 @@ def flash_backward_work(q, k, v, kwargs) -> Work:
     b, s, h, hd = q.shape
     t, hdv = k.shape[1], v.shape[3]
     pairs = b * h * attended_pairs(s, t, kwargs.get("causal", True),
-                                   kwargs.get("window", 0))
+                                   kwargs.get("window", 0),
+                                   kwargs.get("q_start", 0))
     n_bytes = 2 * (q.numel() + k.numel() + v.numel()
                    + b * s * h * hdv) * q.element_size()
     return Work(n_bytes, 2.5 * 2 * pairs * (hd + hdv), q.dtype)

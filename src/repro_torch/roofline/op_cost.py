@@ -40,6 +40,17 @@ its ``Cost``.  The rules follow hlo_cost's:
     on ``meta``).  A step counted on CPU tensors, on ``meta`` and on CUDA
     gives the same FLOPs and bytes.
 
+DTensor programs (tensor parallelism, ``distributed.tensor_parallel``)
+are counted per rank, as the reference's post-SPMD HLO is: an op on
+DTensor arguments is passed on to DTensor's dispatch (the counter
+declines it), which runs the rank's local ops and the redistributions'
+``_c10d_functional`` collectives, and those reach the counter at local
+shapes.  DTensor's sharding propagator also runs each new op once on
+global-shape fake tensors to learn its output's metadata (and caches
+it, so a step would count differently the first and the second time);
+those runs are not the rank's work, and the counter is suspended while
+they run (``_propagation_suspends``).
+
 An eager program's bytes are not XLA's: nothing is fused, so every
 intermediate is written and read again.  The count says what this
 program moves, not what a fused one would.
@@ -63,6 +74,8 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._sharding_prop import ShardingPropagator
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode_stack)
@@ -97,14 +110,45 @@ _UPDATE_ARG = {aten.index_put_: 2, aten.index_put: 2,
 # OpCounters entered and not yet left, in any thread: while none is, a
 # kernel wrapper's charge does nothing at all
 _ACTIVE = 0
+_ENTERED: List["OpCounter"] = []
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (what the rank holds), else ``t``."""
+    return t._local_tensor if isinstance(t, DTensor) else t
 
 
 def _nbytes(t: torch.Tensor) -> int:
+    t = _local(t)
     return t.numel() * t.element_size()
 
 
 def _tensors(tree) -> List[torch.Tensor]:
     return [x for x in pytree.tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def _propagation_suspends(fn):
+    """``fn`` (DTensor's global-shape metadata run) with every entered
+    counter suspended."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        counters = list(_ENTERED)
+        for c in counters:
+            c._suspended += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            for c in counters:
+                c._suspended -= 1
+    run.suspends = True
+    return run
+
+
+if not getattr(ShardingPropagator._propagate_tensor_meta_non_cached,
+               "suspends", False):
+    ShardingPropagator._propagate_tensor_meta_non_cached = \
+        _propagation_suspends(
+            ShardingPropagator._propagate_tensor_meta_non_cached)
 
 
 @dataclass
@@ -157,11 +201,13 @@ class OpCounter(TorchDispatchMode):
     def __enter__(self):
         global _ACTIVE
         _ACTIVE += 1
+        _ENTERED.append(self)
         return super().__enter__()
 
     def __exit__(self, *exc):
         global _ACTIVE
         _ACTIVE -= 1
+        _ENTERED.remove(self)
         return super().__exit__(*exc)
 
     # ------------------------------------------------------------ charging
@@ -219,6 +265,8 @@ class OpCounter(TorchDispatchMode):
             self._live -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented       # DTensor's dispatch: local ops
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if not self._suspended:
@@ -291,7 +339,7 @@ def charged(work_of: Callable[[dict], Work]):
 def _storage_bytes(tree) -> int:
     seen: Dict[int, int] = {}
     for t in _tensors(tree):
-        s = t.untyped_storage()
+        s = _local(t).untyped_storage()
         seen[s._cdata] = s.nbytes()
     return sum(seen.values())
 

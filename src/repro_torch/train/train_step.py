@@ -12,31 +12,39 @@ the flash kernel's backward on the card).  ``metrics["grad_norm"]`` is
 the norm of the gradients after the compressor's roundtrip and before
 AdamW's clipping, as in the reference.
 
-With a mesh (data parallelism over ``pod`` and ``data``; the
-parameters replicated on every rank) a step averages the loss and every
-gradient over the batch shards in ONE all-reduce over ``data`` (an f32
-bucket), before the compressor.  The router's and the experts' gradients
-of an expert-parallel MoE layer, which each ``model`` rank holds a part
-of, are first summed over ``model`` (one all-reduce); every other
-gradient is whole on each ``model`` rank.  Every rank then takes the
-same compressor, norm and AdamW steps on the same gradients, so the
-replicas stay equal.
+With a mesh whose ``model`` axis is one rank (data parallelism over
+``pod`` and ``data``; the parameters replicated on every rank) a step
+averages the loss and every gradient over the batch shards in ONE
+all-reduce over ``data`` (an f32 bucket), before the compressor.  Every
+rank then takes the same compressor, norm and AdamW steps on the same
+gradients, so the replicas stay equal.  A ``model`` axis of more than
+one rank trains tensor-parallel only: ``make_train_step`` refuses it for
+a model that ``distribute_model`` did not place.
+
+With a model placed by tensor parallelism (``LM.mesh`` set,
+``distributed.tensor_parallel``), the parameters and gradients are
+DTensors and the batch is the global one: ``LM.loss`` is already the
+global mean, each gradient comes back in its parameter's placement (a
+``Partial`` one summed over the ranks that hold a part of it), and the
+compressor, the norm and AdamW run through DTensor's dispatch on each
+rank's shards (``init_state`` places the moments by ``opt_state_specs``
+with ZeRO-1).  ``metrics`` hold plain tensors.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from .. import obs
+from ..distributed import tensor_parallel as tp
 from ..distributed.sharding import axis_sizes, batch_axes, batch_axis_size
-from ..models.moe import expert_parallel
 from ..models.transformer import LM
 from ..models.weights import param_tree, params_from_numpy
 from ..optim import (AdamW, AdamWState, CompressorState, Int8Compressor,
                      global_norm)
-from ..pytree import flatten, from_parts, parts
+from ..pytree import from_parts, parts
 
 Tree = Any
 
@@ -66,47 +74,30 @@ def init_state(model: LM, optimizer: AdamW, init=None,
                 p.data = p.data.clone()
     model.requires_grad_(True)
     params = param_tree(model)
-    return TrainState(params=params, opt=optimizer.init(params),
+    placements = (tp.moment_placements(params, model.mesh)
+                  if model.mesh is not None else None)
+    return TrainState(params=params, opt=optimizer.init(params, placements),
                       comp=compressor.init(params) if compressor else None)
 
 
 def _grads(loss: torch.Tensor, flat: list) -> list:
     gs = torch.autograd.grad(loss, flat, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
+    return [torch.zeros_like(p) if g is None else tp.grad_to_param(g, p)
             for g, p in zip(gs, flat)]
 
 
-_ROUTED = ("router", "w_gate", "w_up", "w_down")
+def _plain(x: torch.Tensor) -> torch.Tensor:
+    return x.full_tensor() if tp.is_dtensor(x) else x
 
 
-def _model_partial(params: Tree, cfg, mesh) -> List[bool]:
-    """Per part of ``parts(params)``: whether its gradient is partial on a
-    ``model`` rank, the router and experts of an expert-parallel MoE
-    layer (a dict that holds a ``router``)."""
-    named = [(n.rpartition("/")[::2], leaf) for n, leaf in flatten(params)]
-    moe = {d for (d, k), _ in named if k == "router"} \
-        if expert_parallel(cfg, mesh) else set()
-    return [d in moe and k in _ROUTED
-            for (d, k), leaf in named for _ in leaf.parts]
-
-
-def _mesh_reduce(loss: torch.Tensor, grads: list, partial: List[bool],
-                mesh) -> Tuple[torch.Tensor, list]:
-    """The batch shards' mean loss and gradients: the ``partial`` ones
-    first summed over ``model`` (one all-reduce of them), then the loss
-    and every gradient in one f32 bucket all-reduced over each batch axis
-    of more than one rank (one all-reduce over ``data``)."""
+def _mesh_reduce(loss: torch.Tensor, grads: list, mesh
+                 ) -> Tuple[torch.Tensor, list]:
+    """The batch shards' mean loss and gradients: the loss and every
+    gradient in one f32 bucket all-reduced over each batch axis of more
+    than one rank (one all-reduce over ``data``)."""
     sizes = axis_sizes(mesh)
     flat = [g.reshape(-1).float() for g in grads]
-    mine = [i for i, p in enumerate(partial) if p]
     with obs.span("train.all_reduce", elements=1 + sum(map(len, flat))):
-        if mine and sizes.get("model", 1) > 1:
-            summed = torch.cat([flat[i] for i in mine])
-            dist.all_reduce(summed, group=mesh.get_group("model"))
-            obs.count("train_all_reduce_bytes", summed.numel() * 4)
-            for i, x in zip(mine, summed.split([flat[i].numel()
-                                                for i in mine])):
-                flat[i] = x
         bucket = torch.cat([loss.reshape(1).float()] + flat)
         for ax in batch_axes(mesh):
             if sizes[ax] > 1:
@@ -123,8 +114,16 @@ def make_train_step(model: LM, optimizer: AdamW, *, microbatches: int = 1,
                     remat: bool = True, mesh=None):
     """Returns step(state, batch) -> (state, metrics); ``batch`` a dict
     of tensors on the model's device (with ``mesh``, this rank's rows,
-    ``data.shard_batch``'s; the caller installs the mesh for the MoE
-    layers, ``distributed.context``)."""
+    ``data.shard_batch``'s; the caller installs the mesh,
+    ``distributed.context``).  A model placed by tensor parallelism
+    (``distribute_model``) holds its own mesh and takes the whole batch;
+    ``mesh`` is then not read."""
+    if (mesh is not None and model.mesh is None
+            and axis_sizes(mesh).get("model", 1) > 1):
+        raise ValueError(
+            "a model axis of more than one rank trains tensor-parallel: "
+            "place the model with distributed.tensor_parallel."
+            "distribute_model")
 
     def grads_of(params: Tree, batch: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, list]:
@@ -149,24 +148,23 @@ def make_train_step(model: LM, optimizer: AdamW, *, microbatches: int = 1,
         scale = 1.0 / microbatches
         return tot_loss * scale, [a * scale for a in acc]
 
-    partial = None
-
     def step(state: TrainState, batch) -> Tuple[TrainState, dict]:
-        nonlocal partial
+        with model.mesh_context():
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch) -> Tuple[TrainState, dict]:
         loss, flat = grads_of(state.params, batch)
-        if mesh is not None:
-            if partial is None:
-                partial = _model_partial(state.params, model.cfg, mesh)
-            loss, flat = _mesh_reduce(loss, flat, partial, mesh)
+        if mesh is not None and model.mesh is None:
+            loss, flat = _mesh_reduce(loss, flat, mesh)
         grads = from_parts(state.params, flat)
         comp = state.comp
         if compressor is not None and comp is not None:
             grads, comp = compressor.roundtrip(grads, comp)
         with torch.no_grad():
             gn = global_norm(grads)
-        params, opt = optimizer.update(grads, state.opt, state.params)
+            params, opt = optimizer.update(grads, state.opt, state.params)
         return (TrainState(params, opt, comp),
-                {"loss": loss, "grad_norm": gn})
+                {"loss": _plain(loss), "grad_norm": _plain(gn)})
 
     return step
 

@@ -6,9 +6,12 @@ The specs: every cell's inputs, parameters and caches on ``meta`` have
 the reference's shapes and dtypes (the reference's through
 ``jax.eval_shape``; the port's parameters through ``models.weights``'
 reference-shaped tree).  The report: ``lower_cell`` counts a cell at
-full width on ``meta`` and returns the reference's keys; the production
-meshes raise naming ROADMAP A8.4; the attention wrappers on ``meta``
-launch nothing and run no plain version."""
+full width on ``meta`` and returns the reference's keys; on the
+production meshes (a fake process group of 256 or 512 ranks in a fresh
+process) it counts per chip, with the reference's keys, its ``mesh`` and
+``chips``, and the CLI writes ``__pod1`` / ``__pod2`` files; the
+attention wrappers on ``meta`` launch nothing and run no plain
+version."""
 import json
 
 import jax
@@ -155,12 +158,43 @@ def test_dryrun_main_writes_the_cells_of_an_arch(tmp_path):
         assert rep["ok"] and REF_KEYS <= set(rep), rep.get("error")
 
 
-def test_production_meshes_raise_naming_a84():
-    with pytest.raises(NotImplementedError, match="A8.4"):
-        D.lower_cell("qwen3-4b", "decode_32k", multi_pod=True)
-    for flag in ("--multi-pod", "--both-meshes"):
-        with pytest.raises(SystemExit, match="A8.4"):
-            D.main([flag])
+def test_production_meshes_raise_naming_a84(tmp_path):
+    """The production meshes, once refused naming ROADMAP A8.4, now count:
+    ``lower_cell(multi_pod=True)`` per chip of (2, 16, 16), and
+    ``--both-meshes`` writes a report of a cell on each mesh."""
+    rep = D.lower_cell("h2o-danube-1.8b", "decode_32k", multi_pod=True)
+    assert REF_KEYS <= set(rep) and rep["ok"]
+    assert (rep["mesh"], rep["chips"]) == ("2x16x16", 512)
+    D.main(["--both-meshes", "--arch", "h2o-danube-1.8b", "--shape",
+            "decode_32k", "--out", str(tmp_path)])
+    files = sorted(p.name for p in tmp_path.glob("*.json"))
+    assert files == [f"h2o-danube-1.8b__decode_32k__{t}.json"
+                     for t in ("pod1", "pod2")]
+    for p, (mesh, chips) in zip(sorted(tmp_path.glob("*.json")),
+                                (("16x16", 256), ("2x16x16", 512))):
+        r = json.loads(p.read_text())
+        assert r["ok"] and (r["mesh"], r["chips"]) == (mesh, chips)
+
+
+@pytest.mark.parametrize("multi_pod,mesh,chips", [(False, "16x16", 256),
+                                                  (True, "2x16x16", 512)])
+def test_a_full_width_production_cell_counts_per_chip(multi_pod, mesh,
+                                                      chips):
+    """qwen3-4b x decode_32k on a production mesh: the reference's keys,
+    per-chip FLOPs and argument bytes below the one-chip count's, a
+    sequence-sharded KV cache (8 KV heads on 16) decoded with one
+    all-gather of (output, log-sum-exp) a layer, and the weights and the
+    rank's cache in ``bytes_per_chip``."""
+    rep = D.lower_cell("qwen3-4b", "decode_32k", multi_pod=multi_pod)
+    one = D.lower_cell("qwen3-4b", "decode_32k")
+    assert REF_KEYS <= set(rep) and rep["ok"]
+    assert (rep["mesh"], rep["chips"]) == (mesh, chips)
+    assert rep["hlo_flops_per_chip"] < one["hlo_flops_per_chip"] / 16
+    assert rep["memory"]["argument_size_in_bytes"] < \
+        one["memory"]["argument_size_in_bytes"] / 16
+    assert rep["collective_counts"]["all-gather"] >= 2 * 36
+    assert rep["model_flops_per_chip"] == one["model_flops_per_chip"] / chips
+    assert rep["fits"] == (rep["bytes_per_chip"] <= rep["hbm_bytes"])
 
 
 def test_meta_is_for_the_model_alone():

@@ -1048,6 +1048,121 @@ def test_flash_attention_autograd_launches_the_backward_kernel(
         torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
 
 
+# a context-parallel rank's block of query rows against all T keys: the
+# rows [a, a + n) of a call with q_start = a, each case at 3 offsets
+Q_START_CASES = [  # b, s, t, h, kv, hd, causal, window, cap
+    (1, 192, 192, 4, 2, 64, True, 0, 0.0),
+    (2, 99, 99, 8, 1, 128, True, 0, 0.0),
+    (1, 150, 150, 4, 4, 64, True, 40, 0.0),
+    (1, 96, 96, 8, 2, 128, True, 0, 30.0),
+    (1, 144, 144, 28, 4, 128, True, 0, 0.0),     # qwen2-vl's heads
+]
+
+
+def _q_start_blocks(s: int):
+    n = s // 3
+    return [(0, n), (n, 2 * n), (2 * n, s)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window,cap", Q_START_CASES)
+def test_flash_attention_q_start_matches_plain(cuda_device, dtype, b, s, t,
+                                               h, kv, hd, causal, window,
+                                               cap):
+    """The forward with a query offset against its plain version, and
+    its log-sum-exp; the blocks launch the same kernel as a call
+    without one."""
+    rng = np.random.default_rng(s * h + t + 1)
+    q = _randn(rng, (b, s, h, hd), dtype, cuda_device)
+    k = _randn(rng, (b, t, kv, hd), dtype, cuda_device)
+    v = _randn(rng, (b, t, kv, hd), dtype, cuda_device)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    atol, rtol = ATT_TOL[dtype][1]
+    for a, e in _q_start_blocks(s):
+        qb = q[:, a:e].contiguous()
+        att.reset_launches()
+        out, lse = att.flash_attention_with_lse(qb, k, v, q_start=a, **kw)
+        torch.cuda.synchronize()
+        assert att.launches["flash_attention"] == 1
+        assert att.launches["flash_attention_q_start"] == int(a > 0)
+        torch.testing.assert_close(
+            out, att.flash_attention_plain(qb, k, v, q_start=a, **kw),
+            rtol=rtol, atol=atol)
+        want = att.flash_lse_plain(qb, k, q_start=a, **kw)
+        torch.testing.assert_close(lse, want, rtol=0, atol=LSE_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window,cap", Q_START_CASES)
+def test_flash_attention_backward_q_start_matches_plain(
+        cuda_device, dtype, b, s, t, h, kv, hd, causal, window, cap):
+    rng = np.random.default_rng(s * h + t + 2)
+    q = _randn(rng, (b, s, h, hd), dtype, cuda_device)
+    k = _randn(rng, (b, t, kv, hd), dtype, cuda_device)
+    v = _randn(rng, (b, t, kv, hd), dtype, cuda_device)
+    do = _randn(rng, (b, s, h, hd), dtype, cuda_device)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    atol, rtol = BWD_TOL[dtype]
+    for a, e in _q_start_blocks(s):
+        qb, dob = q[:, a:e].contiguous(), do[:, a:e].contiguous()
+        o, lse = att.flash_attention_with_lse(qb, k, v, q_start=a, **kw)
+        att.reset_launches()
+        got = att.flash_attention_backward(qb, k, v, o, dob, lse,
+                                           q_start=a, **kw)
+        torch.cuda.synchronize()
+        assert att.launches["flash_attention_backward"] == 1
+        want = att.flash_attention_backward_plain(qb, k, v, o, dob,
+                                                  q_start=a, **kw)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,hd,t,cap", [
+    (8, 32, 8, 128, 2048, 0.0), (2, 16, 8, 256, 300, 50.0),
+    (1, 28, 4, 128, 1000, 0.0), (3, 8, 2, 64, 77, 0.0)])
+def test_decode_attention_with_lse_matches_plain(cuda_device, dtype, b, h,
+                                                 kvh, hd, t, cap):
+    """Each half of T against the plain version with its log-sum-exp,
+    the halves combined against the whole call, and the output equal to
+    the call without the log-sum-exp (one half has no valid key in row
+    0)."""
+    rng = np.random.default_rng(b * h + t + 3)
+    q = _randn(rng, (b, h, hd), dtype, cuda_device)
+    k = _randn(rng, (b, t, kvh, hd), dtype, cuda_device)
+    v = _randn(rng, (b, t, kvh, hd), dtype, cuda_device)
+    valid = torch.from_numpy(rng.random((b, t)) < 0.8).to(cuda_device)
+    half = t // 2
+    valid[0, half:] = False
+    atol, rtol = ATT_TOL[dtype][0]
+    outs, lses = [], []
+    for a, e in ((0, half), (half, t)):
+        kb, vb = k[:, a:e].contiguous(), v[:, a:e].contiguous()
+        vd = valid[:, a:e].contiguous()
+        att.reset_launches()
+        out, lse = att.decode_attention_with_lse(q, kb, vb, vd, softcap=cap)
+        torch.cuda.synchronize()
+        assert att.launches["decode_attention_with_lse"] == 1
+        assert att.launches["decode_attention"] == 0
+        assert torch.equal(out, att.decode_attention(q, kb, vb, vd,
+                                                     softcap=cap))
+        w_out, w_lse = att.decode_attention_plain(q, kb, vb, vd, softcap=cap,
+                                                  with_lse=True)
+        torch.testing.assert_close(out, w_out, rtol=rtol, atol=atol)
+        keyed = w_lse > -1e30
+        torch.testing.assert_close(lse[keyed], w_lse[keyed], rtol=0,
+                                   atol=LSE_TOL[dtype])
+        outs.append(out)
+        lses.append(lse)
+    got = att.combine_decode(torch.stack(outs), torch.stack(lses))
+    torch.testing.assert_close(
+        got, att.decode_attention_plain(q, k, v, valid, softcap=cap),
+        rtol=rtol, atol=atol)
+
+
 @pytest.mark.gpu
 def test_decode_attention_raises_when_an_input_requires_grad(cuda_device):
     q = torch.randn(2, 8, 64, device=cuda_device, requires_grad=True)

@@ -143,12 +143,40 @@ def test_serve_cli_equals_the_reference(mode, tmp_path, capsys,
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
+def reference_pod_keys(module: str) -> tuple:
+    """The keys the reference's launcher prints in pod mode: the tuple of
+    its ``{k: rep[k] for k in (...)}`` (read from its source, which needs
+    a 512-device XLA to run)."""
+    import ast
+    from pathlib import Path
+    tree = ast.parse((Path(j_serve.__file__).parent
+                      / f"{module}.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.DictComp) and isinstance(
+                node.generators[0].iter, ast.Tuple):
+            return tuple(e.value for e in node.generators[0].iter.elts)
+    raise AssertionError(f"no pod-mode keys in repro.launch.{module}")
+
+
 @pytest.mark.parametrize("main", [t_serve.main, t_train.main])
 @pytest.mark.parametrize("flags", [["--mesh", "pod"], ["--mesh", "multipod"],
                                    ["--mesh", "pod", "--dry-run"]])
-def test_launchers_refuse_the_production_mesh(main, flags):
-    with pytest.raises(SystemExit, match="A8.4"):
-        main(flags + ["--device", "cpu"])
+def test_launchers_refuse_the_production_mesh(main, flags, capsys):
+    """Pod mode, once refused naming ROADMAP A8.4: the reference's keys of
+    the production-mesh count as JSON (a fast arch and decode shape), the
+    reference's NOTE unless ``--dry-run``, and nothing served or
+    trained."""
+    module = "serve" if main is t_serve.main else "train"
+    main(flags + ["--device", "cpu", "--arch", "h2o-danube-1.8b",
+                  "--shape", "decode_32k"])
+    out = capsys.readouterr().out
+    body = out[:out.rindex("}") + 1]
+    rep = json.loads(body)
+    assert tuple(rep) == reference_pod_keys(module)
+    assert (rep["mesh"], rep["chips"]) == (
+        ("2x16x16", 512) if "multipod" in flags else ("16x16", 256))
+    assert rep["arch"] == "h2o-danube-1.8b"
+    assert ("NOTE:" in out) == ("--dry-run" not in flags)
 
 
 DONE = re.compile(r"done: steps=(\d+) restarts=(\d+) stragglers=\d+ loss "
