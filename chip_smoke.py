@@ -253,12 +253,35 @@ Phases (one line each; any failure exits non-zero and prints no result):
      loss with its gradients, held alike; every rank launches flash,
      decode and backward (the ranks past 0 with ``q_start``) and runs no
      plain version; each rank's times and peak memory;
-  23. the ported kernels with their launches (phase 4 for the engine
+  23. the entry scripts' twins, loaded by path and run on the card with
+     every launch count from 0: (a) ``examples/torch_morpheus_replay.py``
+     for kmeans and cfd at its default 30 000 requests, every row (best
+     split, integer Stats, normalized time, hit rate, MPKI; the
+     predictor ablation) against the reference's golden
+     (``tests/data/torch_golden_examples.json``: splits and Stats
+     identical, floats within 1e-3); (b) ``examples/torch_quickstart.py``:
+     the pool's stats against the golden, the reduced qwen3-4b forward
+     and AdamW step, the simulator's BL and Morpheus-ALL runs against the
+     golden; (c) ``examples/torch_serve_morpheus.py``'s ``run`` with
+     qwen3-4b at full width (depth cut to 4), batch 4, prompt 32, +8,
+     ``--split auto`` for 6 rounds: tokens/s, the governor's decisions,
+     tokens identical with the pool on and off; (d)
+     ``examples/torch_train_lm.py --model-100m``: 60 steps with
+     checkpoints and the restart, ms a step; (e) ``tools/
+     torch_profile_cell.py engine cfd:Morpheus-ALL:32:36``, which must
+     list both scan kernels' device ms; both scans, the pool's
+     ``lookup_fill``, ``bloom_query``, ``bloom_record`` and ``page_write``
+     (no script reads a page back), flash forward and backward and decode
+     launched, no plain version run.  Phase 22 (c) also runs
+     deepseek-moe-16b's MoE layer at full width on (1, 3) (64 experts on
+     an axis of 3: the dense fallback) against the one-process layer;
+  24. the ported kernels with their launches (phase 4 for the engine
      scans, phases 14, 15 and 21 for their stateful twins, phase 7 for
      the pool, phases 12, 16, 18 and 21 for attention, phases 18 and 21
-     for the flash backward, phase 22 for the options), errors, times
-     and bounds (every bound from ``repro_torch.roofline.kernel_work``,
-     the count the wrappers charge the op counter).
+     for the flash backward, phase 22 for the options; each row's
+     launches in phase 23 beside them), errors, times and bounds (every
+     bound from ``repro_torch.roofline.kernel_work``, the count the
+     wrappers charge the op counter).
 
 The last lines are the card (``nvidia-smi``), the ``{"kernels": ...}``
 record, and ``{"ok": true, "device": ...}``.  Needs one CUDA card, the
@@ -4717,12 +4740,66 @@ def tp_rank(rank: int, case: dict) -> dict:
                                     gen, device=dev)
     env.att.reset_launches()
     out = tp_serve_and_train(env, model, case, dev)
-    out.update(rank=rank, launches=dict(env.att.launches),
-               plain=dict(env.att.plain_runs),
+    launches, plain = dict(env.att.launches), dict(env.att.plain_runs)
+    if case.get("moe"):
+        del model
+        torch.cuda.empty_cache()
+        out["moe"] = moe_dense_fallback(env, mesh, dev)
+    out.update(rank=rank, launches=launches, plain=plain,
                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
                s=time.perf_counter() - t0,
                jax=[m for m in ("jax", "repro") if m in sys.modules])
     return out
+
+
+def moe_dense_fallback(env: Env, mesh, dev) -> dict:
+    """deepseek-moe-16b's MoE layer at full width on ``mesh``, whose
+    ``model`` axis does not divide its 64 experts: the leaves placed by
+    ``param_spec`` (replicated there) as DTensors, the rows by
+    ``batch_input``, the layer run as the one-process layer on every rank
+    (``models.moe._moe_mlp_dense``, the reference's dense path), against
+    the one-process layer on plain tensors: each output row within 1e-4 of
+    its max |y|, each gradient within 1e-3 of its leaf's max."""
+    tp, sh = env.tp, env.sharding
+    cfg, p, x, gy = moe_layer_inputs(env, dev)
+    full = moe_leaves(p)
+    for w in full:
+        w.requires_grad_(True)
+    x1 = x.clone().requires_grad_(True)
+    y1 = env.models.moe.moe_mlp(p, x1, cfg)
+    want = torch.autograd.grad((y1 * gy).sum(), full + [x1])
+    y1 = y1.detach()
+
+    def place(name, w):
+        return tp.shard_input(w.detach(), mesh, sh.param_spec(name, w, mesh))
+    dp = {k: place(k, p[k]) for k in ("router", "w_gate", "w_up", "w_down")}
+    dp["shared"] = {k: place(k, v) for k, v in p["shared"].items()}
+    del p, full
+    mine = moe_leaves(dp)
+    for w in mine:
+        w.requires_grad_(True)
+    xd = tp.batch_input(x, mesh).requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tp.implicit_replication():
+        y = env.models.moe.moe_mlp(dp, xd, cfg)
+        got = torch.autograd.grad((y * tp.batch_input(gy, mesh)).sum(),
+                                  mine + [xd])
+        got = [g.full_tensor() for g in got]
+        y = y.full_tensor().detach()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    row_err = float(((y - y1).abs().amax(1)
+                     / y1.abs().amax(1).clamp_min(1e-30)).max())
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for a, b in zip(got, want))
+    placed = sorted({str(w.placements) for w in mine})
+    if not (row_err <= 1e-4 and grad_err <= 1e-3):
+        fail(f"MoE dense fallback on {tuple(mesh.shape)}: output rows "
+             f"{row_err:.3g} of their max (bound 1e-4), gradients "
+             f"{grad_err:.3g} of their max (bound 1e-3)")
+    return {"row_err": row_err, "grad_err": grad_err, "s": s,
+            "placements": placed, "tokens": x.shape[0]}
 
 
 def tp_case(env: Env, arch: str, layers: int, mesh: tuple, prompt: tuple,
@@ -4829,7 +4906,7 @@ def phase_tensor_parallel(env: Env, dev) -> dict:
                        "phase 22 (b)")
     torch.cuda.empty_cache()
     c_case = tp_case(env, CP_ARCH, CP_LAYERS, CP_MESH, (1, CP_SEQ), CP_NEW,
-                     (1, CP_SEQ))
+                     (1, CP_SEQ), moe=True)
     c_one = tp_one_process(env, c_case, dev)
     t1 = time.perf_counter()
     c_ranks = env.world.spawn(tp_rank, CP_MESH[1], c_case, backend="gloo",
@@ -4879,6 +4956,14 @@ def phase_tensor_parallel(env: Env, dev) -> dict:
         f"{c_err['logits']:.3g}), one loss and its gradients (loss rel err "
         f"{c_err['loss']:.3g}, gradient parts' norms rel err "
         f"{c_err['grads']:.3g}), {c_s:.1f} s; " + world_text(c_ranks, c_one))
+    log(f"phase 22 (c): {MESH_MOE_ARCH}'s MoE layer at full width on "
+        f"{CP_MESH} (64 experts on a model axis of 3: the dense fallback, "
+        f"the experts replicated) against the one-process layer, "
+        f"{c_ranks[0]['moe']['tokens']} rows: " + "; ".join(
+            f"rank {r['rank']}: output rows {r['moe']['row_err']:.3g} of "
+            f"their max (bound 1e-4), gradients {r['moe']['grad_err']:.3g} "
+            f"(bound 1e-3), {r['moe']['s'] * 1e3:.0f} ms, placements "
+            f"{r['moe']['placements']}" for r in c_ranks))
     log(f"phase 22: {time.perf_counter() - t0:.1f} s")
 
     def total(ranks, key):
@@ -4892,6 +4977,231 @@ def phase_tensor_parallel(env: Env, dev) -> dict:
         "tp": {k: total(b_ranks, k) + total(c_ranks, k)
                for k in ("flash_attention", "decode_attention",
                          "flash_attention_backward")}}}
+
+
+# ------------------------------------------------------ the entry scripts
+
+GOLDEN_EXAMPLES = ROOT / "tests" / "data" / "torch_golden_examples.json"
+ENTRY_APPS = ("kmeans", "cfd")
+ENTRY_SERVE = dict(batch=4, prompt_len=32, max_new=8, split="auto",
+                   rounds=6)
+ENTRY_SERVE_LAYERS = 4           # qwen3-4b at full width, depth cut 36 -> 4
+ENTRY_TRAIN_STEPS = 60           # torch_train_lm's default
+ENTRY_TRAIN_CKPT = ROOT / "build" / "chip_smoke_train_lm"
+ENTRY_PROFILE = "cfd:Morpheus-ALL:32:36"
+# the wrappers the entry scripts must launch, by counter (no script reads
+# a page back: ``Engine.run`` prefills whatever the pool holds, and the
+# quickstart only looks keys up, so ``read_rows`` is not on their paths)
+ENTRY_NEED = {"scan": ("conv_scan", "ext_scan"),
+              "pool": ("lookup_fill", "bloom_query", "bloom_record",
+                       "page_write"),
+              "att": ("flash_attention", "flash_attention_backward",
+                      "decode_attention")}
+# kernels-line rows and the wrappers whose phase-23 launches each reports
+ENTRY_ROWS = {"conv_scan": ("scan", ("conv_scan",)),
+              "ext_scan": ("scan", ("ext_scan",)),
+              "tag_lookup": ("pool", ("lookup_fill", "tag_lookup")),
+              "bloom_query": ("pool", ("bloom_query",)),
+              "bloom_record": ("pool", ("bloom_record",)),
+              "bdi_compress": ("pool", ("page_write", "bdi_compress")),
+              "bdi_decompress": ("pool", ("read_rows", "bdi_decompress")),
+              "gather_blocks": ("pool", ("read_rows", "gather_blocks",
+                                         "cached_block_read")),
+              "decode_attention": ("att", ("decode_attention",)),
+              "flash_attention": ("att", ("flash_attention",)),
+              "flash_attention_backward": ("att",
+                                           ("flash_attention_backward",))}
+
+
+def load_script(rel: str):
+    """A twin of an entry script (``examples/torch_*.py``,
+    ``tools/torch_*.py``) as a module, loaded by path."""
+    import importlib.util
+    path = ROOT / rel
+    spec = importlib.util.spec_from_file_location("_entry_" + path.stem,
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def close_rel(got: float, want: float) -> bool:
+    return abs(got - want) <= FLOAT_RTOL * abs(want)
+
+
+def hold_replay(got: dict, want: dict, ctx: str) -> float:
+    """The replay's rows against the reference's golden: splits and
+    integer Stats identical, normalized time, hit rate and MPKI within
+    ``FLOAT_RTOL`` relative; the largest relative error."""
+    worst = 0.0
+    for part in ("rows", "ablation"):
+        if list(got[part]) != list(want[part]):
+            fail(f"{ctx}: {part} {list(got[part])} vs {list(want[part])}")
+        for k, w in want[part].items():
+            g = got[part][k]
+            if (g["n_compute"], g["n_cache"], g["stats"]) != \
+                    (w["n_compute"], w["n_cache"], w["stats"]):
+                fail(f"{ctx} {part} {k}: split {g['n_compute']}+"
+                     f"{g['n_cache']} Stats {g['stats']} vs the reference's "
+                     f"{w['n_compute']}+{w['n_cache']} {w['stats']}")
+            for f in ("norm_time", "hit_rate", "mpki"):
+                if not close_rel(g[f], w[f]):
+                    fail(f"{ctx} {part} {k}: {f} {g[f]} vs {w[f]}")
+                if w[f]:
+                    worst = max(worst, abs(g[f] - w[f]) / abs(w[f]))
+    return worst
+
+
+def entry_counts(env: Env) -> dict:
+    return {"scan": dict(env.scan.launches), "pool": dict(env.pool.launches),
+            "att": dict(env.att.launches)}
+
+
+def entry_plain(env: Env) -> dict:
+    return {"scan": dict(env.scan.plain_runs),
+            "pool": dict(env.pool.plain_runs),
+            "att": dict(env.att.plain_runs)}
+
+
+def phase_entry_scripts(env: Env, dev) -> dict:
+    """Phase 23: the twins of the repo's entry scripts, loaded by path and
+    run on the card with the launch counts from 0: (a) the paper replay
+    (``examples/torch_morpheus_replay.py``) of kmeans and cfd at its
+    default 30 000 requests against the reference's golden rows; (b) the
+    quickstart's pool, model and simulator parts, the pool stats and
+    the simulator's runs against the golden; (c) ``torch_serve_morpheus
+    .run`` of qwen3-4b at full width, depth cut to 4, ``--split auto`` for
+    6 rounds (tokens/s, the governor's decisions, tokens identical with
+    the pool on and off); (d) ``torch_train_lm`` ``--model-100m``, 60
+    steps with checkpoints and the restart; (e) ``torch_profile_cell
+    engine`` of cfd:Morpheus-ALL:32:36 with both scan kernels' device ms.
+    Every wrapper of ``ENTRY_NEED`` launched, no plain version run."""
+    t0 = time.perf_counter()
+    golden = json.loads(GOLDEN_EXAMPLES.read_text())
+    env.scan.reset_launches()
+    env.pool.reset_launches()
+    env.att.reset_launches()
+    plain0 = entry_plain(env)       # engine_scan's plain runs are not reset
+    out = {"replay": {}}
+    replay = load_script("examples/torch_morpheus_replay.py")
+    for app in ENTRY_APPS:
+        t1 = time.perf_counter()
+        got = replay.run(app, golden["replay_length"])
+        s = time.perf_counter() - t1
+        err = hold_replay(got, golden["replay"][app], f"phase 23 (a) {app}")
+        out["replay"][app] = {"s": s, "err": err, "rows": {
+            k: f"{r['n_compute']}c+{r['n_cache']}$ {r['norm_time']:.3f}"
+            for k, r in got["rows"].items()}}
+
+    qs = load_script("examples/torch_quickstart.py")
+    t1 = time.perf_counter()
+    pool = qs.pool_part()
+    want = golden["quickstart"]["pool"]
+    if {k: v for k, v in pool.items() if isinstance(v, int)} != \
+            {k: v for k, v in want.items() if isinstance(v, int)} or \
+            not close_rel(pool["time_ns"], want["time_ns"]):
+        fail(f"phase 23 (b): quickstart pool stats {pool} vs {want}")
+    model = qs.model_part()
+    if not (model["finite"] and math.isfinite(model["loss"])):
+        fail(f"phase 23 (b): quickstart model part {model}")
+    sim = qs.sim_part()
+    for name, w in golden["quickstart"]["sim"].items():
+        g = sim[name]
+        if g["stats"] != w["stats"] or not close_rel(g["exec_time_s"],
+                                                     w["exec_time_s"]):
+            fail(f"phase 23 (b): quickstart {name} {g} vs {w}")
+    out["quickstart"] = {"s": time.perf_counter() - t1, "loss": model["loss"],
+                         "speedup": sim["BL"]["exec_time_s"]
+                         / sim["Morpheus-ALL"]["exec_time_s"]}
+
+    serve = load_script("examples/torch_serve_morpheus.py")
+    cfg = dataclasses.replace(env.configs.get(SERVE_ARCH),
+                              num_layers=ENTRY_SERVE_LAYERS)
+    lines = []
+    t1 = time.perf_counter()
+    sv = serve.run(cfg, log=lines.append, **ENTRY_SERVE)
+    serve_s = time.perf_counter() - t1
+    if not sv["match"] or sv["tokens_on"] != sv["tokens_off"]:
+        fail("phase 23 (c): tokens differ with the Morpheus pool on and off")
+    torch.cuda.empty_cache()
+    rounds = [r for r in sv["rounds"] if "report" in r]
+    out["serve"] = {"s": serve_s,
+                    "tokens_per_s": [r["tokens_per_s"] for r in rounds],
+                    "decisions": [ln.strip() for ln in lines
+                                  if "governor epoch" in ln],
+                    "pool_stats": sv["pool_stats"]}
+
+    tr = load_script("examples/torch_train_lm.py")
+    import shutil
+    shutil.rmtree(ENTRY_TRAIN_CKPT, ignore_errors=True)
+    args = type("Args", (), dict(arch=SERVE_ARCH, full=False,
+                                 model_100m=True))
+    tcfg = tr.build_cfg(args)
+    train_lines = []
+    tt = tr.run(tcfg, steps=ENTRY_TRAIN_STEPS, ckpt_dir=str(ENTRY_TRAIN_CKPT),
+                log=train_lines.append)
+    shutil.rmtree(ENTRY_TRAIN_CKPT, ignore_errors=True)
+    if tt["resumed_from"] != ENTRY_TRAIN_STEPS or \
+            not tt["losses"][-1] < tt["losses"][0]:
+        fail(f"phase 23 (d): {train_lines[-3:]}")
+    out["train"] = {k: tt[k] for k in ("name", "ms_per_step", "seconds",
+                                       "resumed_from", "resumed_steps_run",
+                                       "resumed_seconds")}
+    out["train"].update(first=tt["losses"][0], last=tt["losses"][-1])
+    torch.cuda.empty_cache()
+
+    prof = load_script("tools/torch_profile_cell.py")
+    pe = prof.profile_engine(ENTRY_PROFILE, 8)
+    ms = pe["scan_device_ms"]
+    if not all(ms[k] > 0 for k in prof.SCAN_KERNELS):
+        fail(f"phase 23 (e): the profile of {ENTRY_PROFILE} lists no "
+             f"{[k for k in prof.SCAN_KERNELS if not ms[k]]} ({ms})")
+    out["profile"] = {"scan_device_ms": ms, "ops": [r[0] for r in pe["ops"]],
+                      "flops": pe["flops"], "bytes": pe["bytes"]}
+
+    counts, plain = entry_counts(env), entry_plain(env)
+    missing = [f"{c}.{w}" for c, ws in ENTRY_NEED.items() for w in ws
+               if not counts[c][w]]
+    ran_plain = {c: {k: v - plain0[c][k] for k, v in plain[c].items()
+                     if v != plain0[c][k]} for c in plain}
+    if missing or any(ran_plain.values()):
+        fail(f"phase 23: no launch of {missing} or plain runs {ran_plain} "
+             f"(launches {counts})")
+    out["launches"] = counts
+    out["s"] = time.perf_counter() - t0
+    log("phase 23 (a): torch_morpheus_replay at "
+        f"{golden['replay_length']} requests == the reference's golden "
+        "(splits and integer Stats identical, floats within "
+        f"{FLOAT_RTOL}): " + "; ".join(
+            f"{app} {v['s']:.1f} s, max rel err {v['err']:.3g}, "
+            + ", ".join(f"{k} {r}" for k, r in v["rows"].items())
+            for app, v in out["replay"].items()))
+    q = out["quickstart"]
+    log(f"phase 23 (b): torch_quickstart: pool stats == golden, simulator "
+        f"times within {FLOAT_RTOL} (speedup {q['speedup']:.2f}x), reduced "
+        f"{SERVE_ARCH} train step loss {q['loss']:.4f}, {q['s']:.1f} s")
+    v = out["serve"]
+    log(f"phase 23 (c): torch_serve_morpheus.run {SERVE_ARCH} at full "
+        f"width, {ENTRY_SERVE_LAYERS} layers, batch {ENTRY_SERVE['batch']}, "
+        f"prompt {ENTRY_SERVE['prompt_len']}, +{ENTRY_SERVE['max_new']}, "
+        f"--split auto, {ENTRY_SERVE['rounds']} rounds: tokens/s "
+        + ", ".join(f"{x:.1f}" for x in v["tokens_per_s"])
+        + f"; decisions: {' / '.join(v['decisions'])}; tokens identical "
+        f"with the pool on and off; {v['s']:.1f} s with the weights drawn")
+    tr_ = out["train"]
+    log(f"phase 23 (d): torch_train_lm --model-100m ({tr_['name']}): "
+        f"{ENTRY_TRAIN_STEPS} steps, loss {tr_['first']:.4f} -> "
+        f"{tr_['last']:.4f}, {tr_['ms_per_step']:.1f} ms a step (the call's "
+        f"wall over its steps, checkpoints and set-up included), resumed "
+        f"at step {tr_['resumed_from']} for {tr_['resumed_steps_run']} "
+        f"more in {tr_['resumed_seconds']:.1f} s")
+    log(f"phase 23 (e): torch_profile_cell engine {ENTRY_PROFILE}: ops "
+        f"{out['profile']['ops']}, scan kernels' device ms " + ", ".join(
+            f"{k} {ms[k]:.4f}" for k in prof.SCAN_KERNELS)
+        + f" (profiled window {ms['window']})")
+    log(f"phase 23: launches {json.dumps(counts)}, no plain run; "
+        f"{out['s']:.1f} s")
+    return out
 
 
 def tensor_parallel_kernel_rows(tpp: dict) -> list:
@@ -5281,6 +5591,7 @@ def main() -> int:
     phase_roofline(env, dev, serving, training)
     multi = phase_multi_device(env, dev, fleet)
     tpp = phase_tensor_parallel(env, dev)
+    entry = phase_entry_scripts(env, dev)
 
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("the port imported jax or repro")
@@ -5314,7 +5625,12 @@ def main() -> int:
         bwd, training, multi,
         ptxas_summary(env.build.build_log("attention_bwd"))))
     kernels += tensor_parallel_kernel_rows(tpp)
-    log("phase 23: kernels " + ", ".join(
+    for x in kernels:
+        if x["name"] in ENTRY_ROWS:
+            c, ws = ENTRY_ROWS[x["name"]]
+            x["launches_entry_scripts"] = sum(entry["launches"][c].get(w, 0)
+                                              for w in ws)
+    log("phase 24: kernels " + ", ".join(
         f"{x['name']} matched plain (max abs err {x['max_abs_err']:.3g}), "
         f"{x['ms']:.4g} ms on the card ({x['call_ms']:.4g} ms a call) vs "
         f"plain {x['plain_ms']:.4g} ms, bound {x['bound_ms']:.4g} ms "

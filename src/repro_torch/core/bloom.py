@@ -75,10 +75,14 @@ class BloomPredictorState(NamedTuple):
 
 
 def make_state(num_sets: int, associativity: int, *, filter_bytes: int = 32,
-               device="cpu") -> BloomPredictorState:
+               device=None) -> BloomPredictorState:
+    """An empty double-Bloom predictor on ``device`` (None: the card;
+    ``"cpu"`` for the plain version)."""
+    from .engine import resolve_device
     words = filter_bytes // 4
     if words < 1:
         raise ValueError("filter_bytes must be >= 4")
+    device = resolve_device(device)
     zeros = torch.zeros((num_sets, words), dtype=torch.int32, device=device)
     scalar = lambda v: torch.tensor(v, dtype=torch.int32,  # noqa: E731
                                     device=device)
@@ -149,8 +153,11 @@ class CountingBloomState(NamedTuple):
 
 
 def make_counting_state(num_sets: int, *, filter_bytes: int = 32,
-                        device="cpu") -> CountingBloomState:
-    """``filter_bytes`` of 4-bit counters: 2 cells a byte."""
+                        device=None) -> CountingBloomState:
+    """``filter_bytes`` of 4-bit counters: 2 cells a byte, on ``device``
+    (None: the card; ``"cpu"`` for the plain version)."""
+    from .engine import resolve_device
+    device = resolve_device(device)
     cells = filter_bytes * 2
     return CountingBloomState(
         counters=torch.zeros((num_sets, cells), dtype=torch.uint8,

@@ -42,7 +42,11 @@ class ExtInsertResult(NamedTuple):
 
 
 def make_state(num_sets: int, ways: int, *, compression: bool,
-               device="cpu") -> ExtCacheState:
+               device=None) -> ExtCacheState:
+    """An empty extended tier on ``device`` (None: the card; ``"cpu"``
+    for the plain version)."""
+    from .engine import resolve_device
+    device = resolve_device(device)
     max_ways = ways * (BLOCK_BYTES // 32) if compression else ways
     z = torch.zeros((num_sets, max_ways), dtype=torch.int32, device=device)
     f = torch.zeros((num_sets, max_ways), dtype=torch.bool, device=device)

@@ -50,7 +50,11 @@ class InsertResult(NamedTuple):
     evicted_tag: torch.Tensor    # () int32 uint32 bit pattern
 
 
-def make_state(num_sets: int, ways: int, device="cpu") -> TagStoreState:
+def make_state(num_sets: int, ways: int, device=None) -> TagStoreState:
+    """An empty tag store on ``device`` (None: the card; ``"cpu"`` for
+    the plain version), as every entry point (``engine.resolve_device``)."""
+    from .engine import resolve_device
+    device = resolve_device(device)
     z = torch.zeros((num_sets, ways), dtype=torch.int32, device=device)
     f = torch.zeros((num_sets, ways), dtype=torch.bool, device=device)
     return TagStoreState(tags=z, valid=f, dirty=f.clone(), lru=z.clone())

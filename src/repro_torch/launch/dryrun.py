@@ -195,23 +195,20 @@ def report(arch: str, shape_name: str, cost: op_cost.Cost, *,
 
 def lower_cell(arch: str, shape_name: str, *,
                multi_pod: Optional[bool] = None,
-               microbatches: int = 1) -> dict:
+               microbatches: int = 1, with_cost: bool = False):
     """Count one (arch x shape) cell on ``meta`` and return the report: on
     one H100 (``multi_pod`` None), or per chip on the (16, 16) pod
     (False) or the (2, 16, 16) pods (True), in a fresh process that holds
     a fake group of 256 or 512 ranks unless this process is already rank
-    0 of one that size."""
-    if multi_pod is None:
-        return _lower(arch, shape_name, None, microbatches)
-    n = chips_of(multi_pod)
-    if in_fake_world_of(n):
-        return _lower(arch, shape_name, multi_pod, microbatches)
-    return in_fake_world(n, _lower, arch, shape_name, multi_pod,
-                         microbatches)
+    0 of one that size; with ``with_cost``, (report, its ``Cost``)."""
+    args = (arch, shape_name, multi_pod, microbatches, with_cost)
+    if multi_pod is None or in_fake_world_of(chips_of(multi_pod)):
+        return _lower(*args)
+    return in_fake_world(chips_of(multi_pod), _lower, *args)
 
 
 def _lower(arch: str, shape_name: str, multi_pod: Optional[bool],
-           microbatches: int) -> dict:
+           microbatches: int, with_cost: bool = False):
     cfg = configs.get(arch)
     shape = configs.SHAPES[shape_name]
     t0 = time.perf_counter()
@@ -221,8 +218,9 @@ def _lower(arch: str, shape_name: str, multi_pod: Optional[bool],
         tp.distribute_model(model, mesh, device=S.META)
     lower_s = time.perf_counter() - t0
     cost = count_cell(cfg, shape, microbatches=microbatches, model=model)
-    return report(arch, shape_name, cost, microbatches=microbatches,
-                  lower_s=lower_s, multi_pod=multi_pod)
+    rep = report(arch, shape_name, cost, microbatches=microbatches,
+                 lower_s=lower_s, multi_pod=multi_pod)
+    return (rep, cost) if with_cost else rep
 
 
 # ------------------------------------------------ the fake process group

@@ -51,6 +51,10 @@ no rule for, run per rank in ``local_map`` (``_flash``, ``_decode_tp``):
     heads do not divide the axis, the sequence does): q sharded by
     sequence over ``model``, K/V replicated, and each rank's flash call
     takes ``q_start`` = its block's first position, forward and backward;
+    the rank's rows then stay sharded through ``wo``, the residual, the
+    norms and the MLP (``layers.linear``, ``layers.residual``), gathered
+    only for a consumer of every row (the next layer's K/V, the logits
+    head, a Mamba2 scan, the MoE layer), as GSPMD keeps them;
   * a sequence-sharded cache (``kv_cache_specs``: the KV heads do not
     divide the axis, and always for MLA's latent): the rank that holds
     slot ``cur_pos % C`` writes it, each rank runs
@@ -244,8 +248,8 @@ def _kv_heads_of_rank(k: torch.Tensor, h: int, n: int, r: int
 def _flash(q, k, v, **kw):
     """``K.flash_attention``, or on DTensors the kernel per rank: on its
     block of the sequence with ``q_start`` when q is sequence-sharded
-    over ``model`` (``_context_parallel_constraint``; the output is then
-    gathered over ``model``), on its query heads when they divide the
+    over ``model`` (``_context_parallel_constraint``; the output keeps
+    the rank's rows), on its query heads when they divide the
     axis, else the whole call on every rank."""
     if not tp.is_dtensor(q):
         return K.flash_attention(q, k, v, **kw)
@@ -275,14 +279,10 @@ def _flash(q, k, v, **kw):
         q_pl, kv_pl = tp.with_model(q, Replicate()), rep_kv
         kv_grad = kv_pl
         fn = lambda ql, kl, vl: K.flash_attention(c(ql), c(kl), c(vl), **kw)
-    out = tp.run_local(fn, (q, k, v), (q_pl, kv_pl, kv_pl), q_pl, mesh,
-                       (q_pl, kv_grad, kv_grad))
-    if tp.on_model(out) == Shard(1):
-        # the rows back on every rank (an all-gather) before ``wo``:
-        # DTensor's matmul cannot fold a sequence-sharded (B, S, ...)
-        # into its 2-d product
-        out = out.redistribute(mesh, tp.with_model(out, Replicate()))
-    return out
+    # context parallel: the rows stay sharded through ``wo``, the
+    # residual, the norm and the MLP (``layers.linear``, ``residual``)
+    return tp.run_local(fn, (q, k, v), (q_pl, kv_pl, kv_pl), q_pl, mesh,
+                        (q_pl, kv_grad, kv_grad))
 
 
 # --------------------------------------------------------------- KV cache
@@ -575,10 +575,12 @@ def prefill_into_cache(p, x: Tensor, cache: Dict[str, Tensor],
                             device=_local_device(x))
     slots = (tail_pos % c).long()   # ring-consistent: decode overwrites LRU
     if tp.is_dtensor(x):
+        if L.seq_sharded(k):            # the rank's rows: take the gathered
+            k, v = kc, vc
         if cfg.mla:
             tail = tp.batch_input(tail_pos.expand(b, keep), x.device_mesh)
-            c_kv, k_rope = _mla_latent(p, x[:, s - keep:], cfg,
-                                       _angles(cfg, tail))
+            c_kv, k_rope = _mla_latent(p, L.gather_rows(x)[:, s - keep:],
+                                       cfg, _angles(cfg, tail))
             _write_tail(cache, {"c_kv": c_kv, "k_rope": k_rope}, s - keep,
                         s)
         else:

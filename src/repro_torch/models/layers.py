@@ -143,6 +143,14 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return x @ w
     last = x.dim() - 1
     wp = tp.on_model(w)
+    if seq_sharded(x) and isinstance(wp, Shard):
+        # the rank's rows of a context-parallel residual stream: ``w``
+        # gathered, the rows kept (GSPMD's choice there too)
+        w_pl = tp.with_model(w, Replicate())
+        return tp.run_local(torch.matmul, (x, w), (x.placements, w_pl),
+                            x.placements, x.device_mesh,
+                            (x.placements, tp.grad_placements(w_pl, x,
+                                                              True)))
     if wp == Shard(1):
         x_pl = tp.with_model(x, Replicate())
         out_pl = tp.with_model(x, Shard(last))
@@ -162,6 +170,36 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                         x.device_mesh,
                         (x_grad, tp.grad_placements(w.placements, x,
                                                     partial_w)))
+
+
+def seq_sharded(x) -> bool:
+    """Whether ``x`` is a DTensor whose rows (a dim other than the last)
+    are sharded over ``model``: the residual stream under context
+    parallelism (``models.attention._context_parallel_constraint``)."""
+    if not tp.is_dtensor(x):
+        return False
+    pl = tp.on_model(x)
+    return isinstance(pl, Shard) and pl.dim not in (-1, x.dim() - 1)
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` whole on every rank of ``model`` (an all-gather) where its
+    rows are sharded there; else as it is.  For a consumer that needs
+    every row: the logits head, a Mamba2 scan, the MoE layer."""
+    if not seq_sharded(x):
+        return x
+    return x.redistribute(x.device_mesh, tp.with_model(x, Replicate()))
+
+
+def residual(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``x + h`` on the residual stream, kept sequence-sharded over
+    ``model`` where either side is: the replicated side takes the rank's
+    rows (a local slice, no collective)."""
+    if seq_sharded(h) and not seq_sharded(x):
+        x = tp.replicate(x).redistribute(x.device_mesh, h.placements)
+    elif seq_sharded(x) and not seq_sharded(h):
+        h = tp.replicate(h).redistribute(h.device_mesh, x.placements)
+    return x + h
 
 
 def reduced(y: torch.Tensor) -> torch.Tensor:

@@ -289,14 +289,35 @@ def _moe_mlp_expert_parallel(p, x: Tensor, cfg: ArchConfig, mesh,
 _NAMES = ("router", "w_gate", "w_up", "w_down")
 
 
+def _moe_mlp_dense(p, x: Tensor, cfg: ArchConfig, mesh,
+                   shared_sharded: bool = False) -> Tensor:
+    """The one-process layer on experts replicated over ``model`` (the
+    reference's ``_moe_mlp_dense``, where ``model`` does not divide the
+    experts): every rank routes and runs all its tokens through every
+    expert; a shared expert sharded over ``model`` adds its partial sums
+    over the group."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    r = _route(p, x2, cfg, mesh)
+    key = torch.where(r.keep, r.expert, cfg.num_experts)
+    y = _experts(p, x2, r, key, expert_counts(key, cfg), cfg)
+    if "shared" in p:
+        if shared_sharded:
+            group = mesh.get_group("model")
+            y = y + C.reduce_from_group(L.dense_mlp(
+                p["shared"], C.copy_to_group(x2, group), cfg.act), group)
+        else:
+            y = y + L.dense_mlp(p["shared"], x2, cfg.act)
+    return y.reshape(shape)
+
+
 def _moe_mlp_tp(p, x, cfg: ArchConfig):
-    """``moe_mlp`` on DTensors: the expert-parallel path per rank on the
-    local shards, the output replicated over ``model``."""
+    """``moe_mlp`` on DTensors: per rank on the local shards, the output
+    replicated over ``model``; expert-parallel where ``model`` divides
+    the experts, else the one-process layer on the replicated experts
+    (``_moe_mlp_dense``)."""
     mesh = x.device_mesh
-    if not expert_parallel(cfg, mesh):
-        raise ValueError(f"an MoE layer under tensor parallelism needs a "
-                         f"model axis that divides its {cfg.num_experts} "
-                         f"experts (axis {tp.model_size(mesh)})")
+    ep = expert_parallel(cfg, mesh)
     names = [("", k) for k in _NAMES]
     if "shared" in p:
         names += [("shared", k) for k in ("w_gate", "w_up", "w_down")]
@@ -306,16 +327,16 @@ def _moe_mlp_tp(p, x, cfg: ArchConfig):
     batch_sharded = any(isinstance(pl, Shard) for pl in x.placements)
     x_pl = tp.with_model(x, Replicate())
     grads = [x_pl] + [tp.grad_placements(w.placements, x,
-                                         model_partial=(k == "router"))
+                                         model_partial=ep and k == "router")
                       for (_, k), w in zip(names, ws)]
+    body = _moe_mlp_expert_parallel if ep else _moe_mlp_dense
 
     def local(xl, *wl):
         pl = {k: w for (d, k), w in zip(names, wl) if not d}
         if "shared" in p:
             pl["shared"] = {k: w for (d, k), w in zip(names, wl) if d}
         with dist_ctx.use_mesh(mesh, global_batch=batch_sharded):
-            return _moe_mlp_expert_parallel(pl, xl, cfg, mesh,
-                                            shared_sharded)
+            return body(pl, xl, cfg, mesh, shared_sharded)
 
     return tp.run_local(local, (x, *ws),
                         (x_pl,) + tuple(w.placements for w in ws),

@@ -250,13 +250,13 @@ class LM(nn.Module):
                                        device=self.device).expand(b, s))
         for layer in self.encoder_layers:
             h = L.rms_norm(x, layer.ln1)
-            x = x + A.attention(layer.mixer, h, self.cfg, W.ENCODER_SPEC, pos,
-                                causal=False)
+            x = L.residual(x, A.attention(layer.mixer, h, self.cfg,
+                                          W.ENCODER_SPEC, pos, causal=False))
             x = self._mlp(layer, W.ENCODER_SPEC, x)
-        return L.rms_norm(x, self.encoder_norm)
+        return L.gather_rows(L.rms_norm(x, self.encoder_norm))
 
     def _head(self, x: Tensor) -> Tensor:
-        x = L.rms_norm(x, self.final_norm)
+        x = L.rms_norm(L.gather_rows(x), self.final_norm)
         return L.logits_head(self.embed, self.unembed, x, self.cfg)
 
     def _cross(self, layer: Layer, x: Tensor,
@@ -267,15 +267,17 @@ class LM(nn.Module):
             return x
         enc_kv = A.encode_cross_kv(layer.xattn, enc_out, self.cfg)
         h = L.rms_norm(x, layer.ln_x)
-        return x + A.cross_attention(layer.xattn, h, enc_kv, self.cfg)
+        return L.residual(x, A.cross_attention(layer.xattn, h, enc_kv,
+                                                self.cfg))
 
     def _mlp(self, layer: Layer, spec: LayerSpec, x: Tensor) -> Tensor:
         if "mlp" not in layer:
             return x
         h = L.rms_norm(x, layer.ln2)
         if spec.mlp == "moe":
-            return x + MoE.moe_mlp(layer.mlp, h, self.cfg)
-        return x + L.dense_mlp(layer.mlp, h, self.cfg.act)
+            return L.residual(x, MoE.moe_mlp(layer.mlp, L.gather_rows(h),
+                                             self.cfg))
+        return L.residual(x, L.dense_mlp(layer.mlp, h, self.cfg.act))
 
     # ------------------------------------------------------------ forward
     def _layers(self, first: int, stop: int, x: Tensor, positions: Tensor,
@@ -285,10 +287,10 @@ class LM(nn.Module):
                                self.specs[first:stop]):
             h = L.rms_norm(x, layer.ln1)
             if spec.mixer == "mamba":
-                h = M.mamba_block(layer.mixer, h, self.cfg)
+                h = M.mamba_block(layer.mixer, L.gather_rows(h), self.cfg)
             else:
                 h = A.attention(layer.mixer, h, self.cfg, spec, positions)
-            x = self._cross(layer, x + h, enc_out)
+            x = self._cross(layer, L.residual(x, h), enc_out)
             x = self._mlp(layer, spec, x)
         return x
 
@@ -375,14 +377,15 @@ class LM(nn.Module):
         for layer, spec, cache in zip(self.layers, self.specs, caches):
             h = L.rms_norm(x, layer.ln1)
             if spec.mixer == "mamba":
-                h, _ = M.mamba_prefill(layer.mixer, h, cache, self.cfg)
+                h, _ = M.mamba_prefill(layer.mixer, L.gather_rows(h), cache,
+                                       self.cfg)
             else:
                 h, _ = A.prefill_into_cache(layer.mixer, h, cache, self.cfg,
                                             spec)
-            x = self._cross(layer, x + h, enc_out)
+            x = self._cross(layer, L.residual(x, h), enc_out)
             x = self._mlp(layer, spec, x)
         caches.enc_out = enc_out
-        return self._head(x[:, -1:])[:, 0], caches
+        return self._head(L.gather_rows(x)[:, -1:])[:, 0], caches
 
     @torch.no_grad()
     def decode_step(self, tokens: Tensor, caches: Caches, cur_pos: int

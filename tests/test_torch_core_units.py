@@ -28,6 +28,7 @@ from repro_torch.core import bloom as t_bloom  # noqa: E402
 from repro_torch.core import compression as t_bdi  # noqa: E402
 from repro_torch.core import extended_cache as t_ec  # noqa: E402
 from repro_torch.core import tag_store as t_ts  # noqa: E402
+from repro_torch.core import engine as t_engine  # noqa: E402
 
 
 def u32(x) -> np.ndarray:
@@ -63,7 +64,8 @@ def untouched(before, state):
 # ---------------------------------------------------------------- tag store
 
 def tag_store_pair(num_sets, ways):
-    return j_ts.make_state(num_sets, ways), t_ts.make_state(num_sets, ways)
+    return (j_ts.make_state(num_sets, ways),
+            t_ts.make_state(num_sets, ways, device="cpu"))
 
 
 def test_tag_store_miss_then_hit():
@@ -74,7 +76,7 @@ def test_tag_store_miss_then_hit():
     js, jins = j_ts.insert(js, jnp.int32(1), jnp.uint32(42))
     before = frozen(ts)
     ts, tins = t_ts.insert(ts, 1, 42)
-    untouched(before, t_ts.make_state(4, 4))
+    untouched(before, t_ts.make_state(4, 4, device="cpu"))
     assert not bool(tins.evicted_valid)
     assert int(tins.way) == int(jins.way)
     same_state(js, ts)
@@ -232,7 +234,7 @@ def ext_pair(num_sets, ways, compression):
     return (j_ec.make_state(num_sets=num_sets, ways=ways,
                             compression=compression),
             t_ec.make_state(num_sets=num_sets, ways=ways,
-                            compression=compression))
+                            compression=compression, device="cpu"))
 
 
 def ext_insert(pair, s, tag, size, budget, write=False):
@@ -316,7 +318,8 @@ def test_capacity_per_cache_chip_matches_reference():
 
 def bloom_pair(num_sets, assoc, **kw):
     return (j_bloom.make_state(num_sets=num_sets, associativity=assoc, **kw),
-            t_bloom.make_state(num_sets=num_sets, associativity=assoc, **kw))
+            t_bloom.make_state(num_sets=num_sets, associativity=assoc,
+                               device="cpu", **kw))
 
 
 def record(pair, s, tag):
@@ -401,7 +404,7 @@ def test_false_positive_rate_and_filter_width(filter_bytes):
         assert fp / len(probes) < max(
             3 * t_bloom.false_positive_rate(32, 32), 0.35)
     with pytest.raises(ValueError):
-        t_bloom.make_state(1, 4, filter_bytes=3)
+        t_bloom.make_state(1, 4, filter_bytes=3, device="cpu")
 
 
 # ------------------------------------------------- counting-BF ablation
@@ -409,7 +412,7 @@ def test_false_positive_rate_and_filter_width(filter_bytes):
 def test_counting_bloom_matches_reference_under_insert_and_remove():
     r = np.random.default_rng(3)
     js = j_bloom.make_counting_state(1, filter_bytes=128)
-    ts = t_bloom.make_counting_state(1, filter_bytes=128)
+    ts = t_bloom.make_counting_state(1, filter_bytes=128, device="cpu")
     resident: set = set()
     for _ in range(300):
         tag = int(r.integers(0, 1 << 20))
@@ -437,7 +440,7 @@ def test_counting_bloom_matches_reference_under_insert_and_remove():
 
 def test_counting_bloom_saturated_counters_stay():
     js = j_bloom.make_counting_state(1, filter_bytes=2)
-    ts = t_bloom.make_counting_state(1, filter_bytes=2)
+    ts = t_bloom.make_counting_state(1, filter_bytes=2, device="cpu")
     for _ in range(17):
         js = j_bloom.counting_insert(js, 0, jnp.uint32(5))
         ts = t_bloom.counting_insert(ts, 0, 5)
@@ -446,3 +449,21 @@ def test_counting_bloom_saturated_counters_stay():
         ts = t_bloom.counting_remove(ts, 0, 5)
     np.testing.assert_array_equal(ts.counters.numpy(), np.asarray(js.counters))
     assert int(ts.counters.max()) == 15
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: t_ts.make_state(4, 4, **kw),
+    lambda **kw: t_bloom.make_state(4, 8, **kw),
+    lambda **kw: t_bloom.make_counting_state(4, **kw),
+    lambda **kw: t_ec.make_state(4, 4, compression=True, **kw)],
+    ids=["tag_store", "bloom", "counting_bloom", "extended_cache"])
+def test_make_state_defaults_to_the_card(make):
+    """Each core state defaults to the card, as every entry point of the
+    port (``engine.resolve_device``): without one it raises, and
+    ``device="cpu"`` asks for the plain version."""
+    state = make(device="cpu")
+    assert all(t.device.type == "cpu" for t in state
+               if isinstance(t, torch.Tensor))
+    if not torch.cuda.is_available():
+        with pytest.raises(t_engine.BackendError):
+            make()

@@ -59,6 +59,9 @@ B, S, NEW, MAX_LEN = 2, 12, 4, 24     # the cache divides 2, 3 and 4
 MESHES = {4: [(1, 4), (2, 2)], 2: [(1, 2)]}
 GRAD_MESH = {a: [(1, 4), (2, 2), (1, 2)][i % 3] for i, a in enumerate(ARCHS)}
 CP = ("qwen2-vl-7b", (1, 3))          # 4 query heads on a model axis of 3
+# 8 experts on a model axis of 3: the reference's dense layer, replicated
+MOE_TP = ("deepseek-moe-16b", (1, 3))
+MOE_TOKENS, MOE_TOL = 48, dict(rtol=1e-5, atol=1e-5)
 CKPT = dict(arch="qwen3-4b", steps=3, batch=4, seq=16)
 CKPT_MESH = (2, 2)                    # moments ZeRO-1 sharded over data
 LR = 3e-4                             # train()'s default
@@ -120,7 +123,17 @@ def worlds(tp_ckpt_dir):
         yield {n: pool.submit(world.spawn, R.world_families, n, cases,
                               ckpt.get(n), device="cpu", timeout_s=600)
                for n, cases in ((4, world_cases(4)), (2, world_cases(2)),
-                                (3, [cp]))}
+                                (3, [cp, moe_tp_case()]))}
+
+
+def moe_tp_case() -> dict:
+    """``MOE_TP``'s family case, with ``MOE_TOKENS`` rows for its first
+    MoE layer alone."""
+    case = case_of(MOE_TP[0], [MOE_TP[1]], MOE_TP[1])
+    cfg = t_configs.get(MOE_TP[0]).reduced()
+    case["moe_x"] = np.random.default_rng(11).standard_normal(
+        (MOE_TOKENS, cfg.d_model)).astype(np.float32)
+    return case
 
 
 def result(worlds, arch: str, mesh) -> dict:
@@ -246,6 +259,51 @@ def test_context_parallel_prefill_decode_and_gradients(worlds, refs):
         assert r["flash_attention_q_start"] > 0
         assert r["flash_attention_backward_q_start"] > 0
     assert all(r["decode_attention_with_lse"] > 0 for r in runs)
+
+
+def test_moe_on_a_model_axis_that_does_not_divide_its_experts(worlds,
+                                                              refs):
+    """Reduced deepseek-moe-16b (8 experts) on (1, 3): the MoE layers run
+    the one-process layer on experts replicated over ``model`` (the
+    reference's ``_moe_mlp_dense``), its 4 query heads context-parallel;
+    forward, tokens, loss and gradients against the reference."""
+    arch, mesh = MOE_TP
+    got, want = result(worlds, arch, mesh), refs[arch]
+    np.testing.assert_allclose(got["forward"], want["forward"], **TOL)
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    np.testing.assert_allclose(got["step_logits"], want["step_logits"],
+                               **TOL)
+    loss_close(got["loss"], want)
+    grad_close(got["grads"], want["grads"], f"{arch} on {mesh}")
+
+
+def test_moe_layer_on_a_model_axis_of_3_is_the_references_dense_layer(
+        worlds, tmp_path):
+    """The MoE layer alone on (1, 3) against the reference's ``moe_mlp``
+    under its (1, 3) mesh of 3 host devices, on the same weights and
+    rows: within 1e-5."""
+    arch, mesh = MOE_TP
+    case = moe_tp_case()
+    layer = {n.split("/mlp/", 1)[1]: v[0] for n, v in t_flatten(case["tree"])
+             if n.startswith("blocks/l0/mlp/")}
+    src, dst = tmp_path / "in.npz", tmp_path / "out.npz"
+    np.savez(src, x=case["moe_x"], **{f"p/{k}": v for k, v in layer.items()})
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=3")
+    subprocess.run([sys.executable, str(ROOT / "tests" / "torch_gspmd_ref.py"),
+                    "moe", str(src), str(dst), arch], env=env, timeout=300,
+                   check=True, capture_output=True)
+    got = result(worlds, arch, mesh)["moe_y"]
+    np.testing.assert_allclose(got, np.load(dst)["y"], **MOE_TOL)
+
+
+def test_moe_fallback_counts_the_one_device_layer_on_every_chip():
+    """On a fake group of 3, ``count_cell`` counts reduced
+    deepseek-moe-16b's prefill on (1, 3), and its MoE layer costs every
+    chip the one-device layer's FLOPs (the experts replicated)."""
+    got = D.in_fake_world(3, R.moe_fallback_counts, MOE_TP[0], MOE_TOKENS, 3)
+    assert got["cell"] > 0
+    assert got["layer"] == got["layer_one"] > 0
 
 
 def test_sequence_sharded_cache_decodes_through_the_lse_merge(worlds):
@@ -386,15 +444,16 @@ PARITY = [("qwen3-4b", "prefill", 4, 16, None),
           ("qwen2-vl-7b", "train", 4, 512, (3, 1))]
 # the reference's per-chip FLOPs over the port's, on one footing, where
 # they differ (ROADMAP §C 9): the reference's expert FFN runs on
-# capacity buffers, the port's on the kept pairs (deepseek-moe); GSPMD
-# keeps the context-parallel rows sharded through wo and the MLP, the
-# port gathers them before wo (qwen2-vl); the training steps' extra
-# products the port counts (qwen3, deepseek-moe train)
+# capacity buffers, the port's on the kept pairs (deepseek-moe); qwen3
+# train: the MLP's weights are replicated (one block does not divide
+# the model axis) and so are its rows, and GSPMD splits the backward's
+# three weight-gradient products (x^T dgate, x^T dup, (a u)^T dy) over
+# ``model`` by F and all-gathers them, 262 144 FLOPs a chip each, where
+# every rank of the port computes each whole, 524 288: 786 432 more a
+# chip, the whole difference
 PINNED = {("qwen3-4b", "train"): 0.926829268,
           ("deepseek-moe-16b", "prefill"): 1.151898734,
-          ("deepseek-moe-16b", "train"): 1.116022099,
-          ("qwen2-vl-7b", "prefill"): 0.769369369,
-          ("qwen2-vl-7b", "train"): 0.822580645}
+          ("deepseek-moe-16b", "train"): 1.116022099}
 
 
 def dense_footing(cost: dict, b, h, s, t, hd, hdv) -> float:

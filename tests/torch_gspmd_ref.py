@@ -14,6 +14,11 @@ start), with the cases as JSON on the command line:
         '[["qwen3-4b", "prefill", 4, 16, null]]'
 
 and prints one JSON list of {"flops", "collective_by_kind"} per case.
+With ``moe IN.npz OUT.npz`` instead, on a host platform of 3 devices, it
+runs the reference's ``moe_mlp`` under a (1, 3) mesh (whose ``model``
+axis does not divide 8 experts: ``_moe_mlp_dense``, the expert stacks
+replicated by ``param_specs``) on IN's ``x`` and the layer's leaves
+(``p/<path>``), and writes the output ``y`` to OUT.
 A case is (arch, kind, global batch, sequence, heads): ``heads`` None
 keeps the reduced config's heads, else (num_heads, num_kv_heads) replaces
 them.
@@ -122,5 +127,32 @@ def main(cases):
     return [lower(mesh, *c) for c in cases]
 
 
+def moe_layer(src: str, dst: str, arch: str = "deepseek-moe-16b"):
+    import numpy as np
+    from repro.models import moe
+    data = dict(np.load(src))
+    p = {}
+    for key, v in data.items():
+        if key.startswith("p/"):
+            *path, leaf = key[2:].split("/")
+            d = p
+            for k in path:
+                d = d.setdefault(k, {})
+            d[leaf] = jnp.asarray(v)
+    auto = jax.sharding.AxisType.Auto
+    mesh = jax.make_mesh((1, 3), ("data", "model"), axis_types=(auto, auto))
+    cfg = configs.get(arch).reduced()
+    dist_ctx.set_mesh(mesh)
+    with mesh:
+        p = jax.device_put(p, named(mesh, shd.param_specs(p, mesh)))
+        y = jax.jit(lambda p, x: moe.moe_mlp(p, x, cfg))(
+            p, jnp.asarray(data["x"]))
+    dist_ctx.set_mesh(None)
+    np.savez(dst, y=np.asarray(y))
+
+
 if __name__ == "__main__":
-    print(json.dumps(main(json.loads(sys.argv[1]))))
+    if sys.argv[1] == "moe":
+        moe_layer(*sys.argv[2:])
+    else:
+        print(json.dumps(main(json.loads(sys.argv[1]))))

@@ -20,9 +20,10 @@ from repro_torch.distributed import sharding, tensor_parallel as tp
 from repro_torch.kernels import attention as att
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import make_dev_mesh
-from repro_torch.models import LM, params_from_numpy
+from repro_torch.models import LM, moe, params_from_numpy
 from repro_torch.models.weights import param_tree
 from repro_torch.pytree import flatten, from_parts
+from repro_torch.roofline import op_cost
 from repro_torch.train.loop import train
 
 
@@ -106,10 +107,51 @@ def family_on_mesh(case: dict, mesh) -> dict:
     att.reset_launches()
     out = serve(model, case["batch"], case["new"], case["max_len"])
     out["shards_ok"] = shards_are_local_params(model, case["tree"], mesh)
+    if "moe_x" in case:
+        out["moe_y"] = moe_layer(model, case["moe_x"], mesh)
     if tuple(mesh.shape) == case.get("grad_mesh"):
         out.update(loss_and_grads(model, case["train"]))
     out["plain_runs"] = dict(att.plain_runs)
     return out
+
+
+def moe_layer(model, x: np.ndarray, mesh) -> np.ndarray:
+    """The first MoE layer of ``model`` on ``x`` (tokens, D), the tokens
+    placed by ``batch_spec``; the output whole."""
+    layer = next(lay for lay, s in zip(model.layers, model.specs)
+                 if s.mlp == "moe")
+    with torch.no_grad(), model.mesh_context():
+        y = moe.moe_mlp(layer.mlp, tp.batch_input(torch.from_numpy(x), mesh),
+                        model.cfg)
+    return y.full_tensor().numpy()
+
+
+def moe_layer_counts(arch: str, tokens: int, mp: int) -> tuple:
+    """FLOPs of ``arch``'s first MoE layer on ``tokens`` rows: per chip of
+    a (1, ``mp``) mesh of the ``fake`` group this process is rank 0 of,
+    and on one device; both on ``meta``."""
+    cfg = config(arch)
+    x = torch.empty((tokens, cfg.d_model), device="meta")
+
+    def layer_flops(model, xin):
+        lay = next(m for m, s in zip(model.layers, model.specs)
+                   if s.mlp == "moe")
+        with model.mesh_context():
+            return op_cost.analyze(moe.moe_mlp, lay.mlp, xin, cfg).flops
+    mesh = make_dev_mesh(mp, device_type="cpu")
+    placed = tp.distribute_model(LM(cfg, device="meta"), mesh,
+                                 device="meta")
+    return (layer_flops(placed, tp.batch_input(x, mesh)),
+            layer_flops(LM(cfg, device="meta"), x))
+
+
+def moe_fallback_counts(arch: str, tokens: int, mp: int) -> dict:
+    """``moe_layer_counts`` and the per-chip count of a prefill cell of
+    ``arch`` (batch 4, S 16) on the same (1, ``mp``) mesh."""
+    mesh_flops, one_flops = moe_layer_counts(arch, tokens, mp)
+    cell = count_on_mesh([(arch, "prefill", 4, 16, None)], mp)[0]
+    return {"layer": mesh_flops, "layer_one": one_flops,
+            "cell": cell["flops"]}
 
 
 def train_resumed(case: dict, mesh, ckpt_dir: str) -> dict:
@@ -156,12 +198,13 @@ def world_families(rank: int, cases: list, ckpt=None) -> dict:
     return out
 
 
-def count_on_mesh(cases: list) -> list:
+def count_on_mesh(cases: list, mp: int = 2) -> list:
     """Per-chip counts of ``cases`` (arch, kind, batch, seq, heads) on a
-    (2, 2) mesh of the ``fake`` group this process is rank 0 of: the
-    model placed on ``meta`` by tensor parallelism, the step counted by
-    the op counter (``launch.dryrun.count_cell``)."""
-    mesh = make_dev_mesh(2, device_type="cpu")
+    (ranks / ``mp``, ``mp``) mesh of the ``fake`` group this process is
+    rank 0 of ((2, 2) in a group of 4): the model placed on ``meta`` by
+    tensor parallelism, the step counted by the op counter
+    (``launch.dryrun.count_cell``)."""
+    mesh = make_dev_mesh(mp, device_type="cpu")
     out = []
     for arch, kind, b, s, heads in cases:
         cfg = config(arch, heads)
