@@ -275,11 +275,40 @@ Phases (one line each; any failure exits non-zero and prints no result):
      launched, no plain version run.  Phase 22 (c) also runs
      deepseek-moe-16b's MoE layer at full width on (1, 3) (64 experts on
      an axis of 3: the dense fallback) against the one-process layer;
-  24. the ported kernels with their launches (phase 4 for the engine
+  24. the bf16 path, gemma3-27b as published (bf16; weights drawn on the
+     card, or for the golden cells by host threads meanwhile): (a) the
+     two cells of ``tests/data/torch_golden_bf16.json`` (full width, 2
+     and 8 layers, the second a prompt of 1040 tokens past the local
+     layers' 1024-row ring), each phase's logits held to the reference's
+     f32 oracle no further than 2 x the reference's bf16 run plus 1e-3 x
+     max |logit|, greedy tokens equal where the oracle's top-2 margin
+     exceeds 4 x the larger error; (b) all 62 layers (54.0 GB) served by
+     ``Engine``, 4 prompts of 2048 random tokens and 16 new, the same
+     round again, then ``Engine(morpheus=False)``: the tokens of the
+     three equal, each round's flash and decode launches the model's, all
+     of them on ``flash_kernel_bf16`` and ``decode_partial_kernel_tc``,
+     no plain version; layers 0, 7 and 61 of the first prefill against
+     their f32 twins on the card at the inputs the run gave them (within
+     2 x the reference's one-layer error of golden cell B plus 1e-3);
+     every attention call of the path against its plain version; prefill
+     s, decode ms a step, tokens/s, peak memory, the prefill's MFU
+     against ``roofline.op_cost``'s count at 989 TFLOP/s, the decode
+     step's share of its weights' bytes bound; (c) ``train.loop.train``
+     at 8 layers (4.71 B parameters, bf16 weights and gradients, f32
+     moments), batch 8 x 128, 8 steps, every flash forward and backward
+     on the bf16 kernels, then 2 layers (golden cell A's weights, the
+     reference's batch) for 3 AdamW steps in bf16, in f32 and in f32 with
+     the weights rounded to bf16 after each update: step 0's bf16 loss
+     against f32's and every step's against the bf16-storage run's within
+     2 x the CPU reference's step-0 bf16 loss error plus 1e-4; the bf16
+     backward at that shape against its plain version; ms a step,
+     tokens/s, MFU, peak memory;
+  25. the ported kernels with their launches (phase 4 for the engine
      scans, phases 14, 15 and 21 for their stateful twins, phase 7 for
-     the pool, phases 12, 16, 18 and 21 for attention, phases 18 and 21
-     for the flash backward, phase 22 for the options; each row's
-     launches in phase 23 beside them), errors, times and bounds (every
+     the pool, phases 12, 16, 18, 21 and 24 for attention, phases 18, 21
+     and 24 for the flash backward, phase 22 for the options; each row's
+     launches in phase 23 beside them, and phase 24's on the bf16
+     tensor-core kernels), errors, times and bounds (every
      bound from ``repro_torch.roofline.kernel_work``, the count the
      wrappers charge the op counter).
 
@@ -2939,11 +2968,22 @@ def want_launches(model, prefills: int, steps: int) -> dict:
     """The attention launches a run of ``prefills`` prefills and ``steps``
     decode steps makes: flash for each self-attention, encoder and cross
     layer a prefill and each cross layer a step, decode for each non-MLA
-    self-attention layer a step."""
+    self-attention layer a step.  In a bf16 model each of them runs the bf16
+    tensor-core kernel, ``flash_kernel_bf16`` (``flash_attention_bf16``)
+    and, where the heads allow it, ``decode_partial_kernel_tc``
+    (``decode_attention_tc``)."""
     from repro_torch.kernels import attention as att
     attn, mla, cross, enc = attention_layers(model)
-    return att_want(att, flash_attention=prefills * (attn + enc + cross)
-                    + steps * cross, decode_attention=steps * (attn - mla))
+    flash = prefills * (attn + enc + cross) + steps * cross
+    decode = steps * (attn - mla)
+    cfg = model.cfg
+    bf16 = model.dtype == torch.bfloat16
+    q = torch.empty((1, cfg.num_heads, cfg.resolved_head_dim),
+                    dtype=model.dtype, device="meta")
+    tc = bf16 and att.decode_on_tensor_cores(q, cfg.num_kv_heads)
+    return att_want(att, flash_attention=flash, decode_attention=decode,
+                    flash_attention_bf16=flash if bf16 else 0,
+                    decode_attention_tc=decode if tc else 0)
 
 
 class RoutingTap:
@@ -5204,6 +5244,525 @@ def phase_entry_scripts(env: Env, dev) -> dict:
     return out
 
 
+# ------------------------------------------------------- the bf16 path
+
+GOLDEN_BF16 = ROOT / "tests" / "data" / "torch_golden_bf16.json"
+BF16_ARCH = "gemma3-27b"         # as published: bf16, 62 layers
+BF16_LAYERS = 62
+BF16_SERVE = dict(batch=4, prompt=2048, new=16)   # the window of 1024 bites
+# (b): the layers held to their f32 twins, each by the CPU reference's
+# one-layer error of golden cell B's layer of its kind (a local prefix
+# layer; the global layer closing a block)
+BF16_TWINS = {0: "0", 7: "7", 61: "7"}
+BF16_TRAIN_LAYERS, BF16_TRAIN_STEPS = 8, 8      # (c): 4.71 B parameters
+BF16_TWIN_STEPS = 3              # (c): the 2-layer run against its f32 twin
+BF16_RATIO, BF16_FLOOR, BF16_GREEDY = 2.0, 1e-3, 4.0  # test_torch_bf16.py
+BF16_TREE_THREADS = 2            # host threads drawing cells A and B
+BF16_PEAK = 989e12               # the H100's dense bf16 tensor-core peak
+
+
+def bf16_config(env: Env, layers: int = 0):
+    """gemma3-27b as published (bf16), its depth cut to ``layers`` (0:
+    all 62)."""
+    cfg = env.configs.get(BF16_ARCH)
+    if cfg.param_dtype != "bfloat16":
+        fail(f"phase 24: {BF16_ARCH} is not bf16 ({cfg.param_dtype})")
+    if not layers:
+        return cfg
+    return dataclasses.replace(cfg, name=f"{cfg.name}-{layers}l",
+                               num_layers=layers)
+
+
+def bf16_want(env: Env, model, prefills: int, steps: int) -> dict:
+    """``want_launches`` of a bf16 model, with every flash launch on
+    ``flash_kernel_bf16`` and every decode on the tensor-core
+    ``decode_partial_kernel_tc``."""
+    want = want_launches(model, prefills, steps)
+    if want["flash_attention_bf16"] != want["flash_attention"] or \
+            want["decode_attention_tc"] != want["decode_attention"]:
+        fail(f"phase 24: {model.cfg.name} would not run the bf16 tensor-core "
+             f"kernels ({want})")
+    return want
+
+
+def weights_crc(tree) -> int:
+    """``tests/test_torch_golden_bf16.py``'s crc32 of a tree of host
+    tensors (each leaf's bf16 bits, ``pytree.flatten`` order)."""
+    from repro_torch.pytree import flatten
+    crc = 0
+    for _, t in flatten(tree):
+        a = t.contiguous().view(torch.int16).numpy()
+        crc = zlib.crc32(np.ascontiguousarray(a).view(np.uint8), crc)
+    return crc
+
+
+def bf16_hold_rows(rows: np.ndarray, cell: dict, batch: int, ctx: str
+                   ) -> dict:
+    """``tests/test_torch_golden_bf16.py``'s ``check_cell``: in each phase
+    (the prefill, each step) the port's largest |logit - oracle's| over
+    the stored indices at most BF16_RATIO x the reference's (the larger
+    lowering's) plus BF16_FLOOR x max |oracle|; greedy tokens equal where
+    the oracle's top-2 margin exceeds BF16_GREEDY x the row's larger
+    error."""
+    want = cell["rows"]
+    if len(rows) != len(want) or not np.isfinite(rows).all():
+        fail(f"{ctx}: {len(rows)} logits rows (golden {len(want)}) or not "
+             f"finite")
+    out, sure = {}, 0
+    for ph in range(len(want) // batch):
+        label = "prefill" if ph == 0 else f"step {ph - 1}"
+        p_err = r_err = top = 0.0
+        for i in range(ph * batch, (ph + 1) * batch):
+            w = want[i]
+            idx, o = np.asarray(w["top_idx"]), np.asarray(w["top_val"])
+            p_row = float(np.abs(rows[i][idx].astype(np.float64) - o).max())
+            r_row = max(float(np.abs(np.asarray(w[k]) - o).max())
+                        for k in ("bf16", "bf16_no_excess"))
+            p_err, r_err = max(p_err, p_row), max(r_err, r_row)
+            top = max(top, w["max_abs"])
+            if w["margin"] > BF16_GREEDY * max(p_row, r_row):
+                sure += 1
+                if int(np.argmax(rows[i])) != w["greedy"]:
+                    fail(f"{ctx} {label} row {i}: greedy "
+                         f"{int(np.argmax(rows[i]))}, the oracle's "
+                         f"{w['greedy']} (margin {w['margin']:.4g})")
+        lim = BF16_RATIO * r_err + BF16_FLOOR * top
+        if p_err > lim:
+            fail(f"{ctx} {label}: the port's bf16 is {p_err:.4g} from the "
+                 f"f32 oracle, the reference's {r_err:.4g} (limit "
+                 f"{lim:.4g})")
+        out[label] = [p_err, r_err, lim]
+    if not sure:
+        fail(f"{ctx}: no greedy token compared")
+    out["greedy_rows"] = sure
+    return out
+
+
+def bf16_golden_cell(env: Env, name: str, golden: dict, tree, dev) -> dict:
+    """(a) one cell of ``tests/data/torch_golden_bf16.json`` on the card:
+    the port's bf16 LM on the cell's weights (drawn by a host thread,
+    checked by their crc32), its prompts and the oracle's tokens."""
+    c, cell = golden["cells_config"][name], golden["cells"][name]
+    common = golden["common"]
+    cfg = bf16_config(env, c["num_layers"])
+    if cfg.param_count()[0] != cell["params"]:
+        fail(f"golden bf16 {name}: {cfg.param_count()[0]} parameters, "
+             f"golden {cell['params']}")
+    crc = weights_crc(tree)
+    if crc != cell["weights_crc32"]:
+        fail(f"golden bf16 {name}: weights crc32 {crc}, golden "
+             f"{cell['weights_crc32']}")
+    t0 = time.perf_counter()
+    model = env.models.LM(cfg, device=dev)
+    env.models.params_from_numpy(model, tree)
+    rng = np.random.default_rng(common["input_seed"])
+    prompts = rng.integers(0, cfg.vocab_size, (c["batch"], c["prompt"])
+                           ).astype(np.int32)
+    teacher = np.asarray(cell["teacher"], np.int32)
+    caches = model.init_caches(c["batch"], c["prompt"] + c["steps"])
+    logits, caches = model.prefill(
+        {"tokens": torch.from_numpy(prompts).to(dev)}, caches)
+    rows = [logits]
+    for t, tok in enumerate(teacher):
+        logits, caches = model.decode_step(torch.from_numpy(tok).to(dev),
+                                           caches, c["prompt"] + t)
+        rows.append(logits)
+    rows = torch.cat(rows).float().cpu().numpy()
+    out = {"params": cell["params"], "layers": c["num_layers"],
+           "batch": c["batch"], "prompt": c["prompt"],
+           "err": bf16_hold_rows(rows, cell, c["batch"],
+                                 f"golden bf16 {name}"),
+           "s": time.perf_counter() - t0}
+    del model, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+class LayerTap:
+    """While entered, keeps the input and output of the first
+    ``prefill_layer`` call of each layer in ``layers`` (an engine round's
+    prefill)."""
+
+    def __init__(self, model, layers):
+        self.model, self.layers, self.seen = model, set(layers), {}
+
+    def __enter__(self):
+        real = self.model.prefill_layer
+
+        def tap(li, x, cache, enc_out=None, layer=None):
+            y = real(li, x, cache, enc_out, layer)
+            if li in self.layers and li not in self.seen:
+                self.seen[li] = (x.detach().clone(), y.detach().clone())
+            return y
+        self.model.prefill_layer = tap
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.prefill_layer
+
+
+def bf16_twin(env: Env, model, li: int, x: torch.Tensor, y: torch.Tensor,
+              dev) -> float:
+    """Layer ``li``'s output error against its f32 twin on the card (the
+    layer's weights widened, an f32 cache, the f32 kernels) at the input
+    the bf16 run gave it, relative to the twin's largest |output|."""
+    W, A = env.models.weights, env.models.attention
+    cfg, spec = model.cfg, model.specs[li]
+    twin = env.models.transformer.Layer(
+        W.layer_inits(cfg, spec, cross=W.has_cross(cfg, li)), torch.float32,
+        dev)
+    for (n, p), (_, q) in zip(twin.named_parameters(),
+                              model.layers[li].named_parameters()):
+        p.data.copy_(q.data)
+    cache = A.init_kv_cache(cfg, spec, x.shape[0], x.shape[1],
+                            torch.float32, dev)
+    with torch.no_grad():
+        y32 = model.prefill_layer(li, x.float(), cache, None, layer=twin)
+    err = float((y.float() - y32).abs().max() / y32.abs().max())
+    del twin, cache, y32
+    return err
+
+
+def bf16_serving(env: Env, dev, golden: dict) -> dict:
+    """(b) gemma3-27b as published, all 62 layers in bf16 (weights drawn on
+    the card), served by ``Engine``: BF16_SERVE's prompts, the same round
+    again, then ``Engine(morpheus=False)``; the tokens of the three equal,
+    each round's attention launches the model's, every one of them on the
+    bf16 tensor-core kernels; layers 0, 7 and 61 of the first prefill
+    against their f32 twins; every attention call of the path against
+    its plain version."""
+    att, se = env.att, env.serving
+    cfg = bf16_config(env)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = env.models.LM(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    if len(model.layers) != BF16_LAYERS or model.dtype != torch.bfloat16:
+        fail(f"phase 24: not gemma3-27b as published ({cfg})")
+    b, s, new = BF16_SERVE["batch"], BF16_SERVE["prompt"], BF16_SERVE["new"]
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s))
+    max_len = s + new
+    eng = se.Engine(model, max_len=max_len)
+    rounds = [("round 1", eng), ("round 2", eng),
+              ("morpheus off", se.Engine(model, max_len=max_len,
+                                         morpheus=False))]
+    results = []
+    with StepTimer(model) as timer, LayerTap(model, BF16_TWINS) as tap, \
+            PathCalls(env.ops, ATT_WRAPPERS) as calls:
+        for name, e in rounds:
+            reqs = [se.Request(i, p.tolist(), new)
+                    for i, p in enumerate(prompts)]
+            att.reset_launches()
+            reused = e.pages_reused
+            timer.reset()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rep = e.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            got, plain = dict(att.launches), dict(att.plain_runs)
+            want = bf16_want(env, model, 1, rep.steps)
+            if got != want or any(plain.values()):
+                fail(f"phase 24 serving {name}: attention launches {got}, "
+                     f"expected {want}; plain runs {plain}")
+            results.append(dict(
+                round=name, wall_s=wall, prefill_s=timer.prefill_s,
+                decode_ms_step=1e3 * timer.decode_s / max(timer.steps, 1),
+                steps=rep.steps, tokens_per_s=rep.generated / wall,
+                pages_reused=e.pages_reused - reused, launches=got,
+                tokens=[r.out_tokens for r in reqs]))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    toks = [r.pop("tokens") for r in results]
+    if any(len(t) != new or min(t) < 0 or max(t) >= cfg.padded_vocab()
+           for t in toks[0]):
+        fail("phase 24 serving: tokens out of range or short")
+    if not toks[0] == toks[1] == toks[2]:
+        fail("phase 24 serving: tokens differ across round 1, round 2 and "
+             "Morpheus off")
+    if results[1]["pages_reused"] == 0:
+        fail("phase 24 serving: round 2 reused no page")
+    layer_err = golden["cells"]["B"]["layer_err"]
+    twins = {}
+    for li, ref in BF16_TWINS.items():
+        x, y = tap.seen.pop(li)
+        err = bf16_twin(env, model, li, x, y, dev)
+        lim = BF16_RATIO * layer_err[ref] + BF16_FLOOR
+        twins[li] = dict(err=err, ref_err=layer_err[ref], limit=lim,
+                         kind=model.specs[li].attn_kind)
+        if err > lim:
+            fail(f"phase 24 serving: layer {li} ({twins[li]['kind']}) is "
+                 f"{err:.4g} (relative) from its f32 twin, the reference's "
+                 f"layer {ref} {layer_err[ref]:.4g} on the CPU (limit "
+                 f"{lim:.4g})")
+        del x, y
+    del tap
+    from repro_torch.launch import dryrun as D
+    meta = env.models.LM(cfg, device="meta")
+    flops = D.count_prefill(meta, {"tokens": torch.empty(
+        (b, s), dtype=torch.int32, device="meta")},
+        meta.init_caches(b, max_len)).flops
+    prefill_s = float(np.median([r["prefill_s"] for r in results]))
+    decode_ms = float(np.median([r["decode_ms_step"] for r in results]))
+    bound_ms = weight_bytes / kernel_work().CHIP.hbm_Bps * 1e3
+    out = dict(arch=cfg.name, layers=len(model.layers), params=n_params,
+               weight_gb=weight_bytes / 1e9, init_s=init_s, peak_gb=peak_gb,
+               rounds=results, twins=twins, prefill_flops=flops, prefill_s=prefill_s,
+               prefill_mfu=flops / (prefill_s * BF16_PEAK),
+               decode_ms=decode_ms, decode_bound_ms=bound_ms,
+               decode_bound_share=bound_ms / decode_ms,
+               launches={k: sum(r["launches"][k] for r in results)
+                         for k in results[0]["launches"]})
+    del model, eng, rounds
+    torch.cuda.empty_cache()
+    # the path's calls replayed once the 54 GB model is freed: the plain
+    # flash at (4, 2048, 32, 128) holds GBs of logits
+    out["path"] = phase_attention_path(env, calls, "phase 24 (b): the bf16 "
+                                       "serving path")
+    return out
+
+
+def bf16_training(env: Env, dev, tree_a, golden: dict) -> dict:
+    """(c) bf16 training at full width: ``train.loop.train`` of
+    gemma3-27b at BF16_TRAIN_LAYERS layers (bf16 weights and gradients,
+    AdamW's f32 moments), launches from 0, every flash forward and
+    backward on the bf16 kernels; then ``bf16_twins``."""
+    from repro_torch.launch import dryrun as D
+    att = env.att
+    cfg = bf16_config(env, BF16_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    att.reset_launches()
+    losses, _, ms, _ = train_run(env, cfg, dev, BF16_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    counts, plain = dict(att.launches), dict(att.plain_runs)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    n, steps = BF16_TRAIN_LAYERS, BF16_TRAIN_STEPS
+    # every layer's forward once, the blocks' (not the prefix's) again in
+    # the backward (remat)
+    fwd = steps * (2 * n - len(cfg.prefix_layers))
+    want = att_want(att, flash_attention=fwd, flash_attention_bf16=fwd,
+                    flash_attention_backward=n * steps,
+                    flash_attention_backward_bf16=n * steps)
+    if counts != want or any(plain.values()):
+        fail(f"phase 24 training: attention launches {counts} (expected "
+             f"{want}), plain runs {plain}")
+    if not losses[-1] < losses[0]:
+        fail(f"phase 24 training: the loss did not fall ({losses})")
+    torch.cuda.empty_cache()
+    step_ms = float(np.median(ms[1:]))
+    t = torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                    device="meta")
+    flops = D.count_train(env.models.LM(cfg, device="meta"),
+                          {"tokens": t, "targets": t}).flops
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return dict(arch=cfg.name, params=cfg.param_count()[0], losses=losses,
+                step_ms=step_ms, first_step_ms=ms[0],
+                tokens_per_s=tokens / step_ms * 1e3, peak_gb=peak_gb,
+                flops=flops, mfu=flops / (step_ms * 1e-3 * BF16_PEAK),
+                launches=counts, twins=bf16_twins(env, dev, tree_a, golden))
+
+
+def bf16_twins(env: Env, dev, tree_a, golden: dict) -> dict:
+    """(c) golden cell A's model and weights (2 layers) trained
+    BF16_TWIN_STEPS AdamW steps (``train.loop.train``'s settings) on the
+    golden's batch three ways: in bf16; its f32 twin; and the f32 twin
+    with its weights rounded to bf16 after each update (bf16 storage, f32
+    compute), as a bf16 model's AdamW stores them (the reference's
+    rounds alike).  Step 0's loss (before any update) in bf16 against the
+    f32 twin's, and every step's against the bf16-storage twin's, within
+    BF16_RATIO x the CPU reference's step-0 bf16 loss error on the same
+    weights and batch (``train_cell``) plus 1e-4: bf16 compute.  The gap
+    to the pure f32 twin after updates is bf16 storage's, reported."""
+    tc = golden["train_cell"]
+    cfg = bf16_config(env, golden["cells_config"][tc["cell"]]["num_layers"])
+    batch = {k: torch.tensor(v, dtype=torch.int32, device=dev)
+             for k, v in tc["batch"].items()}
+    steps = BF16_TWIN_STEPS
+
+    def run(dtype: str, storage=None) -> list:
+        model = env.models.LM(dataclasses.replace(cfg, param_dtype=dtype),
+                              device=dev)
+        opt = env.optim.AdamW(
+            learning_rate=3e-4,
+            schedule=env.optim.cosine_with_warmup(min(20, steps // 10 + 1),
+                                                  steps))
+        state = env.train_step.init_state(model, opt, tree_a)
+        step = env.train_step.make_train_step(model, opt)
+        losses = []
+        for _ in range(steps):
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+            if storage is not None:
+                with torch.no_grad():
+                    for p in model.parameters():
+                        p.copy_(p.to(storage))
+        del model, state, step
+        torch.cuda.empty_cache()
+        return losses
+
+    l16 = run("bfloat16")
+    l32 = run("float32")
+    store = run("float32", torch.bfloat16)
+    lim = BF16_RATIO * tc["gap"] + 1e-4
+    compute = [abs(a - b) for a, b in zip(l16, store)]
+    if not all(math.isfinite(x) for x in l16 + l32 + store):
+        fail(f"phase 24 training twins: a loss is not finite ({l16}, {l32}, "
+             f"{store})")
+    if abs(l16[0] - l32[0]) > lim or max(compute) > lim:
+        fail(f"phase 24 training twins: bf16 losses {l16}, the f32 twin's "
+             f"{l32}, with bf16 storage {store} (limit {lim:.4g}: twice the "
+             f"CPU reference's step-0 bf16 error {tc['gap']:.4g})")
+    return dict(bf16=l16, f32=l32, f32_bf16_storage=store, limit=lim,
+                cpu_gap=tc["gap"], compute_diff=compute,
+                storage_diff=[abs(a - b) for a, b in zip(store, l32)],
+                f32_diff=[abs(a - b) for a, b in zip(l16, l32)],
+                reduced_gap=golden["train_gap"]["gap"])
+
+
+def bf16_backward_path(env: Env, dev) -> dict:
+    """The bf16 flash backward at (c)'s shape (B 8, S = T 128, H 32/16, hd
+    128, causal, a local layer's window 1024) against its plain version,
+    from the forward's log-sum-exp, timed with its bound and SDPA's
+    backward."""
+    att = env.att
+    rng = np.random.default_rng(24)
+    dt = torch.bfloat16
+    q = att_randn(rng, (TRAIN_BATCH, TRAIN_SEQ, 32, 128), dt, dev)
+    k, v = (att_randn(rng, (TRAIN_BATCH, TRAIN_SEQ, 16, 128), dt, dev)
+            for _ in range(2))
+    kw = dict(causal=True, window=1024, softcap=0.0, scale=None)
+    o, lse = att.flash_attention_with_lse(q, k, v, **kw)
+    do = att_randn(rng, tuple(o.shape), dt, dev)
+    err = max(att_close(g, w, BWD_TOL[dt], f"phase 24 bf16 backward {n}")
+              for n, g, w in zip("qkv", att.flash_attention_backward(
+                  q, k, v, o, do, lse, **kw),
+                  att.flash_attention_backward_plain(q, k, v, o, do, lse,
+                                                     **kw)))
+    out = dict(err=err, shape=[list(x.shape) for x in (q, k, v)],
+               **times(lambda: att.flash_attention_backward(
+                   q, k, v, o, do, lse, **kw),
+                   lambda: att.flash_attention_backward_plain(
+                       q, k, v, o, do, lse, **kw), 20, 3),
+               bound=bwd_bound(q, k, v, kw))
+    lib = sdpa_backward(q, k, v, do, kw)     # autograd: no graph
+    out["library_ms"] = timed_cuda(lib, 5)
+    return out
+
+
+def phase_bf16(env: Env, dev) -> dict:
+    """Phase 24: the bf16 path, gemma3-27b as published.  (a) the two
+    cells of ``tests/data/torch_golden_bf16.json``, whose weights host
+    threads draw meanwhile; (b) serving at 62 layers; (c) training at
+    BF16_TRAIN_LAYERS layers and the 2-layer runs against their f32
+    twins; and the bf16 backward at (c)'s shape against its plain
+    version."""
+    golden = json.loads(GOLDEN_BF16.read_text())
+    common = golden["common"]
+    t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(BF16_TREE_THREADS)
+    trees = {name: pool.submit(
+        env.models.seeded_params,
+        bf16_config(env, golden["cells_config"][name]["num_layers"]),
+        common["seed"]) for name in golden["cells"]}
+    serving = bf16_serving(env, dev, golden)
+    serve_s = time.perf_counter() - t0
+    cells = {name: bf16_golden_cell(env, name, golden,
+                                    trees[name].result(), dev)
+             for name in golden["cells"]}
+    tree_a = trees.pop("A").result()
+    trees.clear()
+    pool.shutdown()
+    training = bf16_training(env, dev, tree_a, golden)
+    del tree_a
+    backward = bf16_backward_path(env, dev)
+    wall = time.perf_counter() - t0
+    s, tr, tw = serving, training, training["twins"]
+    log("phase 24 (a): golden bf16 cells (gemma3-27b at full width, bf16) "
+        "on the card hold the f32 oracle as the reference does "
+        "(|port - oracle| <= 2 x |reference - oracle| + 1e-3 max|oracle| "
+        "a phase): " + "; ".join(
+            f"cell {n} ({c['layers']} layers, {c['params']} parameters, "
+            f"{c['batch']} x {c['prompt']}): " + ", ".join(
+                f"{k} {v[0]:.4g} (reference {v[1]:.4g}, limit {v[2]:.4g})"
+                for k, v in c["err"].items() if k != "greedy_rows")
+            + f", greedy rows compared {c['err']['greedy_rows']}, "
+            f"{c['s']:.1f} s" for n, c in cells.items()))
+    log(f"phase 24 (b): serving {s['arch']} as published ({s['layers']} "
+        f"layers, {s['params']} parameters, {s['weight_gb']:.2f} GB bf16, "
+        f"drawn on the card in {s['init_s']:.2f} s), {BF16_SERVE['batch']} x "
+        f"{BF16_SERVE['prompt']}-token prompts, {BF16_SERVE['new']} new "
+        f"tokens; round 1, round 2 and Morpheus off give the same tokens: "
+        + "; ".join(f"{r['round']} {r['wall_s']:.3f} s, prefill "
+                    f"{r['prefill_s']:.3f} s, decode {r['decode_ms_step']:.2f}"
+                    f" ms a step x {r['steps']}, {r['tokens_per_s']:.1f} "
+                    f"tokens/s, pages reused {r['pages_reused']}"
+                    for r in s["rounds"])
+        + f"; attention launches {json.dumps(s['launches'])}, plain runs 0; "
+        f"peak memory {s['peak_gb']:.2f} GB; prefill {s['prefill_flops']:.4g}"
+        f" FLOPs (op_cost) in {s['prefill_s']:.3f} s: MFU "
+        f"{s['prefill_mfu']:.3f} of 989 TFLOP/s; decode step "
+        f"{s['decode_ms']:.2f} ms against its weights' bytes bound "
+        f"{s['decode_bound_ms']:.2f} ms (share {s['decode_bound_share']:.3f}"
+        f"); layers against their f32 twins: " + ", ".join(
+            f"{li} ({t['kind']}) {t['err']:.4g} (the reference's "
+            f"{t['ref_err']:.4g}, limit {t['limit']:.4g})"
+            for li, t in s["twins"].items()))
+    log(f"phase 24 (c): training {tr['arch']} ({tr['params']} parameters, "
+        f"bf16, f32 moments) by train.loop.train, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}: loss {tr['losses'][0]:.4f} -> {tr['losses'][-1]:.4f}"
+        f" over {BF16_TRAIN_STEPS} steps, {tr['step_ms']:.1f} ms a step "
+        f"(median of steps 2-{BF16_TRAIN_STEPS}; the first "
+        f"{tr['first_step_ms']:.0f} ms), {tr['tokens_per_s']:.0f} tokens/s, "
+        f"MFU {tr['mfu']:.3f} ({tr['flops']:.4g} FLOPs a step, op_cost, at "
+        f"989 TFLOP/s), peak memory {tr['peak_gb']:.2f} GB; attention "
+        f"launches {json.dumps(tr['launches'])}, plain runs 0; 2 layers "
+        f"(cell A's weights, the reference's batch) {BF16_TWIN_STEPS} "
+        f"steps: bf16 {tw['bf16']}, the f32 twin {tw['f32']}, the f32 twin "
+        f"with bf16 storage {tw['f32_bf16_storage']}: bf16 compute "
+        f"(bf16 - storage twin; step 0 bf16 - f32) "
+        f"{max(tw['compute_diff']):.4g} (limit {tw['limit']:.4g}: twice "
+        f"the CPU reference's step-0 bf16 error {tw['cpu_gap']:.4g}), bf16 "
+        f"storage (storage twin - f32) {tw['storage_diff']}, bf16 - f32 "
+        f"{tw['f32_diff']} (the reduced config's bf16-f32 gap on the CPU "
+        f"{tw['reduced_gap']:.4g}); bf16 backward at (8, 128, "
+        f"32/16, 128) window 1024 == plain (max abs err "
+        f"{backward['err']:.3g}): {backward['ms']:.4f} ms on the card, "
+        f"plain {backward['plain_ms']:.4f} ms, SDPA "
+        + ("none" if backward["library_ms"] is None
+           else f"{backward['library_ms']:.4f} ms")
+        + f", bound {backward['bound'][0]:.4f} ms ({backward['bound'][1]}); "
+        f"phase {wall:.1f} s ({serve_s:.1f} s to the end of serving)")
+    return {"cells": cells, "serving": serving, "training": training,
+            "backward": backward, "wall_s": wall}
+
+
+def bf16_kernel_launches(kernels: list, bf16: dict) -> None:
+    """Phase 24's launches on the attention rows of the kernels line: the
+    bf16 serving and training paths, each counted from 0, and of them the
+    bf16 tensor-core instantiations'."""
+    paths = {"gemma3_bf16_serving": bf16["serving"]["launches"],
+             "gemma3_bf16_training": bf16["training"]["launches"]}
+    variants = {"decode_attention": "decode_attention_tc",
+                "flash_attention": "flash_attention_bf16",
+                "flash_attention_backward": "flash_attention_backward_bf16"}
+    for x in kernels:
+        v = variants.get(x["name"])
+        if v is None:
+            continue
+        for path, counts in paths.items():
+            x["launches_by_path"][path] = counts[x["name"]]
+            x["launches"] += counts[x["name"]]
+        x["launches_bf16_tensor_cores"] = {
+            path: counts[v] for path, counts in paths.items()}
+
+
 def tensor_parallel_kernel_rows(tpp: dict) -> list:
     """The kernel options' entries of the kernels line: launches of phase
     22's worlds, times at qwen2-vl-7b's context-parallel block (the rows
@@ -5592,6 +6151,7 @@ def main() -> int:
     multi = phase_multi_device(env, dev, fleet)
     tpp = phase_tensor_parallel(env, dev)
     entry = phase_entry_scripts(env, dev)
+    bf16 = phase_bf16(env, dev)
 
     if any(m in sys.modules for m in ("jax", "repro")):
         fail("the port imported jax or repro")
@@ -5630,7 +6190,8 @@ def main() -> int:
             c, ws = ENTRY_ROWS[x["name"]]
             x["launches_entry_scripts"] = sum(entry["launches"][c].get(w, 0)
                                               for w in ws)
-    log("phase 24: kernels " + ", ".join(
+    bf16_kernel_launches(kernels, bf16)
+    log("phase 25: kernels " + ", ".join(
         f"{x['name']} matched plain (max abs err {x['max_abs_err']:.3g}), "
         f"{x['ms']:.4g} ms on the card ({x['call_ms']:.4g} ms a call) vs "
         f"plain {x['plain_ms']:.4g} ms, bound {x['bound_ms']:.4g} ms "

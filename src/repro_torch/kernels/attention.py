@@ -104,9 +104,13 @@ DECODE_MAX_CHUNK = 256      # keys a decode block takes at most, as in C
 WRAPPERS = ("decode_attention", "decode_attention_with_lse",
             "flash_attention", "flash_attention_backward")
 # the launches (plain runs) of the two flash wrappers with a query offset
-# q_start > 0, counted in their wrapper's entry too
+# q_start > 0, and of the bf16 tensor-core kernels (``flash_kernel_bf16``,
+# ``decode_partial_kernel_tc`` from either decode wrapper, ``bwd_dq_bf16``
+# with ``bwd_dkdv_bf16``), each counted in its wrapper's entry too
 OFFSET_COUNTS = ("flash_attention_q_start",
-                 "flash_attention_backward_q_start")
+                 "flash_attention_backward_q_start",
+                 "flash_attention_bf16", "decode_attention_tc",
+                 "flash_attention_backward_bf16")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of each wrapper's kernel since the last ``reset_launches``,
@@ -186,6 +190,8 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     ``decode_attention_with_lse``."""
     plain_runs["decode_attention_with_lse" if with_lse
                else "decode_attention"] += 1
+    if decode_on_tensor_cores(q, k.shape[2]):
+        plain_runs["decode_attention_tc"] += 1
     b, h, hd = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, kvh, h // kvh, hd).float()
@@ -313,6 +319,8 @@ def _decode_attention(q, k, v, valid, softcap: float, with_lse: bool):
     _build.raise_on(err, "decode_attention")
     launches["decode_attention_with_lse" if with_lse
              else "decode_attention"] += 1
+    if decode_on_tensor_cores(q, kvh):
+        launches["decode_attention_tc"] += 1
     if res is not out:
         out.copy_(res[..., :hd])
     return (out, lse) if with_lse else out
@@ -328,7 +336,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     """Plain PyTorch version of ``flash_attention`` (the reference's
     ``kernels/ref.py::flash_attention``: the (B, KV, S, G, T) logits
     materialised)."""
-    _count(plain_runs, "flash_attention", q_start)
+    _count(plain_runs, "flash_attention", q_start, q.dtype)
     b, s, h, _ = q.shape
     logits, _, mask = _flash_logits(q, k, causal, window, softcap, scale,
                                     q_start)
@@ -337,10 +345,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, s, h, v.shape[3]).to(q.dtype)
 
 
-def _count(counts: Dict[str, int], name: str, q_start: int) -> None:
+def _count(counts: Dict[str, int], name: str, q_start: int,
+           dtype: torch.dtype) -> None:
     counts[name] += 1
     if q_start:
         counts[name + "_q_start"] += 1
+    if dtype == torch.bfloat16:
+        counts[name + "_bf16"] += 1
+
+
+def decode_on_tensor_cores(q: torch.Tensor, kvh: int) -> bool:
+    """Whether a decode launch on ``q`` (B, H, hd) over ``kvh`` KV heads
+    takes ``decode_partial_kernel_tc`` (``decode_attention_launch``'s
+    choice: bf16, at most 16 heads a group, the padded head dim a
+    multiple of 64)."""
+    hdp = q.shape[-1] + (-q.shape[-1] % HEAD_ALIGN)
+    return (q.dtype == torch.bfloat16 and q.shape[1] // kvh <= 16
+            and hdp % 64 == 0)
 
 
 def _flash_logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
@@ -499,7 +520,7 @@ def _flash_launch(q, k, v, *, causal: bool, window: int, softcap: float,
             s, t, h, kvh, hdp, hdvp, int(causal), int(window), int(q_start),
             float(softcap), scale, _build.stream(dev))
     _build.raise_on(err, "flash_attention")
-    _count(launches, "flash_attention", q_start)
+    _count(launches, "flash_attention", q_start, q.dtype)
     if res is not out:
         out.copy_(res[..., :hdv])
     return out, lse
@@ -521,7 +542,7 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     lse)`` from the forward's base-2 ``lse`` where given, 1/T over all
     keys in a row with no valid key), ``D = rowsum(dO * O)``, and the
     soft cap's derivative ``1 - tanh^2``."""
-    _count(plain_runs, "flash_attention_backward", q_start)
+    _count(plain_runs, "flash_attention_backward", q_start, q.dtype)
     b, s, h, hd = q.shape
     t, kvh, hdv = k.shape[1], k.shape[2], v.shape[3]
     g = h // kvh
@@ -614,7 +635,7 @@ def _backward_launch(q, k, v, o, dout, lse, *, causal: bool, window: int,
             hdp, hdvp, int(causal), int(window), int(q_start),
             float(softcap), scale, _build.stream(dev))
     _build.raise_on(err, "flash_attention_backward")
-    _count(launches, "flash_attention_backward", q_start)
+    _count(launches, "flash_attention_backward", q_start, q.dtype)
     for res, out in ((rq, dq), (rk, dk), (rv, dv)):
         if res is not out:
             out.copy_(res[..., :out.shape[-1]])

@@ -374,18 +374,28 @@ class LM(nn.Module):
         x, _ = self._embed_inputs(batch)
         enc_out = self._encode(batch)
         caches = caches if isinstance(caches, Caches) else Caches(caches)
-        for layer, spec, cache in zip(self.layers, self.specs, caches):
-            h = L.rms_norm(x, layer.ln1)
-            if spec.mixer == "mamba":
-                h, _ = M.mamba_prefill(layer.mixer, L.gather_rows(h), cache,
-                                       self.cfg)
-            else:
-                h, _ = A.prefill_into_cache(layer.mixer, h, cache, self.cfg,
-                                            spec)
-            x = self._cross(layer, L.residual(x, h), enc_out)
-            x = self._mlp(layer, spec, x)
+        for li, cache in enumerate(caches):
+            x = self.prefill_layer(li, x, cache, enc_out)
         caches.enc_out = enc_out
         return self._head(L.gather_rows(x)[:, -1:])[:, 0], caches
+
+    def prefill_layer(self, li: int, x: Tensor, cache, enc_out=None,
+                      layer: Optional[Layer] = None) -> Tensor:
+        """Decoder layer ``li`` of a prefill: its output for input ``x``
+        (B, S, D), its cache filled in place.  ``layer`` runs another
+        ``Layer`` of the same shapes in its place (an f32 twin of a bf16
+        layer, say)."""
+        layer = self.layers[li] if layer is None else layer
+        spec = self.specs[li]
+        h = L.rms_norm(x, layer.ln1)
+        if spec.mixer == "mamba":
+            h, _ = M.mamba_prefill(layer.mixer, L.gather_rows(h), cache,
+                                   self.cfg)
+        else:
+            h, _ = A.prefill_into_cache(layer.mixer, h, cache, self.cfg,
+                                        spec)
+        x = self._cross(layer, L.residual(x, h), enc_out)
+        return self._mlp(layer, spec, x)
 
     @torch.no_grad()
     def decode_step(self, tokens: Tensor, caches: Caches, cur_pos: int

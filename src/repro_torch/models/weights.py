@@ -14,7 +14,9 @@ reference's (in, out) weight layout, so no weight is transposed.
 
   * ``seeded_numpy_params(cfg, seed)`` builds such a tree with numpy
     alone, with the reference's distributions; the parity tests hand it
-    to both packages, and it needs no JAX.
+    to both packages, and it needs no JAX.  ``seeded_params(cfg, seed)``
+    is the same tree rounded to the config's dtype chunk by chunk, as
+    host tensors.
   * ``params_from_numpy(model, tree)`` loads a tree into the port (it
     unstacks the blocks); ``params_to_numpy(model)`` does the reverse.
   * ``param_tree(model)`` is the reference's tree over the model's own
@@ -24,7 +26,7 @@ reference's (in, out) weight layout, so no weight is transposed.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -111,17 +113,54 @@ def seeded_numpy_params(cfg: ArchConfig, seed: int = 0) -> dict:
     are drawn in tree order (top level, prefix layers, each
     block-pattern entry with its ``num_blocks`` repeats stacked on axis 0,
     then the encoder's layers and its final norm)."""
+    return _seeded_tree(cfg, seed, lambda init, a: a)
+
+
+# values drawn and rounded at a time by ``seeded_params``
+SEED_CHUNK = 1 << 24
+
+
+def seeded_params(cfg: ArchConfig, seed: int = 0) -> dict:
+    """``seeded_numpy_params``'s tree with each leaf a host tensor in the
+    config's dtype, or float32 where the reference keeps it so (the MoE
+    router, ``A_log``, ``dt_bias``): the same float32 draws, rounded
+    SEED_CHUNK values at a time, so that the float32 tree is never held
+    whole (gemma3-27b's 8 layers: 18.8 GB in float32, 9.4 GB in bf16).
+    One generator stream a draw gives the same values whatever the
+    chunks."""
+    dtype = L.dtype_of(cfg)
+    return _seeded_tree(cfg, seed, lambda init, a: torch.from_numpy(a).to(
+        init.dtype or dtype), SEED_CHUNK)
+
+
+def _seeded_tree(cfg: ArchConfig, seed: int, convert: Callable,
+                 chunk: Optional[int] = None) -> dict:
+    """The seeded tree, each drawn float32 array passed through
+    ``convert(init, array)``; with ``chunk``, drawn and converted that
+    many values at a time into the converted leaf."""
     rng = np.random.default_rng(seed)
 
-    def draw(init: L.Init, lead: Tuple[int, ...] = ()) -> np.ndarray:
+    def normal(shape, scale):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= np.float32(scale)
+        return a
+
+    def draw(init: L.Init, lead: Tuple[int, ...] = ()):
         shape = lead + tuple(init.shape)
         if init.scale is None:
-            return np.ones(shape, np.float32)
+            return convert(init, np.ones(shape, np.float32))
         if init.scale == 0:
-            return np.zeros(shape, np.float32)
-        a = rng.standard_normal(shape, dtype=np.float32)
-        a *= np.float32(init.scale)
-        return a
+            return convert(init, np.zeros(shape, np.float32))
+        n = int(np.prod(shape))
+        if chunk is None or n <= chunk:
+            return convert(init, normal(shape, init.scale))
+        first = convert(init, normal((chunk,), init.scale))
+        out = torch.empty(n, dtype=first.dtype)
+        out[:chunk] = first
+        for lo in range(chunk, n, chunk):
+            hi = min(n, lo + chunk)
+            out[lo:hi] = convert(init, normal((hi - lo,), init.scale))
+        return out.reshape(shape)
 
     tree = _map(top_inits(cfg), draw)
     tree["prefix"] = [_map(layer_inits(cfg, s), draw)
@@ -151,10 +190,13 @@ def layer_source(cfg: ArchConfig, li: int) -> Tuple[str, int]:
 
 
 def _load(param: torch.Tensor, arr) -> None:
-    a = np.asarray(arr)
-    if tuple(a.shape) != tuple(param.shape):
-        raise ValueError(f"shape {a.shape}, expected {tuple(param.shape)}")
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    if isinstance(arr, torch.Tensor):     # a host tensor (seeded_params)
+        t = arr.contiguous()
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(np.asarray(arr)))
+    if tuple(t.shape) != tuple(param.shape):
+        raise ValueError(f"shape {tuple(t.shape)}, expected "
+                         f"{tuple(param.shape)}")
     if param.device.type == "cpu" and t.dtype == param.dtype:
         param.data = t          # share the array's memory: no copy
     else:
@@ -189,9 +231,10 @@ def numpy_sources(model, tree: dict) -> Dict[int, object]:
 
 
 def params_from_numpy(model, tree: dict) -> None:
-    """Load the reference's parameter tree (numpy arrays) into ``model``
-    (a ``models.LM``), unstacking ``tree["blocks"]``.  On the CPU, in the
-    tree's dtype, the parameters share the arrays' memory."""
+    """Load the reference's parameter tree (numpy arrays, or host tensors
+    from ``seeded_params``) into ``model`` (a ``models.LM``), unstacking
+    ``tree["blocks"]``.  On the CPU, in the tree's dtype, the parameters
+    share the arrays' memory."""
     for param, arr in _sources(model, tree):
         _load(param, arr)
 

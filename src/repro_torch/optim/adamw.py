@@ -65,12 +65,10 @@ class AdamW:
     def update(self, grads: Tree, state: AdamWState, params: Tree
                ) -> Tuple[Tree, AdamWState]:
         step = state.step + 1
-        g_leaves = leaves(grads)
+        scale = None
         if self.clip_norm:
             gn = global_norm(grads)
             scale = torch.clamp(self.clip_norm / (gn + 1e-9), max=1.0)
-            g_leaves = [g.map(lambda x: x * scale.to(x.dtype))
-                        for g in g_leaves]
         b1, b2 = self.b1, self.b2
         step32 = _f32(step)
         c1 = float(1 - _f32(b1) ** step32)
@@ -82,21 +80,46 @@ class AdamW:
         decay = self.weight_decay
         for p_leaf, m_leaf, v_leaf, g_leaf in zip(
                 leaves(params), leaves(state.mu), leaves(state.nu),
-                g_leaves):
+                leaves(grads)):
+            if not p_leaf.parts:    # a block leaf of a depth with no block
+                continue            # repeat: nothing to update
             decayed = bool(decay) and p_leaf.ndim >= 2
-            for p, m, v, g in zip(p_leaf.parts, m_leaf.parts, v_leaf.parts,
-                                  g_leaf.parts):
-                g32 = g.float()
-                m32 = b1 * m.float() + (1 - b1) * g32
-                v32 = b2 * v.float() + (1 - b2) * torch.square(g32)
-                m.copy_(m32)
-                v.copy_(v32)
-                m32, v32 = m.float(), v.float()   # through moment_dtype
-                u = (m32 / c1) / (torch.sqrt(v32 / c2) + self.eps)
-                if decayed:
-                    u = u + decay * p.float()
-                p.copy_(p.float() - lr * u)
+            for part in zip(p_leaf.parts, m_leaf.parts, v_leaf.parts,
+                            g_leaf.parts):
+                for p, m, v, g in _chunks(*part):
+                    if scale is not None:       # clipped in g's dtype
+                        g = g * scale.to(g.dtype)
+                    g32 = g.float()
+                    m32 = b1 * m.float() + (1 - b1) * g32
+                    v32 = b2 * v.float() + (1 - b2) * torch.square(g32)
+                    m.copy_(m32)
+                    v.copy_(v32)
+                    m32, v32 = m.float(), v.float()  # through moment_dtype
+                    u = (m32 / c1) / (torch.sqrt(v32 / c2) + self.eps)
+                    if decayed:
+                        u = u + decay * p.float()
+                    p.copy_(p.float() - lr * u)
         return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
+
+
+# elements of a part updated at a time: the update's float32 temporaries
+# (a few copies of the chunk) stay small beside a large part, such as
+# gemma3-27b's 262 144 x 5376 embedding (5.6 GB in float32 a copy); the
+# update is elementwise, so the chunks give the same numbers
+UPDATE_CHUNK = 1 << 26
+
+
+def _chunks(p, m, v, g):
+    """(p, m, v, g) of one part, or flat views of it UPDATE_CHUNK
+    elements at a time where it is larger (and a contiguous local
+    tensor)."""
+    if p.numel() <= UPDATE_CHUNK or any(
+            tp.is_dtensor(x) or not x.is_contiguous() for x in (p, m, v)):
+        yield p, m, v, g
+        return
+    flat = [x.view(-1) for x in (p, m, v)] + [g.reshape(-1)]
+    for lo in range(0, p.numel(), UPDATE_CHUNK):
+        yield tuple(x[lo:lo + UPDATE_CHUNK] for x in flat)
 
 
 def zeros_like_part(p: torch.Tensor, dtype: torch.dtype, placements=None

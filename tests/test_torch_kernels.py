@@ -926,8 +926,9 @@ def test_lm_on_the_card_matches_the_cpu(cuda_device, local):
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
     assert torch.equal(outs[0].argmax(-1), outs[1].argmax(-1))
     n = len(models[0].layers)
-    assert att.launches == {"flash_attention": n, "decode_attention": 6 * n,
-                            "flash_attention_backward": 0}
+    want = dict.fromkeys(att.launches, 0)      # options and bf16 counts 0
+    want.update(flash_attention=n, decode_attention=6 * n)
+    assert att.launches == want
 
 
 # (atol, rtol) of the flash backward by input dtype: f32 the forward's
