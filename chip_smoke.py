@@ -302,7 +302,14 @@ Phases (one line each; any failure exits non-zero and prints no result):
      against f32's and every step's against the bf16-storage run's within
      2 x the CPU reference's step-0 bf16 loss error plus 1e-4; the bf16
      backward at that shape against its plain version; ms a step,
-     tokens/s, MFU, peak memory;
+     tokens/s, MFU, peak memory; (d) reduced jamba-1.5-large in bf16 at
+     the four tree seeds of ``tests/data/torch_golden_bf16_jamba.json``
+     (ROADMAP §C 12): the loss and every gradient leaf, flash forward
+     and backward on the bf16 kernels, against the port's f32 run on
+     the card (its experts replayed into the bf16 run), each leaf's
+     distance over the reference's CPU bf16 distance (the golden) at
+     most 2 at the median over the seeds, the loss within 2 x the
+     reference's distance a seed;
   25. the ported kernels with their launches (phase 4 for the engine
      scans, phases 14, 15 and 21 for their stateful twins, phase 7 for
      the pool, phases 12, 16, 18, 21 and 24 for attention, phases 18, 21
@@ -5656,6 +5663,209 @@ def bf16_backward_path(env: Env, dev) -> dict:
     return out
 
 
+GOLDEN_BF16_JAMBA = ROOT / "tests" / "data" / "torch_golden_bf16_jamba.json"
+
+
+class ExpertReplay:
+    """Teacher-forced routing (``tests/test_torch_bf16.py``'s ``Routing``)
+    for ``models.moe.route``: while recording, each MoE call's experts
+    (T, k), in call order; while replaying, each call takes the recorded
+    experts with its own gates."""
+
+    def __init__(self, moe):
+        self.moe, self.calls, self.next, self.record = moe, [], 0, True
+
+    def __call__(self, record: bool):
+        self.record, self.next = record, 0
+        if record:
+            self.calls = []
+        return self
+
+    def __enter__(self):
+        self.real = self.moe.route
+        self.moe.route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+    def _route(self, p, x2, cfg):
+        if self.record:
+            r = self.real(p, x2, cfg)
+            self.calls.append(r.expert.reshape(x2.shape[0], cfg.top_k))
+            return r
+        t, e, k, dev = x2.shape[0], cfg.num_experts, cfg.top_k, x2.device
+        idx = self.calls[self.next].to(dev)
+        self.next += 1
+        gates = torch.softmax(x2.float() @ p["router"], dim=-1)
+        w = torch.gather(gates, 1, idx)
+        w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+        e_flat = idx.reshape(-1)
+        order = torch.sort(e_flat, stable=True).indices
+        counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
+            0, e_flat, torch.ones_like(e_flat))
+        starts = torch.cumsum(counts, 0) - counts
+        pos = torch.empty_like(e_flat)
+        pos[order] = torch.arange(t * k, device=dev) - starts[e_flat[order]]
+        return self.moe.Routing(e_flat, w.reshape(-1), pos,
+                                pos < self.moe._capacity(t, cfg), gates)
+
+
+def loss_and_leaves(env: Env, model, batch: dict) -> tuple:
+    """(loss, {leaf path: its gradient's parts}) of ``model.loss`` without
+    remat (each MoE call routed once), leaves named as the reference's
+    tree."""
+    pt = env.models.weights.param_tree(model)
+    flat = env.pytree.parts(pt)
+    model.requires_grad_(True)
+    try:
+        loss = model.loss(batch, remat=False)
+        gs = torch.autograd.grad(loss, flat, allow_unused=True)
+    finally:
+        model.requires_grad_(False)
+    gs = [torch.zeros_like(p) if g is None else g for g, p in zip(gs, flat)]
+    tree = env.pytree.from_parts(pt, gs)
+    return float(loss.detach()), {n: leaf.parts for n, leaf in
+                                  env.pytree.flatten(tree)}
+
+
+def rel_fro(got: list, want: list) -> float:
+    """||got - want|| / ||want|| (Frobenius, float64) over a leaf's
+    parts."""
+    d = sum(float((g.double() - w.double()).pow(2).sum())
+            for g, w in zip(got, want))
+    n = sum(float(w.double().pow(2).sum()) for w in want)
+    return math.sqrt(d) / max(math.sqrt(n), 1e-30)
+
+
+def bf16_jamba(env: Env, dev) -> dict:
+    """(d) reduced jamba in bf16 on the card, ROADMAP §C 12's six leaves
+    included: at each tree seed of ``tests/data/torch_golden_bf16_jamba
+    .json`` (its weights checked by their crc32, its batch) the loss and
+    every gradient leaf of the bf16 LM (flash forward and backward on
+    the attention layers through the bf16 kernels, counted from 0)
+    against the port's float32 run on the same bf16-rounded weights,
+    whose experts each MoE call of the bf16 run takes (``ExpertReplay``),
+    and the six against the port's plain bf16 path on the host.  The
+    f32 loss within 1e-4 relative of the CPU reference's f32 oracle; the
+    bf16 loss within the golden's ratio x the reference's CPU bf16
+    distance plus its floor, a seed; every leaf, the six included, by
+    ``tests/test_torch_bf16.py``'s seed rule: the median over the seeds
+    of (distance on the card / the reference's on the CPU) at most the
+    ratio."""
+    att, M = env.att, env.models
+    g = json.loads(GOLDEN_BF16_JAMBA.read_text())
+    ratio = g["ratio"]
+    cfg16 = dataclasses.replace(env.configs.get(g["arch"]).reduced(),
+                                param_dtype=g["dtype"])
+    cfg32 = dataclasses.replace(cfg16, param_dtype="float32")
+    batch = {k: torch.tensor(v, dtype=torch.int32, device=dev)
+             for k, v in g["batch"].items()}
+    replay = ExpertReplay(M.moe)
+    n = sum(s.mixer == "attn" for s in cfg16._layers())   # one call a layer
+    want = att_want(att, flash_attention=n, flash_attention_bf16=n,
+                    flash_attention_backward=n,
+                    flash_attention_backward_bf16=n)
+    t0 = time.perf_counter()
+    seeds, launches = {}, {k: 0 for k in want}
+    for seed in g["seeds"]:
+        cell = g["cells"][str(seed)]
+        tree = M.seeded_params(cfg16, seed)
+        crc = weights_crc(tree)
+        if crc != cell["weights_crc32"]:
+            fail(f"phase 24 jamba seed {seed}: weights crc32 {crc}, golden "
+                 f"{cell['weights_crc32']}")
+        m16 = M.LM(cfg16, device=dev)
+        M.params_from_numpy(m16, tree)
+        m32 = M.LM(cfg32, device=dev)
+        for p, q in zip(m32.parameters(), m16.parameters()):
+            p.data.copy_(q.data)
+        with replay(record=True):
+            l32, g32 = loss_and_leaves(env, m32, batch)
+        # the port's plain path on the host: the same elementwise bf16
+        # roundings as the card's, the matmuls' and attention's sums not
+        host = M.LM(cfg16, device="cpu")
+        M.params_from_numpy(host, tree)
+        with replay(record=False):
+            _, g_host = loss_and_leaves(env, host, {
+                k: v.cpu() for k, v in batch.items()})
+        att.reset_launches()
+        with replay(record=False):
+            l16, g16 = loss_and_leaves(env, m16, batch)
+        torch.cuda.synchronize(dev)
+        got, plain = dict(att.launches), dict(att.plain_runs)
+        if got != want or any(plain.values()) or \
+                replay.next != len(replay.calls) or not replay.calls:
+            fail(f"phase 24 jamba seed {seed}: attention launches {got} "
+                 f"(expected {want}), plain runs {plain}, experts replayed "
+                 f"{replay.next} of {len(replay.calls)} MoE calls")
+        for k in launches:
+            launches[k] += got[k]
+        if sorted(g16) != sorted(cell["leaves"]):
+            fail(f"phase 24 jamba seed {seed}: leaves {sorted(g16)}")
+        oracle = cell["oracle_loss"]
+        r_loss = cell["loss"][1]
+        lim = ratio * r_loss + g["loss_floor"] * abs(oracle)
+        if not (math.isfinite(l16) and abs(l32 - oracle) <= 1e-4 * abs(oracle)
+                and abs(l16 - l32) <= lim):
+            fail(f"phase 24 jamba seed {seed}: bf16 loss {l16}, f32 {l32} "
+                 f"(the CPU oracle's {oracle}; limit {lim:.4g}: the "
+                 f"reference's bf16 distance {r_loss:.4g})")
+        leaves = {}
+        for k, parts in g16.items():
+            if not all(bool(torch.isfinite(x).all()) for x in parts):
+                fail(f"phase 24 jamba seed {seed}: {k}'s gradient is not "
+                     f"finite")
+            leaves[k] = rel_fro(parts, g32[k])
+        seeds[seed] = dict(
+            loss=[l16, l32, abs(l16 - l32), r_loss, lim], leaves=leaves,
+            host={k: rel_fro([x.cpu() for x in g16[k]], g_host[k])
+                  for k in g["six"]})
+        del m16, m32, host, g16, g32, g_host
+    ratios = {k: [seeds[s]["leaves"][k] / g["cells"][str(s)]["leaves"][k][1]
+                  for s in g["seeds"]] for k in g["cells"]["0"]["leaves"]}
+    med = {k: float(np.median(r)) for k, r in ratios.items()}
+    bad = {k: m for k, m in med.items() if m > ratio}
+    if bad:
+        fail(f"phase 24 jamba: median over tree seeds {g['seeds']} of the "
+             f"card's bf16 distance / the reference's CPU one above {ratio}"
+             f": {bad}")
+    others = [(r, s, k) for k, rs in ratios.items() if k not in g["six"]
+              for s, r in zip(g["seeds"], rs)]
+    return dict(seeds=seeds, six=g["six"], medians=med, launches=launches,
+                worst_other=max(others), golden=g["cells"],
+                s=time.perf_counter() - t0)
+
+
+def jamba_line(j: dict) -> str:
+    """Phase 24 (d)'s line of ``bf16_jamba``'s result."""
+    six, gold = j["six"], j["golden"]
+    cells = "; ".join(
+        f"tree seed {s}: loss {r['loss'][2]:.4g} (the reference's "
+        f"{r['loss'][3]:.4g}, limit {r['loss'][4]:.4g}), " + ", ".join(
+            f"{k.split('/')[-1]} {r['leaves'][k]:.4g} / "
+            f"{gold[str(s)]['leaves'][k][1]:.4g}" for k in six)
+        for s, r in j["seeds"].items())
+    medians = ", ".join(f"{k.split('/')[-1]} {j['medians'][k]:.3f}"
+                        for k in six)
+    other = max(m for k, m in j["medians"].items() if k not in six)
+    r, s, k = j["worst_other"]
+    host = ", ".join(f"seed {s} {min(x['host'].values()):.4g}-"
+                     f"{max(x['host'].values()):.4g}"
+                     for s, x in j["seeds"].items())
+    return ("phase 24 (d): reduced jamba in bf16, the loss and every "
+            "gradient leaf against the port's f32 run on the card (experts "
+            "replayed); relative Frobenius distance on the card / the "
+            "reference's bf16 distance from its f32 oracle on the CPU "
+            f"(golden), ROADMAP §C 12's six leaves: {cells}; medians over "
+            f"the seeds of the ratio: {medians} (limit {BF16_RATIO}), every "
+            f"other leaf's at most {other:.3f} (the largest ratio at one "
+            f"seed {r:.3f}, {k} at seed {s}); the six's card bf16 gradients "
+            "from the port's plain bf16 path on the host (the kernels' and "
+            f"cuBLAS's share): {host}; attention launches "
+            f"{json.dumps(j['launches'])}, plain runs 0; {j['s']:.1f} s")
+
+
 def phase_bf16(env: Env, dev) -> dict:
     """Phase 24: the bf16 path, gemma3-27b as published.  (a) the two
     cells of ``tests/data/torch_golden_bf16.json``, whose weights host
@@ -5682,6 +5892,7 @@ def phase_bf16(env: Env, dev) -> dict:
     training = bf16_training(env, dev, tree_a, golden)
     del tree_a
     backward = bf16_backward_path(env, dev)
+    jamba = bf16_jamba(env, dev)
     wall = time.perf_counter() - t0
     s, tr, tw = serving, training, training["twins"]
     log("phase 24 (a): golden bf16 cells (gemma3-27b at full width, bf16) "
@@ -5739,8 +5950,9 @@ def phase_bf16(env: Env, dev) -> dict:
            else f"{backward['library_ms']:.4f} ms")
         + f", bound {backward['bound'][0]:.4f} ms ({backward['bound'][1]}); "
         f"phase {wall:.1f} s ({serve_s:.1f} s to the end of serving)")
+    log(jamba_line(jamba))
     return {"cells": cells, "serving": serving, "training": training,
-            "backward": backward, "wall_s": wall}
+            "backward": backward, "jamba": jamba, "wall_s": wall}
 
 
 def bf16_kernel_launches(kernels: list, bf16: dict) -> None:
@@ -5748,7 +5960,8 @@ def bf16_kernel_launches(kernels: list, bf16: dict) -> None:
     bf16 serving and training paths, each counted from 0, and of them the
     bf16 tensor-core instantiations'."""
     paths = {"gemma3_bf16_serving": bf16["serving"]["launches"],
-             "gemma3_bf16_training": bf16["training"]["launches"]}
+             "gemma3_bf16_training": bf16["training"]["launches"],
+             "jamba_bf16_gradients": bf16["jamba"]["launches"]}
     variants = {"decode_attention": "decode_attention_tc",
                 "flash_attention": "flash_attention_bf16",
                 "flash_attention_backward": "flash_attention_backward_bf16"}
