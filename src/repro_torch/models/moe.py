@@ -62,6 +62,12 @@ with the shared experts' partial output added before the one
 all-reduce over ``model``.  The tokens are the rank's rows of the batch
 (its ``(pod, data)`` block), placed as the reference's whole batch
 (``global_batch``).
+
+With tracing on (``obs.enable()``) the one-process layer is a
+``moe.dispatch`` span (tag ``tokens``) holding ``moe.route`` (the router
+and the pairs' places), ``moe.readback`` (the segment lengths' read to
+the host, ``bytes``) and ``moe.experts`` (the loop over the experts, tag
+``segments``: the experts given at least one kept pair).
 """
 from __future__ import annotations
 
@@ -70,6 +76,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..configs.base import ArchConfig
 from ..distributed import collectives as C
 from ..distributed import context as dist_ctx
@@ -156,7 +163,10 @@ def expert_counts(key: Tensor, cfg: ArchConfig) -> list:
     which has no data, ``balanced_counts``."""
     if key.device.type == "meta":
         return balanced_counts(key.numel() // cfg.top_k, cfg)
-    return torch.bincount(key, minlength=cfg.num_experts + 1).tolist()
+    counts = torch.bincount(key, minlength=cfg.num_experts + 1)
+    with obs.span("moe.readback",
+                  bytes=counts.numel() * counts.element_size()):
+        return counts.tolist()
 
 
 def _batch_places(r: Routing, t: int, cfg: ArchConfig, mesh) -> Routing:
@@ -183,11 +193,12 @@ def _batch_places(r: Routing, t: int, cfg: ArchConfig, mesh) -> Routing:
 
 def _route(p, x2: Tensor, cfg: ArchConfig, mesh) -> Routing:
     """``route``, over the whole batch under ``context.global_batch``."""
-    r = route(p, x2, cfg)
-    if (mesh is not None and dist_ctx.global_batch()
-            and x2.device.type != "meta"):
-        r = _batch_places(r, x2.shape[0], cfg, mesh)
-    return r
+    with obs.span("moe.route"):
+        r = route(p, x2, cfg)
+        if (mesh is not None and dist_ctx.global_batch()
+                and x2.device.type != "meta"):
+            r = _batch_places(r, x2.shape[0], cfg, mesh)
+        return r
 
 
 def expert_parallel(cfg: ArchConfig, mesh) -> bool:
@@ -209,13 +220,14 @@ def moe_mlp(p, x: Tensor, cfg: ArchConfig) -> Tensor:
         return _moe_mlp_expert_parallel(p, x, cfg, mesh)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    r = _route(p, x2, cfg, mesh)
-    # the kept pairs by expert in queue order, the dropped ones last
-    key = torch.where(r.keep, r.expert, cfg.num_experts)
-    y = _experts(p, x2, r, key, expert_counts(key, cfg), cfg)
-    if "shared" in p:
-        y = y + L.dense_mlp(p["shared"], x2, cfg.act)
-    return y.reshape(shape)
+    with obs.span("moe.dispatch", tokens=x2.shape[0]):
+        r = _route(p, x2, cfg, mesh)
+        # the kept pairs by expert in queue order, the dropped ones last
+        key = torch.where(r.keep, r.expert, cfg.num_experts)
+        y = _experts(p, x2, r, key, expert_counts(key, cfg), cfg)
+        if "shared" in p:
+            y = y + L.dense_mlp(p["shared"], x2, cfg.act)
+        return y.reshape(shape)
 
 
 def _experts(p, x2: Tensor, r: Routing, key: Tensor, counts: list,
@@ -224,25 +236,29 @@ def _experts(p, x2: Tensor, r: Routing, key: Tensor, counts: list,
     ``key`` names an expert of ``p`` (key i: ``p["w_*"][i]``; ``counts``
     the segment lengths, the last the pairs left out), (T, D)."""
     t, k = x2.shape[0], cfg.top_k
-    rows = torch.sort(key, stable=True).indices
-    y_tok = torch.zeros((t * k, x2.shape[-1]), dtype=x2.dtype,
-                        device=x2.device)
-    start = 0
-    # under autograd every expert's matmuls run, an empty segment's too,
-    # so each expert weight gets a gradient (zero where no pair went):
-    # the ranks of a mesh then agree on which gradients exist
-    every = torch.is_grad_enabled()
-    for ex, n in enumerate(counts[:-1]):
-        if not n and not every:
-            continue
-        seg = rows[start:start + n]
-        start += n
-        xe = x2[seg // k]
-        a = xe @ p["w_gate"][ex]
-        a = F.silu(a) if cfg.act == "silu" else F.gelu(a, approximate="tanh")
-        y_tok[seg] = (a * (xe @ p["w_up"][ex])) @ p["w_down"][ex]
-    y_tok = y_tok * (r.weight * r.keep).to(y_tok.dtype)[:, None]
-    return y_tok.reshape(t, k, -1).sum(1)
+    with obs.span("moe.experts") as sp:
+        rows = torch.sort(key, stable=True).indices
+        y_tok = torch.zeros((t * k, x2.shape[-1]), dtype=x2.dtype,
+                            device=x2.device)
+        start = segments = 0
+        # under autograd every expert's matmuls run, an empty segment's
+        # too, so each expert weight gets a gradient (zero where no pair
+        # went): the ranks of a mesh then agree on which gradients exist
+        every = torch.is_grad_enabled()
+        for ex, n in enumerate(counts[:-1]):
+            if not n and not every:
+                continue
+            segments += n > 0
+            seg = rows[start:start + n]
+            start += n
+            xe = x2[seg // k]
+            a = xe @ p["w_gate"][ex]
+            a = (F.silu(a) if cfg.act == "silu"
+                 else F.gelu(a, approximate="tanh"))
+            y_tok[seg] = (a * (xe @ p["w_up"][ex])) @ p["w_down"][ex]
+        sp.set(segments=segments)
+        y_tok = y_tok * (r.weight * r.keep).to(y_tok.dtype)[:, None]
+        return y_tok.reshape(t, k, -1).sum(1)
 
 
 def _local_experts(p, e_lo: int, e_local: int, cfg: ArchConfig) -> dict:

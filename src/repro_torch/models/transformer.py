@@ -56,6 +56,7 @@ from torch import nn
 from torch.utils import _pytree as pytree
 from torch.utils import checkpoint as ckpt
 
+from .. import obs
 from ..configs.base import ArchConfig, LayerSpec
 from ..core.engine import resolve_device
 from ..distributed import tensor_parallel as tp
@@ -404,22 +405,26 @@ class LM(nn.Module):
         tokens (shared by the batch).  Updates the caches in place;
         returns (logits (B, V) f32, caches).  Caches without ``enc_out``
         skip the cross-attention blocks, as the reference's do."""
-        with self.mesh_context():
+        with obs.span("lm.decode_step"), self.mesh_context():
             logits, caches = self._decode_step(tokens, caches, cur_pos)
             return self._whole(logits), caches
 
     def _decode_step(self, tokens, caches, cur_pos):
         x = self._embed(tokens[:, None])
         enc_out = getattr(caches, "enc_out", None)
-        for layer, spec, cache in zip(self.layers, self.specs, caches):
-            h = L.rms_norm(x, layer.ln1)
-            if spec.mixer == "mamba":
-                h, _ = M.mamba_decode_step(layer.mixer, h, cache, self.cfg)
-            else:
-                h, _ = A.decode_attention(layer.mixer, h, cache,
-                                          int(cur_pos), self.cfg, spec)
-            x = self._cross(layer, x + h, enc_out)
-            x = self._mlp(layer, spec, x)
+        for li, (layer, spec, cache) in enumerate(
+                zip(self.layers, self.specs, caches)):
+            with obs.span("decode.attn", layer=li):
+                h = L.rms_norm(x, layer.ln1)
+                if spec.mixer == "mamba":
+                    h, _ = M.mamba_decode_step(layer.mixer, h, cache,
+                                               self.cfg)
+                else:
+                    h, _ = A.decode_attention(layer.mixer, h, cache,
+                                              int(cur_pos), self.cfg, spec)
+                x = self._cross(layer, x + h, enc_out)
+            with obs.span("decode.mlp", layer=li):
+                x = self._mlp(layer, spec, x)
         return self._head(x)[:, 0], caches
 
 

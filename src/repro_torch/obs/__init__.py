@@ -7,7 +7,19 @@ enabling them changes no simulator number, no governor decision, no
 deterministic artifact byte (tests/test_obs.py pins bit-identity):
 
   * ``trace``    — nestable spans -> Chrome/Perfetto trace-event JSON
-    (``obs.span("stream.step", ...)``; null-object fast path when off);
+    (``obs.span("stream.step", ...)``; null-object fast path when off),
+    with each closed span's ns, id and parent kept beside the events
+    (``Tracer.records``).  The runtime's spans (``stream.*``,
+    ``online.*``, ``fleet.*``, ``governor.decide``, ``tuner.generation``,
+    ``cache_sim.run_batch``) sit beside the serving path's
+    (``serve.batch`` with ``serve.consult``, ``serve.prefill``,
+    ``serve.decode_step`` and ``serve.readback``; the page pool's
+    ``pool.lookup``, ``pool.write`` and ``pool.readback``), the model's
+    (``lm.decode_step`` with ``decode.attn`` and ``decode.mlp``; the MoE
+    layer's ``moe.dispatch`` with ``moe.route``, ``moe.readback`` and
+    ``moe.experts``) and the train step's (``train.step`` with
+    ``train.forward``, ``train.backward`` and ``train.optimizer``, which
+    carry device edges on a card; ``train.all_reduce``);
   * ``metrics``  — process-global counters/gauges/histograms with
     Prometheus text + JSON snapshot export, including a build probe
     counting the port's ``nvcc`` kernel builds (``kernels/_build.py``);
@@ -36,7 +48,7 @@ from .decision import (ADMISSION_KINDS, TRIGGERS,  # noqa: F401
 from .inspect import Inspector, Snapshot  # noqa: F401
 from .metrics import (Registry, admission_counters,  # noqa: F401
                       bench_counters, count, observe, set_gauge)
-from .trace import NULL_SPAN, Span, Tracer  # noqa: F401
+from .trace import NULL_SPAN, Span, SpanRecord, Tracer  # noqa: F401
 
 _TRACER: Optional[Tracer] = None
 

@@ -1,13 +1,24 @@
 """Lightweight nestable spans exporting Chrome/Perfetto trace-event JSON
-(a copy of ``repro.obs.trace``).
+(a copy of ``repro.obs.trace``, with the span records below added).
 
 A ``Tracer`` collects complete ("ph": "X") events from ``span(...)``
 context managers and instant ("ph": "i") events from ``instant(...)``;
 ``to_chrome()``/``save()`` render the standard trace-event envelope that
 ``chrome://tracing`` and https://ui.perfetto.dev load directly.  Nesting
-needs no explicit parent links — the viewer reconstructs the stack from
-(ts, dur) containment per (pid, tid) track, and thread ids are mapped to
-small stable ints in first-seen order.
+needs no explicit parent links in the export — the viewer reconstructs
+the stack from (ts, dur) containment per (pid, tid) track, and thread ids
+are mapped to small stable ints in first-seen order.
+
+Beside the Chrome events, and not in them, the tracer keeps one
+``SpanRecord`` a closed span (``Tracer.records``): its start and end in
+integer ns of the clock, an id, and the id of the span open around it on
+the same thread (its parent), so a reader can walk the span tree without
+the viewer's containment rule.  ``span(...).on_device(device)`` also
+records the span's device edges where ``device`` is a CUDA device: a CUDA
+event on the device's current stream at enter and at exit, resolved to
+device milliseconds only when the record is read
+(``SpanRecord.device_ms``), so a span of work the host only enqueues
+times the device's share of it without waiting inside the span.
 
 The clock is injectable (``Tracer(clock=...)``, monotonic nanoseconds):
 tests drive a counting clock so exported traces are byte-deterministic,
@@ -22,40 +33,98 @@ budgets the total at <=2%, gated in CI).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 
 def _default_clock() -> int:
     return time.perf_counter_ns()
 
 
+class SpanRecord(NamedTuple):
+    """One closed span as ``Tracer.records`` keeps it: integer ns of the
+    tracer's clock, its id, its parent's id (None for a span opened
+    with no other open on its thread), its tags (the Chrome event's
+    ``args``), and its device edges (a CUDA event pair, or None)."""
+    name: str
+    t0: int
+    t1: int
+    id: int
+    parent: Optional[int]
+    tags: Dict
+    edges: Optional[tuple] = None
+
+    def device_ms(self) -> Optional[float]:
+        """Device ms between the span's edges on its stream, None without
+        edges.  Waits for the exit edge: read after the work is done."""
+        if self.edges is None:
+            return None
+        e0, e1 = self.edges
+        e1.synchronize()
+        return e0.elapsed_time(e1)
+
+
+def _cuda_edge(device):
+    """A timing CUDA event recorded on ``device``'s current stream."""
+    import torch
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
 class Span:
     """One live span; ``set(**tags)`` injects tags learned mid-span
-    (e.g. ``handoff`` only knows its flush count at the end)."""
+    (e.g. ``handoff`` only knows its flush count at the end);
+    ``on_device(device)`` asks for device edges before it is entered."""
 
-    __slots__ = ("_tracer", "name", "tags", "_t0")
+    __slots__ = ("_tracer", "name", "tags", "_t0", "_id", "_parent",
+                 "_stack", "_device", "_e0")
 
     def __init__(self, tracer: "Tracer", name: str, tags: Dict):
         self._tracer = tracer
         self.name = name
         self.tags = tags
         self._t0 = 0
+        self._device = None
 
     def set(self, **tags) -> "Span":
         self.tags.update(tags)
         return self
 
+    def on_device(self, device) -> "Span":
+        """Record device edges where ``device`` (a ``torch.device``) is a
+        CUDA device; any other device records none."""
+        if getattr(device, "type", None) == "cuda":
+            self._device = device
+        return self
+
     def __enter__(self) -> "Span":
-        self._t0 = self._tracer._clock()
+        tr = self._tracer
+        self._stack = stack = tr._stack()
+        self._id = i = next(tr._ids)
+        self._parent = stack[-1] if stack else None
+        stack.append(i)
+        self._t0 = tr._clock()
+        if self._device is not None:
+            self._e0 = _cuda_edge(self._device)
         return self
 
     def __exit__(self, *exc) -> bool:
-        self._tracer._complete(self.name, self._t0, self._tracer._clock(),
-                               self.tags)
+        tr = self._tracer
+        t1 = tr._clock()
+        edges = None
+        if self._device is not None:
+            edges = (self._e0, _cuda_edge(self._device))
+        self._stack.pop()
+        args = tr._complete(self.name, self._t0, t1, self.tags)
+        # flat, one object fewer a span for the garbage collector to walk;
+        # one extend is GIL-atomic, so two threads' fields never interleave
+        tr._fields.extend((self.name, self._t0, t1, self._id, self._parent,
+                           args, edges))
         return False
 
 
@@ -65,6 +134,9 @@ class _NullSpan:
     __slots__ = ()
 
     def set(self, **tags) -> "_NullSpan":
+        return self
+
+    def on_device(self, device) -> "_NullSpan":
         return self
 
     def __enter__(self) -> "_NullSpan":
@@ -86,8 +158,24 @@ class Tracer:
     def __init__(self, clock: Optional[Callable[[], int]] = None):
         self._clock = clock if clock is not None else _default_clock
         self.events: List[Dict] = []
+        self._fields: list = []      # SpanRecord fields, span after span
         self._tids: Dict[int, int] = {}
         self._lock = threading.Lock()
+        self._ids = itertools.count(1)
+        self._open = threading.local()
+
+    @property
+    def records(self) -> List[SpanRecord]:
+        """The closed spans, in the order they closed."""
+        f, n = self._fields, len(SpanRecord._fields)
+        return [SpanRecord(*f[i:i + n]) for i in range(0, len(f), n)]
+
+    def _stack(self) -> List[int]:
+        """The ids of this thread's open spans, innermost last."""
+        stack = getattr(self._open, "ids", None)
+        if stack is None:
+            stack = self._open.ids = []
+        return stack
 
     def _tid(self) -> int:
         ident = threading.get_ident()
@@ -100,11 +188,14 @@ class Tracer:
     def span(self, name: str, **tags) -> Span:
         return Span(self, name, tags)
 
-    def _complete(self, name: str, t0: int, t1: int, tags: Dict) -> None:
+    def _complete(self, name: str, t0: int, t1: int, tags: Dict) -> Dict:
+        """Append the span's Chrome event; returns its ``args``."""
+        args = dict(tags)
         self.events.append({
             "name": name, "ph": "X", "ts": t0 / 1e3,
             "dur": max(t1 - t0, 0) / 1e3,
-            "pid": 0, "tid": self._tid(), "args": dict(tags)})
+            "pid": 0, "tid": self._tid(), "args": args})
+        return args
 
     def instant(self, name: str, **args) -> None:
         self.events.append({

@@ -11,8 +11,14 @@ full prefill whatever the pool says.
 The structure is the reference's: one ``lookup_batch`` per page key, a
 payload digest installed by ``write_page`` on a backing fetch, then the
 model's prefill and a greedy decode loop that reads the next tokens back
-to the host once a step.  ``Engine(model, params)`` runs on the model's
-device: the CUDA card unless the model was built with ``device="cpu"``.
+to the host once a step (an MoE model's decode step adds one read-back a
+MoE layer, its experts' segment lengths: ``models.moe``).  With tracing
+on (``obs.enable()``) a batch is a ``serve.batch`` span holding
+``serve.consult`` (the page keys' pool calls), ``serve.prefill`` and one
+``serve.decode_step`` an iteration of the loop, whose ``serve.readback``
+is the read of the tokens (docs/observability.md).
+``Engine(model, params)`` runs on the model's device: the CUDA card
+unless the model was built with ``device="cpu"``.
 With the cache-content inspector on (``obs.enable(inspect=True)``) each
 consulted page key is noted with its request's tenant, as in the
 reference, so ``MorpheusPagePool.content_snapshot`` can attribute
@@ -98,6 +104,7 @@ class Engine:
             conv_sets=64, ext_sets_per_chip=32, ways=4), device=model.device)
         self.pages_reused = 0
         self.pages_fetched = 0
+        self.batches = 0
 
     # ------------------------------------------------------------- serving
     def run(self, requests: List[Request]) -> EngineReport:
@@ -106,52 +113,11 @@ class Engine:
         plen = len(requests[0].prompt)
         assert all(len(r.prompt) == plen for r in requests), \
             "demo engine batches equal-length prompts"
-
-        # ---- page-cache consultation for prompt KV (prefix caching)
-        n_pages = plen // PAGE_TOKENS
-        ins = obs.inspector()
-        for r in requests:
-            for pg in range(n_pages):
-                prefix = r.prompt[: (pg + 1) * PAGE_TOKENS]
-                key = page_key(_prefix_hash(prefix), 0, pg)
-                if ins is not None and r.tenant:
-                    # page keys carry no tenant bits; note ownership at
-                    # consult time so the pool's residency decode can
-                    # attribute resident pages back to tenants
-                    ins.note_owner(key, r.tenant)
-                plan = self.pool.lookup_batch(np.asarray([key], np.uint32))
-                if plan.tier[0] == 2:
-                    self.pages_fetched += 1   # backing fetch = recompute
-                    self.pool.write_page(key, page_payload(prefix))
-                else:
-                    self.pages_reused += 1
-
-        # ---- real prefill + decode
-        model = self.model
-        tokens = torch.tensor([r.prompt for r in requests],
-                              dtype=torch.int32, device=model.device)
-        caches = model.init_caches(b, self.max_len)
-        batch = {"tokens": tokens}
-        if model.cfg.is_encdec:
-            batch["frame_embeds"] = torch.zeros(
-                (b, 8, model.cfg.d_model), dtype=torch.float32,
-                device=model.device)
-        logits, caches = model.prefill(batch, caches)
-        steps = 0
-        cur = S.greedy(logits)
-        max_new = max(r.max_new_tokens for r in requests)
-        for t in range(max_new):
-            host = cur.tolist()                 # one host read a step
-            for i, r in enumerate(requests):
-                if not r.done:
-                    r.out_tokens.append(int(host[i]))
-                    r.done = len(r.out_tokens) >= r.max_new_tokens
-            if all(r.done for r in requests):
-                break
-            logits, caches = model.decode_step(cur, caches, plen + t)
-            cur = S.greedy(logits)
-            steps += 1
-
+        self.batches += 1
+        with obs.span("serve.batch", batch=self.batches,
+                      rids=[r.rid for r in requests], b=b,
+                      prompt_tokens=plen):
+            steps = self._serve(requests, plen)
         st = self.pool.stats
         return EngineReport(
             steps=steps,
@@ -163,3 +129,61 @@ class Engine:
             pred_miss=st.ext_pred_miss,
             false_pos=st.ext_false_pos,
         )
+
+    def _serve(self, requests: List[Request], plen: int) -> int:
+        """The batch's pool consultation, prefill and decode loop; returns
+        the decode steps run."""
+        b = len(requests)
+        # ---- page-cache consultation for prompt KV (prefix caching)
+        n_pages = plen // PAGE_TOKENS
+        ins = obs.inspector()
+        with obs.span("serve.consult", keys=len(requests) * n_pages):
+            for r in requests:
+                for pg in range(n_pages):
+                    prefix = r.prompt[: (pg + 1) * PAGE_TOKENS]
+                    key = page_key(_prefix_hash(prefix), 0, pg)
+                    if ins is not None and r.tenant:
+                        # page keys carry no tenant bits; note ownership
+                        # at consult time so the pool's residency decode
+                        # can attribute resident pages back to tenants
+                        ins.note_owner(key, r.tenant)
+                    plan = self.pool.lookup_batch(
+                        np.asarray([key], np.uint32))
+                    if plan.tier[0] == 2:
+                        self.pages_fetched += 1   # backing fetch = recompute
+                        self.pool.write_page(key, page_payload(prefix))
+                    else:
+                        self.pages_reused += 1
+
+        # ---- real prefill + decode
+        model = self.model
+        tokens = torch.tensor([r.prompt for r in requests],
+                              dtype=torch.int32, device=model.device)
+        caches = model.init_caches(b, self.max_len)
+        batch = {"tokens": tokens}
+        if model.cfg.is_encdec:
+            batch["frame_embeds"] = torch.zeros(
+                (b, 8, model.cfg.d_model), dtype=torch.float32,
+                device=model.device)
+        with obs.span("serve.prefill"):
+            logits, caches = model.prefill(batch, caches)
+        steps = 0
+        cur = S.greedy(logits)
+        max_new = max(r.max_new_tokens for r in requests)
+        for t in range(max_new):
+            with obs.span("serve.decode_step", t=t):
+                # the engine's one host read a step (an MoE model's step
+                # adds one a MoE layer)
+                with obs.span("serve.readback",
+                              bytes=cur.numel() * cur.element_size()):
+                    host = cur.tolist()
+                for i, r in enumerate(requests):
+                    if not r.done:
+                        r.out_tokens.append(int(host[i]))
+                        r.done = len(r.out_tokens) >= r.max_new_tokens
+                if all(r.done for r in requests):
+                    break
+                logits, caches = model.decode_step(cur, caches, plen + t)
+                cur = S.greedy(logits)
+                steps += 1
+        return steps

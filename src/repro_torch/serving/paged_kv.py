@@ -52,6 +52,14 @@ Behaviours of the reference that the port keeps on purpose:
     but filled once per occurrence, so one set can hold its tag twice;
   * a Bloom record ORs bf1's insert mask into both filters.
 
+With tracing on (``obs.enable()``) ``lookup_batch`` and ``write_page``
+are ``pool.lookup`` and ``pool.write`` spans (tags ``keys`` and ``tier``,
+the tier the keys route to: 0 conventional, 1 extended, -1 both), and
+each read of device state back to the host is a ``pool.readback`` span
+(``bytes``): one a conventional lookup, three an extended lookup that
+hits and five one that misses (the prediction, the extended tags and
+valid bits, the victim's two rows).
+
 ``TraceRecorder.save`` writes the recorded events through
 ``workloads.corpus``; ``MorpheusPagePool.content_snapshot`` decodes the
 pool's contents into an ``obs.inspect.Snapshot``.
@@ -64,7 +72,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import _u32
+from .. import _u32, obs
 from ..core import address_separation as asep
 from ..core.compression import UNCOMP
 from ..core.energy import TPUv5e
@@ -208,13 +216,15 @@ STATE_FIELDS = ("conv_tags", "conv_valid", "conv_lru", "ext_tags",
 
 def _host(t: torch.Tensor) -> np.ndarray:
     """The tensor as a host numpy array (int32 bit patterns stay int32;
-    for a CPU tensor a view: read it, do not keep it)."""
-    return t.cpu().numpy()
+    for a CPU tensor a view: read it, do not keep it): a
+    ``pool.readback`` span."""
+    with obs.span("pool.readback", bytes=t.numel() * t.element_size()):
+        return t.cpu().numpy()
 
 
 def _host_u32(t: torch.Tensor) -> np.ndarray:
     """``_host`` of an int32 bit-pattern tensor, viewed as uint32."""
-    return t.cpu().numpy().view(np.uint32)
+    return _host(t).view(np.uint32)
 
 
 def _i32(v: int) -> int:
@@ -293,10 +303,17 @@ class MorpheusPagePool:
     def lookup_batch(self, keys: np.ndarray) -> GatherPlan:
         """Route a batch of page keys; update predictor/tag state; account
         latency with the reference's serving-tier cost model."""
+        with obs.span("pool.lookup", keys=len(keys)) as sp:
+            return self._lookup(np.asarray(keys, np.uint32), sp)
+
+    def _lookup(self, keys: np.ndarray, sp) -> GatherPlan:
         cfg = self.cfg
         amap = cfg.amap
-        keys = np.asarray(keys, np.uint32)
         tier, local, tags = self._route(keys)
+        conv_mask = tier == asep.CONVENTIONAL
+        ext_mask = tier == asep.EXTENDED
+        conv_any, ext_any = bool(conv_mask.any()), bool(ext_mask.any())
+        sp.set(tier=-1 if conv_any and ext_any else int(ext_any))
 
         n = len(keys)
         out_tier = np.full(n, 2, np.int32)
@@ -309,8 +326,7 @@ class MorpheusPagePool:
 
         # ---- conventional tier: the batch's rounds and fills in one
         # lookup_fill over the full store, its records read back once
-        conv_mask = tier == asep.CONVENTIONAL
-        if conv_mask.any():
+        if conv_any:
             idx = np.nonzero(conv_mask)[0]
             rnd, hit, way, evicted, victim = _host(K.lookup_fill(
                 self.conv_tags, self.conv_valid, self.conv_lru, local[idx],
@@ -335,8 +351,7 @@ class MorpheusPagePool:
                     add["time_ns"] += c.local_hbm.miss_latency_ns
 
         # ---- extended tier: predictor -> remote lookup
-        ext_mask = tier == asep.EXTENDED
-        if ext_mask.any() and amap.ext_sets > 0:
+        if ext_any and amap.ext_sets > 0:
             idx = np.nonzero(ext_mask)[0]
             sets = local[idx]
             # predictor: one query of the batch's bf1 rows, read in place
@@ -400,16 +415,18 @@ class MorpheusPagePool:
         extended tier, the store write) after one copy of the key and a
         host payload to the device, and no read-back."""
         cfg = self.cfg
-        tier, local, tag = self._route(np.asarray([key], np.uint32))
-        page = self._words(payload_words)
-        if tier[0] == asep.CONVENTIONAL:
-            K.page_write(self.conv_tags, self.conv_valid, self.conv_data,
-                         None, None, local, tag, page)
-            return
-        comp = cfg.compression
-        K.page_write(self.ext_tags, self.ext_valid, self.ext_data,
-                     self.ext_level if comp else None,
-                     self.ext_base if comp else None, local, tag, page)
+        with obs.span("pool.write", keys=1) as sp:
+            tier, local, tag = self._route(np.asarray([key], np.uint32))
+            sp.set(tier=int(tier[0]))
+            page = self._words(payload_words)
+            if tier[0] == asep.CONVENTIONAL:
+                K.page_write(self.conv_tags, self.conv_valid, self.conv_data,
+                             None, None, local, tag, page)
+                return
+            comp = cfg.compression
+            K.page_write(self.ext_tags, self.ext_valid, self.ext_data,
+                         self.ext_level if comp else None,
+                         self.ext_base if comp else None, local, tag, page)
 
     def read_pages(self, plan: GatherPlan) -> torch.Tensor:
         """Gather hit pages per plan, as (N, page_words) int32 bit

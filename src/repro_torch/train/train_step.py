@@ -29,6 +29,14 @@ global mean, each gradient comes back in its parameter's placement (a
 compressor, the norm and AdamW run through DTensor's dispatch on each
 rank's shards (``init_state`` places the moments by ``opt_state_specs``
 with ZeRO-1).  ``metrics`` hold plain tensors.
+
+With tracing on (``obs.enable()``) a step is a ``train.step`` span (tag
+``tokens``) holding ``train.forward`` (``LM.loss``), ``train.backward``
+(the gradients) and ``train.optimizer`` (the clip norm and
+``AdamW.update``), one forward and backward a microbatch.  The step never
+waits on the device, so on a card these four spans also record device
+edges (``Span.on_device``), which give each phase's device time once the
+caller has synchronised.
 """
 from __future__ import annotations
 
@@ -125,21 +133,28 @@ def make_train_step(model: LM, optimizer: AdamW, *, microbatches: int = 1,
             "place the model with distributed.tensor_parallel."
             "distribute_model")
 
+    dev = model.device
+
+    def loss_and_grads(batch: Dict[str, torch.Tensor], flat: list
+                       ) -> Tuple[torch.Tensor, list]:
+        with obs.span("train.forward").on_device(dev):
+            loss = model.loss(batch, remat=remat)
+        with obs.span("train.backward").on_device(dev):
+            return loss.detach(), _grads(loss, flat)
+
     def grads_of(params: Tree, batch: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, list]:
         flat = parts(params)
         if microbatches == 1:
-            loss = model.loss(batch, remat=remat)
-            return loss.detach(), _grads(loss, flat)
+            return loss_and_grads(batch, flat)
         tot_loss = torch.zeros((), dtype=torch.float32, device=model.device)
         acc = None
         for i in range(microbatches):
             mb = {k: x[i * (x.shape[0] // microbatches):
                        (i + 1) * (x.shape[0] // microbatches)]
                   for k, x in batch.items()}
-            loss = model.loss(mb, remat=remat)
-            g = _grads(loss, flat)
-            tot_loss = tot_loss + loss.detach()
+            loss, g = loss_and_grads(mb, flat)
+            tot_loss = tot_loss + loss
             if acc is None:
                 acc = [x.float() for x in g]
             else:
@@ -149,7 +164,8 @@ def make_train_step(model: LM, optimizer: AdamW, *, microbatches: int = 1,
         return tot_loss * scale, [a * scale for a in acc]
 
     def step(state: TrainState, batch) -> Tuple[TrainState, dict]:
-        with model.mesh_context():
+        with obs.span("train.step", tokens=batch["tokens"].numel()
+                      ).on_device(dev), model.mesh_context():
             return _step(state, batch)
 
     def _step(state: TrainState, batch) -> Tuple[TrainState, dict]:
@@ -160,7 +176,7 @@ def make_train_step(model: LM, optimizer: AdamW, *, microbatches: int = 1,
         comp = state.comp
         if compressor is not None and comp is not None:
             grads, comp = compressor.roundtrip(grads, comp)
-        with torch.no_grad():
+        with torch.no_grad(), obs.span("train.optimizer").on_device(dev):
             gn = global_norm(grads)
             params, opt = optimizer.update(grads, state.opt, state.params)
         return (TrainState(params, opt, comp),
