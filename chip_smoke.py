@@ -15,8 +15,8 @@ Phases (one line each; any failure exits non-zero and prints no result):
      the kernel sources of ``src/repro_torch/kernels/csrc`` (one process
      each, all started together) with their ``-Xptxas -v`` reports
      (registers, shared memory, spills), summed up per kernel for the
-     engine-scan and attention kernels (the flash backward's may not
-     spill);
+     engine-scan, attention and grouped MoE kernels (the flash
+     backward's and the grouped MoE kernels' may not spill);
   2. kernel vs plain: batches of 16 ``cfd`` traces of 120 000 requests
      under predictor {BLOOM, NONE, PERFECT} x compression {off, on} and a
      conventional-only config (BL); each engine-scan kernel against its
@@ -159,7 +159,9 @@ Phases (one line each; any failure exits non-zero and prints no result):
      than one card); 4 prompts of 512 random tokens and 16 new tokens,
      the same round again, then ``Engine(morpheus=False)``: the tokens of
      the three equal, each round's flash and decode launches the
-     model's, no plain version; every attention call of that path, one
+     model's, its grouped MoE launches (``kernels.moe``, counts set to 0
+     before each round) one a decode step and MoE layer, no plain
+     version; every attention call of that path, one
      per input shape, against its plain version, timed with its bound
      and SDPA's time where SDPA computes the same function; the six
      golden cells of ``tests/data/torch_golden_substrates.json`` (each
@@ -167,7 +169,15 @@ Phases (one line each; any failure exits non-zero and prints no result):
      ``seeded_numpy_params`` drawn by host threads meanwhile): logits
      rows, qwen2-vl's M-RoPE forward rows and each MoE call's routing
      (expert sets where the top-k margin exceeds 1e-4, drops per expert)
-     held to the reference's;
+     held to the reference's, the grouped MoE launches one a decode step
+     and MoE layer; the grouped MoE decode kernels
+     (``grouped_experts``) against their plain version at
+     deepseek-moe-16b's expert widths (64 of 2048 x 1408, top-6; T 1, 8,
+     16 and 32, with and without a quarter of the pairs dropped, f32 and
+     bf16, gelu once) and at jamba-1.5-large's (16 of 8192 x 24576,
+     top-2, T 8), each row within 1e-5 (f32) or 2e-2 (bf16) of its
+     largest value, timed with their bound, the plain version's and the
+     segment loop's time;
   17. the flash backward (``csrc/attention_bwd.cu``: a dQ kernel, then a
      dK/dV kernel, reading the log-sum-exp the forward kept; bf16 on
      ``wgmma``, f32 register-tiled CUDA cores) against its plain version
@@ -313,7 +323,8 @@ Phases (one line each; any failure exits non-zero and prints no result):
   25. the ported kernels with their launches (phase 4 for the engine
      scans, phases 14, 15 and 21 for their stateful twins, phase 7 for
      the pool, phases 12, 16, 18, 21 and 24 for attention, phases 18, 21
-     and 24 for the flash backward, phase 22 for the options; each row's
+     and 24 for the flash backward, phase 22 for the options, phase 16
+     for the grouped MoE decode kernels; each row's
      launches in phase 23 beside them, and phase 24's on the bf16
      tensor-core kernels), errors, times and bounds (every
      bound from ``repro_torch.roofline.kernel_work``, the count the
@@ -347,7 +358,7 @@ GOLDEN_LM = ROOT / "tests" / "data" / "torch_golden_lm.json"
 GOLDEN_ONLINE = ROOT / "tests" / "data" / "torch_golden_online.json"
 GOLDEN_FLEET = ROOT / "tests" / "data" / "torch_golden_fleet.json"
 GOLDEN_TRAIN = ROOT / "tests" / "data" / "torch_golden_train.json"
-SOURCES = ("engine_scan", "pool", "attention", "attention_bwd")
+SOURCES = ("engine_scan", "pool", "attention", "attention_bwd", "moe")
 
 # The device ms of the engine-scan kernels at phase 2's timed shape before
 # their Hopper redesign, quoted from PERF.md (kernel table: NVIDIA H100
@@ -391,6 +402,7 @@ class Env:
         from repro_torch.core import cache_sim, controller, engine, policy
         from repro_torch.kernels import (_build, attention, engine_scan, ops,
                                          pool)
+        from repro_torch.kernels import moe as moe_kernels
         from repro_torch.serving import engine as serving_engine
         from repro_torch.serving import paged_kv
         from repro_torch import data, optim, pytree
@@ -413,6 +425,7 @@ class Env:
         self.policy, self.build, self.scan = policy, _build, engine_scan
         self.ops, self.pool, self.kv = ops, pool, paged_kv
         self.att, self.configs, self.models = attention, configs, models
+        self.mk = moe_kernels
         self.serving = serving_engine
         self.obs, self.governor, self.stream = obs, governor, stream
         self.bursty = bursty_workload
@@ -2960,6 +2973,25 @@ SUB_MARGIN = 1e-4            # MoE routing compared above this top-k margin
 # (c): gemma2-9b's decode step at SUB_BATCH x (SUB_PROMPT + SUB_NEW) keys
 SOFTCAP_DECODE = dict(b=SUB_BATCH, h=16, kvh=8, hd=256,
                       t=SUB_PROMPT + SUB_NEW, cap=50.0)
+# (d): the grouped MoE decode kernels (``kernels.moe.grouped_experts``) at
+# deepseek-moe-16b's expert widths (64 of 2048 x 1408, top-6) for a decode
+# step's tokens, with and without a quarter of the pairs dropped, f32 and
+# bf16 (and gelu once), and at jamba-1.5-large's (16 of 8192 x 24576,
+# top-2, 38.7 GB in f32); the kernels line's row at GROUPED_HEAD, the
+# benchmark's document cell's decode batch (f32, its own drops)
+GROUPED_CASES = (
+    [("deepseek-moe-16b", "silu", torch.float32, t, drop)
+     for t in (1, 8, 16, 32) for drop in (False, True)]
+    + [("deepseek-moe-16b", "gelu", torch.float32, 8, True)]
+    + [("deepseek-moe-16b", "silu", torch.bfloat16, t, drop)
+       for t in (1, 8, 16, 32) for drop in (False, True)]
+    + [("jamba-1.5-large-398b", "silu", torch.float32, 8, drop)
+       for drop in (False, True)])
+GROUPED_HEAD = ("deepseek-moe-16b", "silu", torch.float32, 8, False)
+# each row's largest error over its largest |plain| (the card tests'
+# limits, tests/test_torch_moe_grouped.py): f32 sums in another order; in
+# bf16 a rounding of an intermediate can flip, a few bf16 ulps of the row
+GROUPED_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
 def attention_layers(model) -> tuple:
@@ -2991,6 +3023,11 @@ def want_launches(model, prefills: int, steps: int) -> dict:
     return att_want(att, flash_attention=flash, decode_attention=decode,
                     flash_attention_bf16=flash if bf16 else 0,
                     decode_attention_tc=decode if tc else 0)
+
+
+def moe_layer_count(model) -> int:
+    """The model's layers whose MLP is the MoE layer (``models.moe``)."""
+    return sum(s.mlp == "moe" for s in model.specs)
 
 
 class RoutingTap:
@@ -3090,6 +3127,7 @@ def golden_substrate_cell(env: Env, arch: str, cell: dict, common: dict,
         if k in inputs:
             batch[k] = torch.from_numpy(inputs[k]).to(dev)
     s = common["prompt"]
+    env.mk.reset_launches()
     with RoutingTap(env.models.moe) as tap:
         caches = model.init_caches(common["batch"], s + common["steps"])
         logits, caches = model.prefill(batch, caches)
@@ -3099,12 +3137,18 @@ def golden_substrate_cell(env: Env, arch: str, cell: dict, common: dict,
                 torch.from_numpy(tok).to(dev), caches, s + t)
             rows.append(logits)
     rows = torch.cat(rows).float().cpu().numpy()
+    grouped = env.mk.launches["grouped_experts"]
+    if grouped != len(inputs["teacher"]) * moe_layer_count(model):
+        fail(f"golden {arch}: {grouped} grouped MoE launches, expected one "
+             f"a decode step and MoE layer ({len(inputs['teacher'])} x "
+             f"{moe_layer_count(model)}; the prefill takes the loop)")
     if rows.shape != (len(cell["rows"]), cfg.padded_vocab()) or \
             not np.isfinite(rows).all():
         fail(f"golden {arch}: logits {rows.shape} not finite or not of the "
              f"golden's shape")
     out = {"params": cell["params"], "rows": len(rows),
-           "err": check_golden_rows(rows, cell["rows"])}
+           "err": check_golden_rows(rows, cell["rows"]),
+           "grouped_launches": grouped}
     if cell["routing"]:
         out["routing"] = check_routing(tap.records, cell["routing"],
                                        f"golden {arch}")
@@ -3124,9 +3168,11 @@ def serve_family(env: Env, arch: str, depth, rng, dev) -> dict:
     """(b) one family served by ``Engine`` at full width, weights drawn on
     the card: a round of SUB_BATCH prompts of SUB_PROMPT random tokens and
     SUB_NEW new tokens, the same round again (pages reused), then on
-    ``Engine(morpheus=False)``; the tokens of the three must agree, and
-    each round's attention launches be the model's."""
-    att, se = env.att, env.serving
+    ``Engine(morpheus=False)``; the tokens of the three must agree, each
+    round's attention launches be the model's, and its grouped MoE
+    launches one a decode step and MoE layer (the prefill's
+    SUB_BATCH x SUB_PROMPT tokens take the segment loop)."""
+    att, se, mk = env.att, env.serving, env.mk
     cfg = env.configs.get(arch)
     if depth == "reduced":
         cfg = cfg.reduced()
@@ -3138,6 +3184,7 @@ def serve_family(env: Env, arch: str, depth, rng, dev) -> dict:
         torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    moe_layers = moe_layer_count(model)
     n_params = sum(p.numel() for p in model.parameters())
     weight_gb = sum(p.numel() * p.element_size()
                     for p in model.parameters()) / 1e9
@@ -3156,6 +3203,7 @@ def serve_family(env: Env, arch: str, depth, rng, dev) -> dict:
             reused = e.pages_reused
             timer.reset()
             torch.cuda.synchronize()
+            mk.reset_launches()
             t1 = time.perf_counter()
             rep = e.run(reqs)
             torch.cuda.synchronize()
@@ -3165,11 +3213,19 @@ def serve_family(env: Env, arch: str, depth, rng, dev) -> dict:
             if got != want:
                 fail(f"serving {cfg.name} {name}: attention launches {got}, "
                      f"expected {want}")
+            grouped = mk.launches["grouped_experts"]
+            if grouped != rep.steps * moe_layers or \
+                    mk.plain_runs["grouped_experts"]:
+                fail(f"serving {cfg.name} {name}: {grouped} grouped MoE "
+                     f"launches ({mk.plain_runs['grouped_experts']} plain "
+                     f"runs), expected {rep.steps} decode steps x "
+                     f"{moe_layers} MoE layers")
             results.append(dict(
                 round=name, wall_s=wall, prefill_s=timer.prefill_s,
                 decode_ms_step=1e3 * timer.decode_s / max(timer.steps, 1),
                 steps=rep.steps, tokens_per_s=rep.generated / wall,
                 pages_reused=e.pages_reused - reused, launches=got,
+                grouped_launches=grouped,
                 tokens=[r.out_tokens for r in reqs]))
     toks = [r.pop("tokens") for r in results]
     vocab = cfg.padded_vocab()
@@ -3182,6 +3238,7 @@ def serve_family(env: Env, arch: str, depth, rng, dev) -> dict:
     if results[1]["pages_reused"] == 0:
         fail(f"serving {cfg.name}: round 2 reused no page")
     out = dict(arch=cfg.name, layers=len(model.layers),
+               moe_layers=moe_layers,
                encoder_layers=len(model.encoder_layers), d_model=cfg.d_model,
                params=n_params, weight_gb=weight_gb, init_s=init_s,
                dtype=str(model.dtype).replace("torch.", ""), rounds=results)
@@ -3215,6 +3272,92 @@ def softcap_decode(env: Env, dev) -> dict:
                                                                    **kw),
                                 20, 3),
                         bound=attention_bound("decode_attention", args, kw))
+    return out
+
+
+def grouped_label(case) -> str:
+    arch, act, dt, t, drop = case
+    return (f"{arch.split('-')[0]} {act} {str(dt).replace('torch.', '')} "
+            f"T{t}" + (" drops" if drop else ""))
+
+
+def grouped_case(env: Env, p: dict, case, seed: int, dev) -> dict:
+    """One case of (d): ``t`` tokens of ``arch`` routed by its router;
+    ``drop`` drops a quarter of the pairs besides the capacity's.  The
+    kernel pair against its plain version (each row within GROUPED_TOL of
+    its largest |plain|; a row all of whose pairs were dropped is 0 on
+    both), then its device ms by CUDA-graph replay, its ms a call back to
+    back, the plain version's and the segment loop's
+    (``models.moe._experts`` with its read-back), and its bound."""
+    arch, act, dt, t, drop = case
+    mk, moe, kw = env.mk, env.models.moe, kernel_work()
+    cfg = dataclasses.replace(env.configs.get(arch), act=act)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        x2 = torch.randn((t, cfg.d_model), generator=gen, device=dev,
+                         dtype=dt)
+        r = moe.route(p, x2, cfg)
+        if drop:
+            r = r._replace(keep=r.keep & (torch.rand(
+                r.keep.shape, generator=gen, device=dev) > 0.25))
+        args = (x2, r.expert.contiguous(), r.weight, r.keep, p["w_gate"],
+                p["w_up"], p["w_down"], act)
+        got = mk.grouped_experts(*args).float()
+        want = mk.grouped_experts_plain(*args).float()
+        err = (got - want).abs()
+        row, top = err.amax(-1), want.abs().amax(-1)
+        if bool((row[top == 0] != 0).any()):
+            fail(f"grouped MoE {grouped_label(case)}: a row of dropped "
+                 "pairs is not 0")
+        rel = float((row[top > 0] / top[top > 0]).max()) \
+            if bool((top > 0).any()) else 0.0
+        if not rel <= GROUPED_TOL[dt]:
+            fail(f"grouped MoE {grouped_label(case)}: a row off by {rel:.3g}"
+                 f" of its largest value (limit {GROUPED_TOL[dt]})")
+        key = torch.where(r.keep, r.expert, cfg.num_experts)
+        heavy = arch.startswith("jamba")
+        out = dict(times(lambda: mk.grouped_experts(*args),
+                         lambda: mk.grouped_experts_plain(*args),
+                         4 if heavy else 20, 2 if heavy else 5,
+                         plain_on_graph=False),
+                   loop_ms=timed_cuda(lambda: moe._experts(
+                       p, x2, r, key, moe.expert_counts(key, cfg), cfg),
+                       2 if heavy else 5))
+    out.pop("library_ms")
+    kept = r.expert[r.keep]
+    return dict(out, err=float(err.max()), row_rel_err=rel,
+                pairs=r.expert.numel(), kept=int(kept.numel()),
+                experts_hit=int(torch.unique(kept).numel()),
+                bound=kw.bound_ms(kw.grouped_experts_work(
+                    x2, args[1], r.keep, p["w_gate"])),
+                shape=dict(tokens=t, top_k=cfg.top_k,
+                           experts=cfg.num_experts, d=cfg.d_model,
+                           f=cfg.moe_d_ff),
+                dtype=str(dt).replace("torch.", ""), act=act, drops=drop)
+
+
+def grouped_kernels(env: Env, dev) -> dict:
+    """(d) every case of GROUPED_CASES, the experts of each (arch, dtype)
+    drawn once on the card, as the tests draw them."""
+    out = {}
+    for i, (arch, dt) in enumerate(dict.fromkeys(
+            (c[0], c[2]) for c in GROUPED_CASES)):
+        cfg = env.configs.get(arch)
+        d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+        gen = torch.Generator(device=dev).manual_seed(i)
+
+        def draw(*shape, scale, dtype=dt):
+            return torch.randn(*shape, generator=gen, device=dev,
+                               dtype=dtype).mul_(scale)
+        p = {"router": draw(d, e, scale=d ** -0.5, dtype=torch.float32),
+             "w_gate": draw(e, d, f, scale=d ** -0.5),
+             "w_up": draw(e, d, f, scale=d ** -0.5),
+             "w_down": draw(e, f, d, scale=f ** -0.5)}
+        for j, case in enumerate(GROUPED_CASES):
+            if (case[0], case[2]) == (arch, dt):
+                out[case] = grouped_case(env, p, case, 100 * i + j, dev)
+        del p
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3265,6 +3408,11 @@ def phase_substrates(env: Env, dev) -> dict:
                                             dev)
         del tree
     pool.shutdown()
+    grouped = grouped_kernels(env, dev)
+    moe_launches = {
+        "families_serving": sum(r["grouped_launches"] for x in served
+                                for r in x["rounds"]),
+        "golden_cells": sum(c["grouped_launches"] for c in cells.values())}
     wall = time.perf_counter() - t0
     log("phase 16: golden cells (full width, 2 decoder layers) on the card "
         "match the reference's: " + "; ".join(
@@ -3290,8 +3438,25 @@ def phase_substrates(env: Env, dev) -> dict:
                 f"{r['decode_ms_step']:.2f} ms a step x {r['steps']}, "
                 f"{r['tokens_per_s']:.1f} tokens/s, launches "
                 f"{json.dumps(r['launches'])}" for r in s["rounds"])
+            + (f" (MoE grouped launches "
+               f"{[r['grouped_launches'] for r in s['rounds']]}: "
+               f"{s['moe_layers']} MoE layers a decode step)"
+               if s["moe_layers"] else "")
             for s in served)
-        + f"; attention launches {json.dumps(counts)}, plain runs 0")
+        + f"; attention launches {json.dumps(counts)}, plain runs 0; "
+        f"grouped MoE launches {json.dumps(moe_launches)}, plain runs 0")
+    log("phase 16: grouped MoE decode experts == plain (each row within "
+        f"{GROUPED_TOL[torch.float32]:g} (f32) / "
+        f"{GROUPED_TOL[torch.bfloat16]:g} (bf16) of its largest value): "
+        + "; ".join(
+            f"{grouped_label(c)} ({v['experts_hit']} experts hit, "
+            f"{v['kept']}/{v['pairs']} pairs kept): row err "
+            f"{v['row_rel_err']:.3g}, {v['ms']:.4f} ms on the card "
+            f"({v['call_ms']:.4f} a call), plain {v['plain_ms']:.4f} ms, "
+            f"segment loop {v['loop_ms']:.4f} ms, bound "
+            f"{v['bound'][0]:.4f} ms ({v['bound'][1]}, "
+            f"{100 * v['bound'][0] / v['ms']:.1f} %)"
+            for c, v in grouped.items()))
     log("phase 16: soft-capped decode (gemma2-9b, B "
         f"{SOFTCAP_DECODE['b']}, H {SOFTCAP_DECODE['h']}/"
         f"{SOFTCAP_DECODE['kvh']}, hd {SOFTCAP_DECODE['hd']}, T "
@@ -3302,7 +3467,8 @@ def phase_substrates(env: Env, dev) -> dict:
                     f"(no soft cap)" for k, v in softcap.items())
         + f"; phase {wall:.1f} s ({serve_s:.1f} s to the end of serving)")
     return {"launches": counts, "served": served, "cells": cells,
-            "softcap": softcap, "path": path, "wall_s": wall}
+            "softcap": softcap, "path": path, "grouped": grouped,
+            "moe_launches": moe_launches, "wall_s": wall}
 
 
 # ------------------------------------------------------ flash backward
@@ -5976,6 +6142,46 @@ def bf16_kernel_launches(kernels: list, bf16: dict) -> None:
             path: counts[v] for path, counts in paths.items()}
 
 
+def grouped_kernel_row(subs: dict, ptxas: dict) -> dict:
+    """The grouped MoE kernels' entry of the kernels line: launches of
+    phase 16's MoE families (the served decode steps and the golden
+    cells'), each counted from 0, times at GROUPED_HEAD and every case of
+    phase 16 (d)."""
+    g = subs["grouped"]
+    head = g[GROUPED_HEAD]
+
+    def timed(v):
+        return ({f: v[f] for f in ("shape", "dtype", "act", "drops",
+                                   "experts_hit", "kept", "pairs", "ms",
+                                   "call_ms", "plain_ms", "loop_ms",
+                                   "row_rel_err")}
+                | {"bound_ms": v["bound"][0], "bound_by": v["bound"][1]})
+    return {
+        "name": "grouped_experts", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe.cu",
+        "replaces": "src/repro/models/moe.py:_moe_mlp_dense",
+        "note": "no Pallas counterpart: the reference runs its experts as "
+                "einsums over an (E, capacity, D) buffer; the port's "
+                "decode-sized calls on a card take this pair in place of "
+                "its segment loop (models/moe.py:_experts, loop_ms)",
+        "kernel": "grouped_gate_up_kernel<T, R, GELU> + "
+                  "grouped_down_kernel<T, R> (R = 8, 16, 32 rows)",
+        "launches": sum(subs["moe_launches"].values()),
+        "launches_by_path": subs["moe_launches"],
+        "max_abs_err": max(v["err"] for v in g.values()),
+        "max_row_rel_err": {d: max(v["row_rel_err"] for v in g.values()
+                                   if v["dtype"] == d)
+                            for d in ("float32", "bfloat16")},
+        "ms": head["ms"], "call_ms": head["call_ms"],
+        "plain_ms": head["plain_ms"], "loop_ms": head["loop_ms"],
+        "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
+        "library_ms": None, "shape": head["shape"], "dtype": head["dtype"],
+        "experts_hit": head["experts_hit"],
+        "cases": {grouped_label(c): timed(v) for c, v in g.items()},
+        "ptxas": {k: v for k, v in ptxas.items()
+                  if k.startswith("grouped_")}}
+
+
 def tensor_parallel_kernel_rows(tpp: dict) -> list:
     """The kernel options' entries of the kernels line: launches of phase
     22's worlds, times at qwen2-vl-7b's context-parallel block (the rows
@@ -6273,7 +6479,8 @@ def ptxas_summary(log_text: str) -> dict:
                           r"bwd_dkdv_f32|"
                           r"decode_partial_kernel_tc|decode_partial_kernel|"
                           r"decode_combine_kernel|conv_scan_kernel|"
-                          r"ext_scan_kernel)"
+                          r"ext_scan_kernel|grouped_gate_up_kernel|"
+                          r"grouped_down_kernel)"
                           r"(?:(I.*?)?E[vP]|(?=ENS))", m.group(1))
             if k is None:
                 cur = None
@@ -6330,8 +6537,10 @@ def main() -> int:
     scan_ptxas = ptxas_summary(env.build.build_log("engine_scan"))
     att_ptxas = ptxas_summary(env.build.build_log("attention")
                               + env.build.build_log("attention_bwd"))
+    moe_ptxas = ptxas_summary(env.build.build_log("moe"))
     for what, summary in (("engine-scan", scan_ptxas),
-                          ("attention", att_ptxas)):
+                          ("attention", att_ptxas),
+                          ("grouped MoE", moe_ptxas)):
         log(f"phase 1: {what} kernels (ptxas): " + "; ".join(
             f"{k}: {v['registers']} registers, {v['spill_stores']} B spill "
             f"stores, {v['spill_loads']} B spill loads"
@@ -6341,6 +6550,12 @@ def main() -> int:
     if spills or not any(k.startswith("bwd_") for k in att_ptxas):
         fail(f"the flash backward kernels spill ({spills}) or are missing "
              "from the ptxas report")
+    spills = [k for k, v in moe_ptxas.items()
+              if v["spill_stores"] or v["spill_loads"]]
+    # 2 dtypes x 3 row counts x (gate/up with 2 activations, down)
+    if spills or len(moe_ptxas) != 18:
+        fail(f"the grouped MoE kernels spill ({spills}) or are not all in "
+             f"the ptxas report ({sorted(moe_ptxas)})")
 
     k = phase_kernels(env, dev)
     phase_golden(env, dev)
@@ -6398,6 +6613,7 @@ def main() -> int:
         bwd, training, multi,
         ptxas_summary(env.build.build_log("attention_bwd"))))
     kernels += tensor_parallel_kernel_rows(tpp)
+    kernels.append(grouped_kernel_row(subs, moe_ptxas))
     for x in kernels:
         if x["name"] in ENTRY_ROWS:
             c, ws = ENTRY_ROWS[x["name"]]

@@ -15,12 +15,22 @@ The reference scatters every pair into an (E, capacity, D) buffer and runs
 each expert's matmuls over its whole buffer.  Dropless archs
 (``capacity_factor`` 0, deepseek-v2-lite) have capacity = tokens, so that
 buffer is (64, T, D) and its matmuls 64x the routed work.  The port
-computes the same function on the kept pairs alone: they are sorted by
-expert (stably, so each expert's rows stay in queue order) and each
-expert's matmuls run on its segment.  The segments' lengths are read back
-to the host once a call; on ``meta`` (the op counter's shapes-only run)
-there is nothing to read, and each expert takes a balanced router's
-segment (``balanced_counts``).
+computes the same function on the kept pairs alone, by one of two paths
+that the one-process layer chooses from its input (``grouped_path``):
+
+  * a decode-sized call on a CUDA card without autograd (at most
+    ``kernels.moe.MAX_TOKENS`` tokens, f32 or bf16) runs the routed
+    experts as the grouped kernel pair ``kernels.moe.grouped_experts``:
+    two launches that read the routing on the card, each expert hit
+    streamed once, nothing read back;
+  * every other call (prefill, training under autograd, where every
+    expert needs a gradient, ``meta``, the CPU) takes the segment loop:
+    the kept pairs are sorted by expert (stably, so each expert's rows
+    stay in queue order) and each expert's matmuls run on its segment.
+    The segments' lengths are read back to the host once a call; on
+    ``meta`` (the op counter's shapes-only run) there is nothing to read,
+    and each expert takes a balanced router's segment
+    (``balanced_counts``).
 
 Expert parallelism (the reference's ``_moe_mlp_shardmap``,
 ``moe.py:172-210``): when the ambient mesh (``distributed.context``) has
@@ -65,9 +75,12 @@ all-reduce over ``model``.  The tokens are the rank's rows of the batch
 
 With tracing on (``obs.enable()``) the one-process layer is a
 ``moe.dispatch`` span (tag ``tokens``) holding ``moe.route`` (the router
-and the pairs' places), ``moe.readback`` (the segment lengths' read to
-the host, ``bytes``) and ``moe.experts`` (the loop over the experts, tag
-``segments``: the experts given at least one kept pair).
+and the pairs' places), then on the segment loop ``moe.readback`` (the
+segment lengths' read to the host, ``bytes``) and ``moe.experts`` (the
+loop over the experts, tag ``segments``: the experts given at least one
+kept pair), or on the grouped path ``moe.grouped`` (the kernel pair and
+the combine, tags ``tokens`` and ``pairs``: T and T * k; the experts hit
+are never read, so it claims no count of them).
 """
 from __future__ import annotations
 
@@ -83,6 +96,7 @@ from ..distributed import context as dist_ctx
 from ..distributed import sharding as shd
 from ..distributed import tensor_parallel as tp
 from ..distributed.tensor_parallel import Replicate, Shard
+from ..kernels import moe as MK
 from . import layers as L
 
 Tensor = torch.Tensor
@@ -210,6 +224,19 @@ def expert_parallel(cfg: ArchConfig, mesh) -> bool:
     return m is not None and cfg.num_experts % m == 0
 
 
+def grouped_path(device: torch.device, tokens: int, dtype: torch.dtype,
+                 cfg: ArchConfig) -> bool:
+    """Whether the one-process layer runs its routed experts as the
+    grouped kernel pair (``kernels.moe.grouped_experts``) on a call of
+    ``tokens`` tokens of ``dtype`` on ``device``: a CUDA device, autograd
+    off (training needs every expert's gradient, which the loop gives),
+    and a call the kernels take (at most ``MAX_TOKENS`` tokens, a decode
+    step's, f32 or bf16, ``kernels.moe.fits``).  Every other call takes
+    the segment loop (``_experts``)."""
+    return (device.type == "cuda" and not torch.is_grad_enabled()
+            and MK.fits(tokens, cfg.top_k, dtype, cfg.d_model, cfg.moe_d_ff))
+
+
 def moe_mlp(p, x: Tensor, cfg: ArchConfig) -> Tensor:
     """x (..., D) -> (..., D) in x's dtype; expert-parallel under an
     ambient mesh with a ``model`` axis that divides ``num_experts``."""
@@ -222,9 +249,17 @@ def moe_mlp(p, x: Tensor, cfg: ArchConfig) -> Tensor:
     x2 = x.reshape(-1, shape[-1])
     with obs.span("moe.dispatch", tokens=x2.shape[0]):
         r = _route(p, x2, cfg, mesh)
-        # the kept pairs by expert in queue order, the dropped ones last
-        key = torch.where(r.keep, r.expert, cfg.num_experts)
-        y = _experts(p, x2, r, key, expert_counts(key, cfg), cfg)
+        if grouped_path(x2.device, x2.shape[0], x2.dtype, cfg):
+            with obs.span("moe.grouped", tokens=x2.shape[0],
+                          pairs=r.expert.numel()):
+                # top-1's experts are a strided view of the router's sort
+                y = MK.grouped_experts(
+                    x2.contiguous(), r.expert.contiguous(), r.weight,
+                    r.keep, p["w_gate"], p["w_up"], p["w_down"], cfg.act)
+        else:
+            # the kept pairs by expert in queue order, the dropped ones last
+            key = torch.where(r.keep, r.expert, cfg.num_experts)
+            y = _experts(p, x2, r, key, expert_counts(key, cfg), cfg)
         if "shared" in p:
             y = y + L.dense_mlp(p["shared"], x2, cfg.act)
         return y.reshape(shape)

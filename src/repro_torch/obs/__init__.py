@@ -16,10 +16,11 @@ deterministic artifact byte (tests/test_obs.py pins bit-identity):
     ``serve.decode_step`` and ``serve.readback``; the page pool's
     ``pool.lookup``, ``pool.write`` and ``pool.readback``), the model's
     (``lm.decode_step`` with ``decode.attn`` and ``decode.mlp``; the MoE
-    layer's ``moe.dispatch`` with ``moe.route``, ``moe.readback`` and
-    ``moe.experts``) and the train step's (``train.step`` with
-    ``train.forward``, ``train.backward`` and ``train.optimizer``, which
-    carry device edges on a card; ``train.all_reduce``);
+    layer's ``moe.dispatch`` with ``moe.route``, then ``moe.readback``
+    and ``moe.experts`` or ``moe.grouped``) and the train step's
+    (``train.step`` with ``train.forward``, ``train.backward`` and
+    ``train.optimizer``, which carry device edges on a card;
+    ``train.all_reduce``);
   * ``metrics``  — process-global counters/gauges/histograms with
     Prometheus text + JSON snapshot export, including a build probe
     counting the port's ``nvcc`` kernel builds (``kernels/_build.py``);

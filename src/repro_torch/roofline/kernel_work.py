@@ -21,7 +21,9 @@ what these inputs need, not the most they could.
     request (plus 3 hashes of 10 on the extended tier) of the active
     requests, counted against the f32 peak;
   * ``pool_work``: the pool kernels, about 4 operations a way, 6 a hash
-    or segment and 1-2 a word read.
+    or segment and 1-2 a word read;
+  * ``grouped_experts_work``: the MoE decode experts, 6 D F FLOPs a kept
+    (token, slot) pair, each expert hit's three matrices read once.
 
 ``bound_ms`` turns a ``Work`` into the least milliseconds on ``chip``
 and what bounds it.
@@ -105,6 +107,19 @@ def flash_backward_work(q, k, v, kwargs) -> Work:
     n_bytes = 2 * (q.numel() + k.numel() + v.numel()
                    + b * s * h * hdv) * q.element_size()
     return Work(n_bytes, 2.5 * 2 * pairs * (hd + hdv), q.dtype)
+
+
+def grouped_experts_work(x2, expert, keep, w_gate) -> Work:
+    """One ``kernels.moe.grouped_experts`` call: x2, the routing and the
+    (T, D) output once, the three (D x F) matrices of each expert that a
+    kept pair names once, and 2 FLOPs a multiply-add of the kept pairs'
+    three products (6 D F a pair)."""
+    d, f = w_gate.shape[1], w_gate.shape[2]
+    kept = expert[keep]
+    es = x2.element_size()
+    n_bytes = (2 * x2.numel() * es + expert.numel() * (8 + 4 + 1)
+               + int(torch.unique(kept).numel()) * 3 * d * f * es)
+    return Work(n_bytes, 6 * d * f * int(kept.numel()), x2.dtype)
 
 
 def scan_work(tier: str, cols, ways: int, rows=None) -> Work:

@@ -11,8 +11,9 @@ full prefill whatever the pool says.
 The structure is the reference's: one ``lookup_batch`` per page key, a
 payload digest installed by ``write_page`` on a backing fetch, then the
 model's prefill and a greedy decode loop that reads the next tokens back
-to the host once a step (an MoE model's decode step adds one read-back a
-MoE layer, its experts' segment lengths: ``models.moe``).  With tracing
+to the host once a step (on the CPU an MoE model's decode step adds one
+read-back a MoE layer, its experts' segment lengths; on a card its
+experts run as grouped kernels with none: ``models.moe``).  With tracing
 on (``obs.enable()``) a batch is a ``serve.batch`` span holding
 ``serve.consult`` (the page keys' pool calls), ``serve.prefill`` and one
 ``serve.decode_step`` an iteration of the loop, whose ``serve.readback``

@@ -149,6 +149,33 @@ def test_moe_capacity_drops_depend_on_the_batch():
     assert np.abs(full - alone[0, 0]).max() > 1e-3
 
 
+@pytest.mark.parametrize("arch,tokens,factor", [
+    ("deepseek-moe-16b", 8, None), ("deepseek-moe-16b", 32, 0.25),
+    ("deepseek-v2-lite-16b", 7, None), ("jamba-1.5-large-398b", 16, None)])
+def test_moe_mlp_grouped_path_matches_reference(monkeypatch, arch, tokens,
+                                                factor):
+    """``moe_mlp`` on its grouped path (``grouped_path`` forced on; on the
+    CPU ``kernels.moe.grouped_experts`` runs its plain version) against the
+    reference's, on a decode step's tokens (a capacity factor of 0.25
+    makes deepseek-moe drop)."""
+    from repro_torch.kernels import moe as t_kmoe
+    kw = {} if factor is None else {"capacity_factor": factor}
+    jc, tc = pair(arch, **kw)
+    li = next(i for i, s in enumerate(t_w.layer_specs(tc)) if s.mlp == "moe")
+    p = layer_params(tc, li)["mlp"]
+    x = np.random.default_rng(tokens).standard_normal(
+        (tokens, 1, tc.d_model), np.float32)
+    monkeypatch.setattr(t_moe, "grouped_path", lambda *a: True)
+    t_kmoe.reset_launches()
+    with torch.no_grad():
+        ty = t_moe.moe_mlp(ttree(p), torch.from_numpy(x), tc)
+    assert t_kmoe.plain_runs["grouped_experts"] == 1
+    jy = j_moe.moe_mlp(jtree(p), jnp.asarray(x), jc)
+    np.testing.assert_allclose(np32(ty), np32(jy), **TOL)
+    r = t_moe.route(ttree(p), torch.from_numpy(x.reshape(tokens, -1)), tc)
+    assert (int((~r.keep).sum()) > 0) == (factor is not None)
+
+
 # ------------------------------------------------------------------ Mamba2
 
 def ssd_inputs(seed, b=2, s=48, h=4, p=8, g=2, n=6):
