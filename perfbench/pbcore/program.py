@@ -1,12 +1,15 @@
 """The program under test, built from a configuration file: the
-repository's ``repro_torch`` config of that name with the file's sizes,
-its ``LM`` on the device, and the benchmark's seeded weights copied into
-it.  Only the runner imports this module."""
+repository's ``repro_torch`` config of that name with the file's sizes
+and its layer layout's keys (``layouts/``), its ``LM`` on the device,
+and the benchmark's seeded weights copied into it.  Only the runner
+imports this module."""
 from __future__ import annotations
 
-from dataclasses import replace
+from dataclasses import fields, replace
 
 import torch
+
+import layouts
 
 from . import weights as W
 
@@ -18,13 +21,25 @@ SIZE_KEYS = ("d_model", "num_layers", "num_heads", "num_kv_heads",
 
 
 def arch_of(cfg: dict):
-    """The program's ``ArchConfig`` for configuration ``cfg``."""
+    """The program's ``ArchConfig`` for configuration ``cfg``: the file's
+    sizes, then its layout's ``ARCH_KEYS`` (each required), then the
+    layout's ``ARCH_FIXED``."""
     from repro_torch import configs
+    layout = layouts.of(cfg)
     base = configs.get(cfg["repo_config"])
     kw = {k: cfg[k] for k in SIZE_KEYS if k in cfg}
     if "mrope_sections" in cfg:
         kw["mrope_sections"] = tuple(cfg["mrope_sections"])
     kw["param_dtype"] = cfg["dtype"]
+    missing = [k for k in layout.ARCH_KEYS if k not in cfg]
+    if missing:
+        raise ValueError(f"{cfg['name']}: its layout needs {missing}")
+    kw.update({k: cfg[k] for k in layout.ARCH_KEYS})
+    kw.update(layout.ARCH_FIXED)
+    unknown = sorted(set(kw) - {f.name for f in fields(base)})
+    if unknown:
+        raise ValueError(f"{cfg['name']}: {unknown} are not fields of the "
+                         f"program's ArchConfig")
     arch = replace(base, **kw)
     if cfg.get("num_experts", 0) and len(arch.prefix_layers) != cfg.get(
             "first_dense_layers", 0):

@@ -7,6 +7,7 @@ from __future__ import annotations
 from statistics import median
 from typing import Optional
 
+import layouts
 from work import flops, hw, kernels
 from .trace import device_seconds, launches
 
@@ -43,7 +44,9 @@ def ms_per_round(rec: dict, *names: str) -> Optional[float]:
 
 
 def _attn(cfg: dict) -> tuple:
-    return cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"]
+    """(heads, KV heads, q.k head size, v head size) of the flash
+    kernel's call, by the configuration's layer layout."""
+    return layouts.of(cfg).attn_shape(cfg)
 
 
 def prefill_mfu(rec: dict) -> Optional[float]:
@@ -75,19 +78,19 @@ def serve_flash_roofline(rec: dict) -> Optional[float]:
     if t is None:
         return None
     cfg, s = rec["config"], rec["mix"]["prompt_tokens"]
-    h, kvh, hd = _attn(cfg)
+    h, kvh, hd, hdv = _attn(cfg)
     bound = sum(cfg["num_layers"] * hw.bound_s(*kernels.flash_work(
-        b, s, s, h, kvh, hd, hd)) for b, _ in rec["trace"]["rounds"])
+        b, s, s, h, kvh, hd, hdv)) for b, _ in rec["trace"]["rounds"])
     return 100 * bound / t
 
 
 def serve_decode_roofline(rec: dict) -> Optional[float]:
     t = device_seconds(rec["trace"], is_decode)
-    if t is None:
-        return None
     cfg, mix = rec["config"], rec["mix"]
+    h, kvh, hd, hdv = _attn(cfg)
+    if t is None or hd != hdv:      # ``decode_work``: one head size
+        return None
     s, cache = mix["prompt_tokens"], mix["prompt_tokens"] + mix["new_tokens"]
-    h, kvh, hd = _attn(cfg)
     bound = sum(cfg["num_layers"] * hw.bound_s(*kernels.decode_work(
         b, h, kvh, hd, cache, b * (s + k + 1)))
         for b, steps in rec["trace"]["rounds"] for k in range(steps))
@@ -124,8 +127,7 @@ def train_mfu(rec: dict) -> Optional[float]:
 
 def _train_shape(rec: dict) -> tuple:
     cfg, mix = rec["config"], rec["mix"]
-    h, kvh, hd = _attn(cfg)
-    return (mix["batch"], mix["seq"], mix["seq"], h, kvh, hd, hd)
+    return (mix["batch"], mix["seq"], mix["seq"], *_attn(cfg))
 
 
 def train_flash_roofline(rec: dict) -> Optional[float]:

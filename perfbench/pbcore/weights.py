@@ -3,13 +3,14 @@ and to the plain reference.
 
 Every leaf is named as the program names it (``"mixer.wq"``,
 ``"mlp.shared.w_up"``) and laid out (in, out), so neither side
-transposes anything.  The weights of one layer are drawn on the device in
-ONE call, from a ``torch.Generator`` seeded by (run seed, layer), into a
-flat buffer whose slices are the layer's leaves; the embedding, the
-unembedding and the final norm are a second such draw.  So any layer can
-be drawn again on its own: the reference draws each layer as it reaches
-it, after the program's state is freed, and never reads the program's
-copy.
+transposes anything; which leaves a layer holds is its configuration's
+layer layout's (``layouts/``).  The weights of one layer are drawn on
+the device in ONE call, from a ``torch.Generator`` seeded by (run seed,
+layer), into a flat buffer whose slices are the layer's leaves; the
+embedding, the unembedding and the final norm are a second such draw.
+So any layer can be drawn again on its own: the reference draws each
+layer as it reaches it, after the program's state is freed, and never
+reads the program's copy.
 
 This module imports neither the program nor the reference.
 """
@@ -17,15 +18,12 @@ from __future__ import annotations
 
 import hashlib
 import math
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List
 
 import torch
 
-
-class Leaf(NamedTuple):
-    name: str
-    shape: tuple
-    scale: Optional[float]     # None: ones (a norm's weight)
+import layouts
+from layouts import Leaf
 
 
 def sub_seed(seed: int, tag: str) -> int:
@@ -34,41 +32,10 @@ def sub_seed(seed: int, tag: str) -> int:
     return int.from_bytes(h.digest(), "little") & ((1 << 63) - 1)
 
 
-def is_moe_layer(cfg: dict, li: int) -> bool:
-    return cfg.get("num_experts", 0) > 0 and li >= cfg.get(
-        "first_dense_layers", 0)
-
-
 def layer_leaves(cfg: dict, li: int) -> List[Leaf]:
-    """The leaves of decoder layer ``li``: RMSNorm weights, GQA
-    projections, then a SwiGLU MLP or an MoE MLP (f32 router, stacked
-    experts, the shared experts as one MLP of width ``moe_d_ff *
-    num_shared_experts``)."""
-    d, h, kv, hd = (cfg["d_model"], cfg["num_heads"], cfg["num_kv_heads"],
-                    cfg["head_dim"])
-    out = [Leaf("ln1", (d,), None),
-           Leaf("mixer.wq", (d, h * hd), d ** -0.5),
-           Leaf("mixer.wk", (d, kv * hd), d ** -0.5),
-           Leaf("mixer.wv", (d, kv * hd), d ** -0.5),
-           Leaf("mixer.wo", (h * hd, d), (h * hd) ** -0.5),
-           Leaf("ln2", (d,), None)]
-    if is_moe_layer(cfg, li):
-        e, f = cfg["num_experts"], cfg["moe_d_ff"]
-        fs = f * cfg["num_shared_experts"]
-        out += [Leaf("mlp.router", (d, e), d ** -0.5),
-                Leaf("mlp.w_gate", (e, d, f), d ** -0.5),
-                Leaf("mlp.w_up", (e, d, f), d ** -0.5),
-                Leaf("mlp.w_down", (e, f, d), f ** -0.5)]
-        if fs:
-            out += [Leaf("mlp.shared.w_gate", (d, fs), d ** -0.5),
-                    Leaf("mlp.shared.w_up", (d, fs), d ** -0.5),
-                    Leaf("mlp.shared.w_down", (fs, d), fs ** -0.5)]
-    else:
-        f = cfg["d_ff"]
-        out += [Leaf("mlp.w_gate", (d, f), d ** -0.5),
-                Leaf("mlp.w_up", (d, f), d ** -0.5),
-                Leaf("mlp.w_down", (f, d), f ** -0.5)]
-    return out
+    """The leaves of decoder layer ``li``, as the configuration's layer
+    layout (``layouts/<layout>.py``) lists them."""
+    return layouts.of(cfg).layer_leaves(cfg, li)
 
 
 def top_leaves(cfg: dict) -> List[Leaf]:

@@ -127,9 +127,11 @@ def moe(w: Dict[str, Tensor], x2: Tensor, cfg: dict,
 
 
 def layer(w: Dict[str, Tensor], x: Tensor, ang: Tensor, cfg: dict,
-          moe_layer: bool, groups: Optional[Sequence[Tensor]]) -> Tensor:
+          moe_layer: bool, groups: Optional[Sequence[Tensor]],
+          attend: Callable = attention) -> Tensor:
+    """One pre-norm layer, its attention ``attend(w, h, ang, cfg)``."""
     eps = cfg["norm_eps"]
-    x = x + attention(w, rms_norm(x, w["ln1"], eps), ang, cfg)
+    x = x + attend(w, rms_norm(x, w["ln1"], eps), ang, cfg)
     h = rms_norm(x, w["ln2"], eps)
     if moe_layer:
         b, s, d = h.shape
@@ -156,42 +158,49 @@ def is_moe(cfg: dict, li: int) -> bool:
 @torch.no_grad()
 def forward_logits(cfg: dict, top: Dict[str, Tensor],
                    layer_weights: Callable[[int], Dict[str, Tensor]],
-                   tokens: Tensor, positions: Optional[Tensor] = None
-                   ) -> Tensor:
+                   tokens: Tensor, positions: Optional[Tensor] = None,
+                   attend: Callable = attention,
+                   angles: Callable = rope_angles) -> Tensor:
     """Logits (B, S, V) of a full causal forward over ``tokens`` (B, S),
-    every MoE layer one call over all of them."""
+    every MoE layer one call over all of them.  ``attend`` and ``angles``
+    are a layer's attention and its RoPE angles (another layout's, such
+    as ``mla.py``'s)."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-    ang = rope_angles(positions, cfg)
+    ang = angles(positions, cfg)
     x = embed(top, tokens, cfg)
     for li in range(cfg["num_layers"]):
-        x = layer(layer_weights(li), x, ang, cfg, is_moe(cfg, li), None)
+        x = layer(layer_weights(li), x, ang, cfg, is_moe(cfg, li), None,
+                  attend)
     return head(top, x, cfg)
 
 
 @torch.no_grad()
 def served_logits(cfg: dict, top: Dict[str, Tensor],
                   layer_weights: Callable[[int], Dict[str, Tensor]],
-                  batches: List[Tensor], prompt_len: int) -> List[Tensor]:
+                  batches: List[Tensor], prompt_len: int,
+                  attend: Callable = attention,
+                  angles: Callable = rope_angles) -> List[Tensor]:
     """Logits (B, L - prompt_len + 1, V) at positions prompt_len - 1 ..
     L - 1 of each batch (B, L) of a served round: its prompts and the
     tokens served after them.  The MoE calls are the server's: the
     prompts of the round together, then each later position alone (one
     decode step).  ``layer_weights(li)`` gives layer ``li``'s weights;
-    every batch passes a layer before the next layer is asked for."""
+    every batch passes a layer before the next layer is asked for.
+    ``attend`` and ``angles`` as in ``forward_logits``."""
     xs, angs, groups = [], [], []
     for toks in batches:
         b, n = toks.shape
         pos = torch.arange(n, device=toks.device).expand(b, n)
         xs.append(embed(top, toks, cfg))
-        angs.append(rope_angles(pos, cfg))
+        angs.append(angles(pos, cfg))
         flat = torch.arange(b * n, device=toks.device).view(b, n)
         groups.append([flat[:, :prompt_len].reshape(-1)]
                       + [flat[:, t] for t in range(prompt_len, n)])
     for li in range(cfg["num_layers"]):
         w = layer_weights(li)
-        xs = [layer(w, x, a, cfg, is_moe(cfg, li), g)
+        xs = [layer(w, x, a, cfg, is_moe(cfg, li), g, attend)
               for x, a, g in zip(xs, angs, groups)]
         del w
     return [head(top, x[:, prompt_len - 1:], cfg) for x in xs]
